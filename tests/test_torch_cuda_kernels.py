@@ -103,3 +103,59 @@ def test_decode_megakernel_matches_plain(dtype, tol, idx, gated):
     assert torch.equal(kc2[:, :, idx], k_new)
     assert within(hid, dm.mega_decode_step_plain(st, x, kc.clone(), vc.clone(), *args[3:],
                                                  gated=gated)[0], tol)
+
+
+def _attention_case(dtype, bias: bool, lq: int = 304, lk: int = 384):
+    """q/k/v/bias on the card (Lq not a multiple of the 64-row tile), the
+    last 80 keys of example 0 masked, and a random output gradient."""
+    g = _gen()
+    q = torch.randn(2, 3, lq, 64, generator=g) * 0.5
+    k, v = (torch.randn(2, 3, lk, 64, generator=g) * 0.5 for _ in range(2))
+    b = torch.randn(1, 3, lq, lk, generator=g) if bias else None
+    mask = torch.ones(2, lk, dtype=torch.int32)
+    mask[0, lk - 80:] = 0
+    dout = torch.randn(2, 3, lq, 64, generator=g)
+    on = lambda t: None if t is None else t.cuda().to(dtype)  # noqa: E731
+    return on(q), on(k), on(v), on(b), mask.cuda(), on(dout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_fused_attention_forward_with_dropout_matches_plain(dtype, tol, bias):
+    require_cuda()
+    from vidchapters_tpu_torch.ops import fused_attention as fa
+
+    q, k, v, b, mask, _ = _attention_case(dtype, bias)
+    got, lse = fa._forward(q, k, v, b, mask, 1234, 0.1, want_lse=True)
+    ref = fa.fused_attention_plain(q, k, v, b, mask, 1234, 0.1)
+    torch.cuda.synchronize()
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+    scores = fa._scores(q, k, b, mask)
+    assert torch.allclose(lse, torch.logsumexp(scores, dim=-1), atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_fused_attention_backward_matches_plain(dtype, tol, bias, rate):
+    require_cuda()
+    from vidchapters_tpu_torch.ops import fused_attention as fa
+
+    q, k, v, b, mask, dout = _attention_case(dtype, bias)
+    out, lse = fa._forward(q, k, v, b, mask, 99, rate, want_lse=True)
+    before = fa.BWD_KERNEL.launches
+    got = fa.fused_attention_bwd(q, k, v, b, mask, 99, rate, out, dout, lse)
+    again = fa.fused_attention_bwd(q, k, v, b, mask, 99, rate, out, dout, lse)
+    ref = fa.fused_attention_bwd_plain(q, k, v, b, mask, 99, rate, out, dout)
+    torch.cuda.synchronize()
+    assert fa.BWD_KERNEL.launches == before + 2
+    assert (got[3] is None) == (not bias)
+    for name, a, a2, r in zip(("dq", "dk", "dv", "dbias"), got, again, ref):
+        if r is None:
+            continue
+        assert a.dtype == torch.float32 and a.shape == r.shape, name
+        assert torch.equal(a, a2), f"{name}: two runs differ"  # no float atomics
+        err = (a - r).abs().max().item()
+        assert err <= tol, f"{name}: max abs err {err} > {tol}"

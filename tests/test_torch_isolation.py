@@ -36,7 +36,9 @@ def test_package_imports_with_jax_blocked():
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'vidchapters_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import vidchapters_tpu_torch.serve, vidchapters_tpu_torch.models.weights\n"
-        "import vidchapters_tpu_torch.ops.decoding\n"
+        "import vidchapters_tpu_torch.ops.decoding, vidchapters_tpu_torch.runtime.rng\n"
+        "import vidchapters_tpu_torch.train.dvc_train, vidchapters_tpu_torch.train.schedules\n"
+        "import vidchapters_tpu_torch.data.dvc_dataset, vidchapters_tpu_torch.utils.io\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'vidchapters_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

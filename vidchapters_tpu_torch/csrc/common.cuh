@@ -33,6 +33,38 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Attention-probability dropout of the fused attention kernels, as
+// vidchapters_tpu/ops/fused_attention.py::_keep_scale computes it: one
+// murmur3 hash of x = row * (Lk/2) + col (row absolute, Lk the padded key
+// length) gives two 16-bit decisions, the low half for key col < Lk/2 and
+// the high half for key col + Lk/2. A kept element is scaled by inv.
+struct Dropout {
+  unsigned seed;    // uint32 seed of the call
+  int on;           // 0: no dropout (keep_scale is never called)
+  unsigned thresh;  // min(int(rate * 65536), 65535)
+  float inv;        // float32(1 / (1 - rate))
+};
+
+__device__ __forceinline__ unsigned dropout_mix(const Dropout& dr, int b, int h) {
+  return dr.seed ^ ((unsigned)b * 0x9E3779B1u) ^ ((unsigned)h * 0x85EBCA6Bu);
+}
+
+__device__ __forceinline__ float keep_scale(const Dropout& dr, unsigned mixed, int row,
+                                            int key, int Lk) {
+  const unsigned half = (unsigned)Lk >> 1;
+  const bool high = (unsigned)key >= half;
+  unsigned x = (unsigned)row * half + ((unsigned)key - (high ? half : 0u));
+  x ^= mixed;
+  x *= 0xCC9E2D51u;
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  const unsigned bits = high ? (x >> 16) : (x & 0xFFFFu);
+  return bits >= dr.thresh ? dr.inv : 0.f;
+}
+
 }  // namespace vc
 
 // Entry points return the launch's error code; dtype codes: 0 = float32, 1 = bfloat16.

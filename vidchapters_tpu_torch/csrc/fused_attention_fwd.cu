@@ -1,8 +1,10 @@
-// Fused bias-aware attention, forward: out = softmax(q k^T + bias + (mask - 1) * 1e9) v.
+// Fused bias-aware attention, forward:
+//   out = dropout(softmax(q k^T + bias + (mask - 1) * 1e9)) v
+// and, when asked (training), lse = m + log l per query row for the backward.
 //
 // Replaces: vidchapters_tpu/ops/fused_attention.py::_fused_forward / _fwd_kernel
-// (the pl.pallas_call at line 163), forward only and without dropout.
-// Scores are unscaled, as in T5.
+// (the pl.pallas_call at line 163), with its in-kernel hash dropout
+// (vc::keep_scale in common.cuh). Scores are unscaled, as in T5.
 //
 // What bounds it on the H100: at the T5-base encoder's shape (B=8, H=12,
 // L=1024, D=64, bf16) one call does 4*B*H*L^2*D = 25.8 GFLOP and must move
@@ -21,6 +23,12 @@
 // wgmma, so it is bound by fp32 operations (67 TFLOP/s peak) far above the
 // tensor-core bound above; moving the two products onto wgmma is the next
 // step.
+//
+// Dropout: the keep mask multiplies p after the row sum, so the running sum
+// l takes the undropped p and the accumulator the dropped one, which is
+// probs = e / s; probs *= keep of the TPU kernel. The mask hashes the
+// absolute query row and the key column over the (padded) Lk of the call.
+// lse lets the backward rebuild p = exp(s - lse) in O(L) memory.
 
 #include "common.cuh"
 
@@ -39,7 +47,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(NT) fused_attention_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ bias, const int* __restrict__ key_mask, T* __restrict__ out,
-    int H, int Lq, int Lk) {
+    float* __restrict__ lse, int H, int Lq, int Lk, vc::Dropout dr) {
   extern __shared__ float smem[];
   float* Qs = smem;                  // [BQ][D + 1]
   float* Ks = Qs + BQ * (D + 1);     // [BK][D + 1]
@@ -55,6 +63,7 @@ __global__ void __launch_bounds__(NT) fused_attention_fwd_kernel(
   const T* vp = v + bh * Lk * D;
   const T* bp = bias ? bias + (long)h * Lq * Lk : nullptr;
   const int* mp = key_mask + (long)b * Lk;
+  const unsigned mixed = vc::dropout_mix(dr, b, h);
 
   for (int e = tid; e < BQ * D; e += NT) {
     const int r = e / D, d = e % D;
@@ -121,8 +130,9 @@ __global__ void __launch_bounds__(NT) fused_attention_fwd_kernel(
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float p = expf(s[i][j] - mn);
-        Ps[(ty + 16 * i) * (BK + 1) + tx + 16 * j] = p;
-        ps += p;
+        ps += p;  // the row sum takes p before dropout
+        Ps[(ty + 16 * i) * (BK + 1) + tx + 16 * j] =
+            dr.on ? p * vc::keep_scale(dr, mixed, q0 + ty + 16 * i, k0 + tx + 16 * j, Lk) : p;
       }
 #pragma unroll
       for (int o = 8; o > 0; o >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, o);
@@ -156,13 +166,14 @@ __global__ void __launch_bounds__(NT) fused_attention_fwd_kernel(
 #pragma unroll
     for (int c = 0; c < CD; ++c)
       op[(long)row * D + tx + 16 * c] = vc::from_f<T>(acc[i][c] * inv);
+    if (lse != nullptr && tx == 0) lse[bh * Lq + row] = m[i] + logf(l[i]);
   }
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* bias,
-           const void* key_mask, void* out, int B, int H, int Lq, int Lk,
-           cudaStream_t stream) {
+           const void* key_mask, void* out, void* lse, int B, int H, int Lq, int Lk,
+           vc::Dropout dr, cudaStream_t stream) {
   auto kern = fused_attention_fwd_kernel<T, D>;
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -172,18 +183,18 @@ int launch(const void* q, const void* k, const void* v, const void* bias,
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(bias), static_cast<const int*>(key_mask), static_cast<T*>(out),
-      H, Lq, Lk);
+      static_cast<float*>(lse), H, Lq, Lk, dr);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_d(const void* q, const void* k, const void* v, const void* bias,
-               const void* key_mask, void* out, int B, int H, int Lq, int Lk, int D,
-               cudaStream_t stream) {
+               const void* key_mask, void* out, void* lse, int B, int H, int Lq, int Lk,
+               int D, vc::Dropout dr, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, bias, key_mask, out, B, H, Lq, Lk, stream);
-    case 64: return launch<T, 64>(q, k, v, bias, key_mask, out, B, H, Lq, Lk, stream);
-    case 128: return launch<T, 128>(q, k, v, bias, key_mask, out, B, H, Lq, Lk, stream);
+    case 32: return launch<T, 32>(q, k, v, bias, key_mask, out, lse, B, H, Lq, Lk, dr, stream);
+    case 64: return launch<T, 64>(q, k, v, bias, key_mask, out, lse, B, H, Lq, Lk, dr, stream);
+    case 128: return launch<T, 128>(q, k, v, bias, key_mask, out, lse, B, H, Lq, Lk, dr, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -191,16 +202,21 @@ int dispatch_d(const void* q, const void* k, const void* v, const void* bias,
 }  // namespace
 
 // q [B,H,Lq,D], k/v [B,H,Lk,D], bias [1,H,Lq,Lk] or null, key_mask [B,Lk] int32,
-// out [B,H,Lq,D]; all contiguous, Lk a multiple of 64, D in {32, 64, 128}.
+// out [B,H,Lq,D], lse [B,H,Lq] float32 or null; all contiguous, Lk a multiple
+// of 64, D in {32, 64, 128}. Dropout when use_dropout: seed, the 16-bit
+// threshold and the float32 scale of a kept probability.
 extern "C" int fused_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* bias, const void* key_mask, void* out,
-                                   int B, int H, int Lq, int Lk, int D, int dtype,
+                                   void* lse, int B, int H, int Lq, int Lk, int D, int dtype,
+                                   unsigned seed, int use_dropout, int thresh, float inv,
                                    void* stream) {
   if (Lk % BK != 0 || Lq <= 0 || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const vc::Dropout dr{seed, use_dropout, (unsigned)thresh, inv};
   if (dtype == VC_DTYPE_F32)
-    return dispatch_d<float>(q, k, v, bias, key_mask, out, B, H, Lq, Lk, D, s);
+    return dispatch_d<float>(q, k, v, bias, key_mask, out, lse, B, H, Lq, Lk, D, dr, s);
   if (dtype == VC_DTYPE_BF16)
-    return dispatch_d<__nv_bfloat16>(q, k, v, bias, key_mask, out, B, H, Lq, Lk, D, s);
+    return dispatch_d<__nv_bfloat16>(q, k, v, bias, key_mask, out, lse, B, H, Lq, Lk, D,
+                                     dr, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,2 +1,2 @@
-"""Host-side data helpers of the serving path: tokenizers, time tokens,
-feature shaping."""
+"""Host-side data: tokenizers, time tokens, feature loading, span
+corruption and the dense-video-captioning dataset."""

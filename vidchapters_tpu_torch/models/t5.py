@@ -6,6 +6,14 @@ first layer's table of each stack and shared by every layer; unscaled
 attention; ReLU or gated-GELU feed-forward; tied embeddings with the
 ``d_model**-0.5`` logit rescale; label-smoothed cross-entropy.
 
+Training mode: every forward takes ``rng``, a ``runtime.rng.StepRng`` or
+None (deterministic). With one, dropout runs where the JAX package's
+``deterministic=False`` runs it: the embeddings, each sublayer's output,
+the FF hidden, the final norm, and the attention probabilities by route
+(the fused kernel's hash mask, the dense route's hash mask, or an element
+mask). Block rematerialisation is not ported: it changes no result, and
+the card holds the activations of the reference recipe.
+
 Parameters are held in their stored dtype (float32 by default) and every
 product runs in ``cfg.dtype`` (bfloat16 by default), as the JAX package's
 ``Dense(dtype=...)`` does. Long self-attention (Lq > 128 and Lq*Lk > 512^2)
@@ -24,7 +32,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from vidchapters_tpu_torch.config import T5Config
-from vidchapters_tpu_torch.ops.fused_attention import fused_attention_padded
+from vidchapters_tpu_torch.ops.fused_attention import (
+    dropout_scale,
+    fused_attention_padded,
+    mul32,
+    murmur_mix,
+)
+from vidchapters_tpu_torch.runtime.rng import StepRng
 
 NEG_INF = -1e9  # large-negative additive mask (safe in bf16)
 
@@ -33,6 +47,37 @@ SEQ_PAD_BLOCK = 128
 
 # Query chunk below which attention stays dense (T5Attention.CHUNK there).
 CHUNK = 128
+
+# Training attentions with Lq*Lk at or above this (and off the fused route)
+# drop their probabilities with the hashed mask ``dense_keep_scale``
+# (t5.py:440-467 there), below it with an element mask.
+DENSE_REMAT_MIN_ELEMS = 256 * 256
+
+
+def dense_keep_scale(seed: int, shape, rate: float, device=None) -> torch.Tensor:
+    """``[B, H, Lq, Lk]`` float32 keep mask, ``1/(1-rate)`` or 0: murmur3
+    over ``x = pos + row * (Lq*Lk)`` (row = b*H + h, pos = q*Lk + k, uint32
+    wrap) with a 32-bit threshold, as ``_dense_keep_scale`` (t5.py:123-141
+    there)."""
+    b, h, lq, lk = shape
+    n = lq * lk
+    pos = torch.arange(n, dtype=torch.int64, device=device)[None, :]
+    row = torch.arange(b * h, dtype=torch.int64, device=device)[:, None]
+    x = (pos + mul32(row, n & 0xFFFFFFFF)) & 0xFFFFFFFF
+    x = murmur_mix(x ^ mul32(torch.tensor(seed & 0xFFFFFFFF, device=device), 0x9E3779B1))
+    thresh = min(int(rate * 2**32), 2**32 - 1)
+    keep = torch.where(x >= thresh,
+                       torch.tensor(dropout_scale(rate), device=device),
+                       torch.zeros((), device=device))
+    return keep.reshape(shape)
+
+
+def _apply_dropout(x: torch.Tensor, rate: float, rng: Optional[StepRng]) -> torch.Tensor:
+    """Element dropout in training (``rng`` given), identity otherwise."""
+    if rng is None or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    return torch.where(rng.keep_mask(x, keep), x / keep, torch.zeros_like(x))
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -100,7 +145,14 @@ class RelativePositionBias(nn.Module):
         buckets = relative_position_bucket(
             mem - ctx, self.bidirectional, cfg.relative_attention_num_buckets,
             cfg.relative_attention_max_distance)
-        bias = self.rel_embedding.float()[buckets.long()]      # [q, k, h]
+        # a one-hot product instead of rel_embedding[buckets], as t5.py:
+        # 225-234 there: exact in fp32 (one 1.0 per row), and its backward
+        # is a matrix product where the gather's is a scatter-add of q*k
+        # rows into the [buckets, heads] table (118 ms against 0.54 ms at
+        # L=1024 on an H100 80GB at 700 W, chip_smoke.py's training phase)
+        onehot = (buckets[..., None] == torch.arange(
+            cfg.relative_attention_num_buckets, device=dev)).float()
+        bias = torch.matmul(onehot, self.rel_embedding.float())  # [q, k, h]
         return bias.permute(2, 0, 1)[None].to(_dtype(cfg)).contiguous()
 
 
@@ -121,19 +173,24 @@ class T5Attention(nn.Module):
         return x.view(b, l, self.cfg.num_heads, self.cfg.d_kv).transpose(1, 2)
 
     def forward(self, hidden: torch.Tensor, kv: torch.Tensor,
-                bias: Optional[torch.Tensor],
-                key_mask: Optional[torch.Tensor]) -> torch.Tensor:
+                bias: Optional[torch.Tensor], key_mask: Optional[torch.Tensor],
+                dropout_rate: float = 0.0, rng: Optional[StepRng] = None) -> torch.Tensor:
         """``bias`` is batch-independent ([1, h, q, k]); the [B, K]
-        ``key_mask`` is applied separately."""
+        ``key_mask`` is applied separately. With ``rng`` the probabilities
+        take dropout at ``dropout_rate``."""
         dt = _dtype(self.cfg)
         q = self._split(_linear(hidden, self.q, dt))
         k = self._split(_linear(kv, self.k, dt))
         v = self._split(_linear(kv, self.v, dt))
         lq, lk = q.shape[2], k.shape[2]
+        drop = dropout_rate if rng is not None else 0.0
         large = lq > CHUNK and lq * lk > 512 * 512
         if (large and key_mask is not None
                 and (bias is None or bias.shape[0] == 1)):
-            out = fused_attention_padded(q, k, v, bias, key_mask)
+            # one uint32 per call: the kernels rebuild the keep mask from it
+            seed = rng.seed32() if drop > 0.0 else 0
+            out = fused_attention_padded(q, k, v, bias, key_mask, seed=seed,
+                                         dropout_rate=drop)
         else:
             scores = torch.matmul(q, k.transpose(-1, -2)).float()
             if bias is not None:
@@ -141,7 +198,12 @@ class T5Attention(nn.Module):
             if key_mask is not None:
                 scores = torch.where(key_mask[:, None, None, :].bool(), scores,
                                      torch.full_like(scores, NEG_INF))
-            probs = torch.softmax(scores, dim=-1).to(q.dtype)
+            probs = torch.softmax(scores, dim=-1)
+            if drop > 0.0 and lq * lk >= DENSE_REMAT_MIN_ELEMS:
+                keep = dense_keep_scale(rng.seed32(), probs.shape, drop, probs.device)
+                probs = (probs * keep).to(q.dtype)
+            else:
+                probs = _apply_dropout(probs.to(q.dtype), drop, rng)
             out = torch.matmul(probs, v)
         b, h, l, d = out.shape
         return _linear(out.transpose(1, 2).reshape(b, l, h * d), self.o, dt)
@@ -158,7 +220,8 @@ class T5FeedForward(nn.Module):
             self.wi = nn.Linear(cfg.d_model, cfg.d_ff, bias=False)
         self.wo = nn.Linear(cfg.d_ff, cfg.d_model, bias=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dropout_rate: float = 0.0,
+                rng: Optional[StepRng] = None) -> torch.Tensor:
         dt = _dtype(self.cfg)
         if self.cfg.is_gated_act:
             # HF "gated-gelu" is gelu_new, the tanh approximation
@@ -166,7 +229,7 @@ class T5FeedForward(nn.Module):
                  * _linear(x, self.wi_1, dt))
         else:
             h = torch.relu(_linear(x, self.wi, dt))
-        return _linear(h, self.wo, dt)
+        return _linear(_apply_dropout(h, dropout_rate, rng), self.wo, dt)
 
 
 class T5Block(nn.Module):
@@ -182,13 +245,17 @@ class T5Block(nn.Module):
         self.ff_norm = RMSNorm(cfg.d_model, eps, dt)
         self.ff = T5FeedForward(cfg)
 
-    def forward(self, x, self_bias, enc_out, self_key_mask, cross_key_mask):
+    def forward(self, x, self_bias, enc_out, self_key_mask, cross_key_mask,
+                dropout_rate: float = 0.0, rng: Optional[StepRng] = None):
         normed = self.self_attn_norm(x)
-        x = x + self.self_attn(normed, normed, self_bias, self_key_mask)
+        h = self.self_attn(normed, normed, self_bias, self_key_mask, dropout_rate, rng)
+        x = x + _apply_dropout(h, dropout_rate, rng)
         if self.is_decoder and enc_out is not None:
-            x = x + self.cross_attn(self.cross_attn_norm(x), enc_out, None,
-                                    cross_key_mask)
-        return x + self.ff(self.ff_norm(x))
+            h = self.cross_attn(self.cross_attn_norm(x), enc_out, None,
+                                cross_key_mask, dropout_rate, rng)
+            x = x + _apply_dropout(h, dropout_rate, rng)
+        h = self.ff(self.ff_norm(x), dropout_rate, rng)
+        return x + _apply_dropout(h, dropout_rate, rng)
 
 
 class T5Stack(nn.Module):
@@ -201,10 +268,15 @@ class T5Stack(nn.Module):
         self.final_norm = RMSNorm(cfg.d_model, cfg.layer_norm_epsilon, _dtype(cfg))
         self.rel_bias = RelativePositionBias(cfg, bidirectional=not is_decoder)
 
+    @property
+    def dropout_rate(self) -> float:
+        return self.cfg.decoder_dropout if self.is_decoder else self.cfg.encoder_dropout
+
     def forward(self, inputs_embeds: torch.Tensor, attention_mask: torch.Tensor,
                 enc_out: Optional[torch.Tensor] = None,
-                enc_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Full-sequence forward (deterministic)."""
+                enc_mask: Optional[torch.Tensor] = None,
+                rng: Optional[StepRng] = None) -> torch.Tensor:
+        """Full-sequence forward; training mode when ``rng`` is given."""
         _, l_orig, _ = inputs_embeds.shape
         # the encoder pads its stream once to the kernel's 128-row block;
         # padded positions are masked as keys and sliced off at the end
@@ -212,15 +284,16 @@ class T5Stack(nn.Module):
         if l != l_orig:
             inputs_embeds = F.pad(inputs_embeds, (0, 0, 0, l - l_orig))
             attention_mask = F.pad(attention_mask, (0, l - l_orig))
-        x = inputs_embeds.to(_dtype(self.cfg))
+        rate = self.dropout_rate
+        x = _apply_dropout(inputs_embeds.to(_dtype(self.cfg)), rate, rng)
         self_bias = self.rel_bias(l, l)
         if self.is_decoder:
             causal = torch.tril(torch.ones(l, l, dtype=torch.bool, device=x.device))
             self_bias = torch.where(causal[None, None], self_bias,
                                     torch.full_like(self_bias, NEG_INF))
         for blk in self.blocks:
-            x = blk(x, self_bias, enc_out, attention_mask, enc_mask)
-        x = self.final_norm(x)
+            x = blk(x, self_bias, enc_out, attention_mask, enc_mask, rate, rng)
+        x = _apply_dropout(self.final_norm(x), rate, rng)
         return x[:, :l_orig] if l != l_orig else x
 
 
@@ -241,13 +314,14 @@ class T5ForConditionalGeneration(nn.Module):
 
     def encode(self, input_ids: Optional[torch.Tensor] = None,
                inputs_embeds: Optional[torch.Tensor] = None,
-               attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+               attention_mask: Optional[torch.Tensor] = None,
+               rng: Optional[StepRng] = None) -> torch.Tensor:
         if inputs_embeds is None:
             inputs_embeds = self.embed(input_ids)
         if attention_mask is None:
             attention_mask = torch.ones(inputs_embeds.shape[:2], dtype=torch.int32,
                                         device=inputs_embeds.device)
-        return self.encoder(inputs_embeds, attention_mask)
+        return self.encoder(inputs_embeds, attention_mask, rng=rng)
 
     def logits_from_hidden(self, hidden: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -260,16 +334,17 @@ class T5ForConditionalGeneration(nn.Module):
 
     def decode(self, decoder_input_ids: torch.Tensor,
                decoder_attention_mask: torch.Tensor, enc_out: torch.Tensor,
-               enc_mask: torch.Tensor) -> torch.Tensor:
+               enc_mask: torch.Tensor, rng: Optional[StepRng] = None) -> torch.Tensor:
         dec = self.decoder(self.embed(decoder_input_ids), decoder_attention_mask,
-                           enc_out=enc_out.to(_dtype(self.cfg)), enc_mask=enc_mask)
+                           enc_out=enc_out.to(_dtype(self.cfg)), enc_mask=enc_mask,
+                           rng=rng)
         return self.logits_from_hidden(dec)
 
     def forward(self, input_ids, attention_mask, decoder_input_ids,
-                decoder_attention_mask) -> torch.Tensor:
-        enc = self.encode(input_ids=input_ids, attention_mask=attention_mask)
+                decoder_attention_mask, rng: Optional[StepRng] = None) -> torch.Tensor:
+        enc = self.encode(input_ids=input_ids, attention_mask=attention_mask, rng=rng)
         return self.decode(decoder_input_ids, decoder_attention_mask, enc,
-                           attention_mask)
+                           attention_mask, rng=rng)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
