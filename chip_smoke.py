@@ -16,8 +16,11 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    autograd, at the 1000-long padded case; top-k over [8, 4*32200] with
    forced ties, exactly; the decode kernel at 8 examples x 4 beams, 12
    layers, L=256, Lenc=1152, at several cache indices with a beam
-   permutation. Each kernel's time (CUDA events), its plain version's time,
-   the one-call library yardstick where one exists, and its bound.
+   permutation; the decode self-attention at 32 rows x 12 heads, L=256,
+   cache indices 0/127/255 (caches bit for bit), and the decode
+   cross-attention at 8 examples x 4 and x 1 beams over 1152 padded keys.
+   Each kernel's time (CUDA events), its plain version's time, the one-call
+   library yardstick where one exists, and its bound.
 3. Training at full width: Vid2Seq (T5-base + 12-layer ViT, dropout 0.1)
    trained by make_train_step on batches of 8 from the port's EpochIterator
    over a synthetic on-disk dataset (input 1000, output 256, denoising
@@ -32,11 +35,19 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    after; each must be > 0. Then two requests at max_length 64 in fp32,
    once with the kernels on the card and once with the plain versions on
    the CPU: the tokens must be identical.
+5. Training and evaluation at full width through train/dvc_main.main: one
+   epoch (2 steps of 8) on a synthetic dataset with a val split, the val
+   eval and the final eval at beam 4 / max_length 256 on the standard
+   cached decode (the decode-attention kernels, not the decode kernel),
+   checkpoints, then an eval_only rerun with nucleus sampling that resumes;
+   every DVC/SODA metric finite; fp32 tokens of the standard decode, card
+   against CPU (beam 4, greedy) and against the decode kernel (beam 4).
 
-The kernels' launch counts are zeroed just before each main path (phases 3
-and 4) and read just after it; the kernel line reports each kernel's
-count from its own path (training for the fused attention, serving for
-top-k and the decode kernel).
+The kernels' launch counts are zeroed just before each main path (phases
+3, 4 and each run of 5) and read just after it; the kernel line reports
+each kernel's count from its own path (training for the fused attention,
+serving for top-k and the decode kernel, phase 5's first run for the
+decode-attention kernels).
 
 The last lines are the kernel table as one JSON object, the nvidia-smi
 line, and {"ok": true, "device": {...}}. The full record also goes to
@@ -92,6 +103,33 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def time_ms_graph(fn, iters: int = 20, reps: int = 5) -> float:
+    """Device time per call of ``fn`` in ms: ``iters`` calls captured in one
+    CUDA graph and replayed ``reps`` times, so the host's per-call work (a
+    wrapper's checks, the launch itself) is not in the time. For calls of
+    tens of microseconds, which ``time_ms`` would time by the host."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up outside the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
+
+
 def within(got, ref, atol: float) -> bool:
     """Every element within ``atol``, or, for bfloat16, within two bf16
     ulps of the reference value where that is larger: a sum taken in
@@ -132,7 +170,7 @@ def phase_device_and_build():
         f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.time()
     logs = _build.build(["fused_attention_fwd", "fused_attention_bwd", "topk",
-                         "decode_megakernel"])
+                         "decode_megakernel", "decode_attention"])
     for name, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling entry", "smem")):
@@ -481,6 +519,150 @@ def check_megakernel(gen):
             "shape": "8 examples x 4 beams, 12 layers, L=256, Lenc=1152, idx=128, bf16"}
 
 
+DEC_ROWS, DEC_HEADS, DEC_LEN, DEC_DKV = 32, 12, 256, 64  # 8 examples x 4 beams, T5-base
+DEC_LENC = 1152  # 100 frames + the 1000 input bucket, padded to 128 by Vid2Seq.encode
+TIMING_GRAPH = ("device time per call: 20 calls in one CUDA graph, replayed 5 times "
+                "(eager_ms: back-to-back eager calls, which the host's per-call work bounds)")
+
+
+def check_decode_self_attention(gen):
+    """The decode self-attention kernel against its plain version at the
+    standard decode's beam-4 shape, cache indices 0, 127 and 255, fp32 and
+    bf16: the output within tolerance, the caches bit for bit (row idx is
+    the new k/v, every other row untouched). Timed at idx 255 (every cache
+    row read) and 127, by CUDA-graph replay (device time) and eagerly; the
+    yardstick is an ``index_copy_`` of the new rows and SDPA (scale 1, the
+    bias row as its float mask)."""
+    import torch
+
+    from vidchapters_tpu_torch.ops import decode_attention as da
+
+    r, h, length, d = DEC_ROWS, DEC_HEADS, DEC_LEN, DEC_DKV
+    q, k_new, v_new = (torch.randn(r, h, 1, d, generator=gen) for _ in range(3))
+    kc, vc = (torch.randn(r, h, length, d, generator=gen) for _ in range(2))
+    bias_all = torch.randn(1, h, 1, length, generator=gen)
+
+    def inputs(dtype, idx):
+        bias = bias_all.clone()
+        bias[..., idx + 1:] = da.NEG_INF
+        return [t.to("cuda", dtype) for t in (q, k_new, v_new, kc, vc, bias)]
+
+    errs = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        worst = 0.0
+        for idx in (0, 127, length - 1):
+            qq, kn, vn, kk, vv, bb = inputs(dtype, idx)
+            k2, v2 = kk.clone(), vv.clone()
+            out, k_out, v_out = da.decode_self_attention(qq, kn, vn, kk, vv, bb, idx)
+            ref, k_ref, v_ref = da.decode_self_attention_plain(qq, kn, vn, k2, v2, bb, idx)
+            torch.cuda.synchronize()
+            check(k_out is kk and v_out is vv, "decode_self_attention: caches not in place")
+            check(torch.equal(kk, k_ref) and torch.equal(vv, v_ref),
+                  f"decode_self_attention {dtype} idx={idx}: caches differ from plain")
+            err = (out.float() - ref.float()).abs().max().item()
+            check(within(out, ref, tol), f"decode_self_attention {dtype} idx={idx}: err {err}")
+            worst = max(worst, err)
+        say(f"[check] decode_self_attention [{r},{h},1,{d}] over [{r},{h},{length},{d}] "
+            f"{dtype} idx 0/127/255: max_abs_err {worst:.3e} (tol {tol}"
+            f"{', or 2 bf16 ulps' if dtype == torch.bfloat16 else ''}); caches bit-identical")
+        errs[dtype] = worst
+    idx = length - 1
+    qq, kn, vn, kk, vv, bb = inputs(torch.bfloat16, idx)
+    kernel = lambda: da.decode_self_attention(qq, kn, vn, kk, vv, bb, idx)  # noqa: E731
+    plain = lambda: da.decode_self_attention_plain(qq, kn, vn, kk, vv, bb, idx)  # noqa: E731
+    ms, ms_eager = time_ms_graph(kernel), time_ms(kernel, 50)
+    mid = inputs(torch.bfloat16, 127)
+    ms_mid = time_ms_graph(lambda: da.decode_self_attention(*mid, 127))
+    plain_ms, plain_eager = time_ms_graph(plain), time_ms(plain, 20)
+    where = torch.tensor([idx], device="cuda")
+
+    def library():
+        kk.index_copy_(2, where, kn)
+        vv.index_copy_(2, where, vn)
+        return torch.nn.functional.scaled_dot_product_attention(qq, kk, vv, attn_mask=bb,
+                                                                scale=1.0)
+
+    lib_ms, lib_eager = time_ms_graph(library), time_ms(library, 50)
+    # read: q, k_new, v_new, the idx live cache rows of k and v, the bias row;
+    # written: out and the new cache rows (bf16)
+    n = idx + 1
+    nbytes = 2 * (3 * r * h * d + 2 * r * h * (n - 1) * d + h * n + r * h * d
+                  + 2 * r * h * d)
+    bms, by = bound(nbytes, 4 * r * h * n * d, H100_BF16_FLOPS)
+    torch.cuda.synchronize()
+    return {"name": "decode_self_attention", "route": "cuda",
+            "source": "vidchapters_tpu_torch/csrc/decode_attention.cu",
+            "replaces": "vidchapters_tpu/ops/decode_attention.py:66",
+            "max_abs_err": errs[torch.bfloat16], "max_abs_err_fp32": errs[torch.float32],
+            "ms": ms, "ms_idx127": ms_mid, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": lib_ms, "timing": TIMING_GRAPH,
+            "eager_ms": {"kernel": ms_eager, "plain": plain_eager, "library": lib_eager},
+            "library": "index_copy_ of the new rows + SDPA (scale 1, float bias mask)",
+            "shape": f"q [{r},{h},1,{d}], caches [{r},{h},{length},{d}] bf16, idx {idx}"}
+
+
+def check_decode_cross_attention(gen):
+    """The decode cross-attention kernel against its plain version at 8
+    examples x 4 beams (beam search) and x 1 (nucleus), Lk 1152 with each
+    example's padded tail masked, fp32 and bf16. Timed at 4 beams, by
+    CUDA-graph replay (device time) and eagerly; the yardstick is SDPA
+    (scale 1) over K/V expanded across the beams, with the mask as a float
+    mask."""
+    import torch
+
+    from vidchapters_tpu_torch.ops import decode_attention as da
+
+    b0, h, lk, d = DEC_ROWS // 4, DEC_HEADS, DEC_LENC, DEC_DKV
+    k, v = (torch.randn(b0, h, lk, d, generator=gen) for _ in range(2))
+    q4 = torch.randn(b0 * 4, h, 1, d, generator=gen)
+    mask = torch.ones(b0, lk, dtype=torch.int32)
+    for e in range(b0):  # 100 frames + per-example ASR length, then the pad
+        mask[e, 100 + 1000 - 90 * e:] = 0
+    mask = mask.cuda()
+    errs = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        worst = 0.0
+        for group in (4, 1):
+            qq = q4[:b0 * group].to("cuda", dtype)
+            kk, vv = k.to("cuda", dtype), v.to("cuda", dtype)
+            got = da.decode_cross_attention(qq, kk, vv, mask)
+            ref = da.decode_cross_attention_plain(qq, kk, vv, mask)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            check(within(got, ref, tol), f"decode_cross_attention {dtype} g={group}: err {err}")
+            worst = max(worst, err)
+        say(f"[check] decode_cross_attention {b0} examples x 4 / x 1 beams, Lk {lk} padded, "
+            f"{dtype}: max_abs_err {worst:.3e} (tol {tol}"
+            f"{', or 2 bf16 ulps' if dtype == torch.bfloat16 else ''})")
+        errs[dtype] = worst
+    qq, kk, vv = (t.to("cuda", torch.bfloat16) for t in (q4, k, v))
+    kernel = lambda: da.decode_cross_attention(qq, kk, vv, mask)  # noqa: E731
+    plain = lambda: da.decode_cross_attention_plain(qq, kk, vv, mask)  # noqa: E731
+    ke, ve = (t.repeat_interleave(4, dim=0) for t in (kk, vv))
+    fmask = ((mask.repeat_interleave(4, dim=0)[:, None, None, :] - 1) * 1e9).to(torch.bfloat16)
+    library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        qq, ke, ve, attn_mask=fmask, scale=1.0)
+    ms, ms_eager = time_ms_graph(kernel), time_ms(kernel, 50)
+    plain_ms, plain_eager = time_ms_graph(plain), time_ms(plain, 20)
+    lib_ms, lib_eager = time_ms_graph(library), time_ms(library, 50)
+    rows = b0 * 4
+    # masked keys do not change the output: count the K/V rows of the
+    # unmasked keys (bf16), q and out, and the int32 mask read once
+    live = int(mask.sum().item())
+    nbytes = 2 * (2 * h * live * d + 2 * rows * h * d) + 4 * b0 * lk
+    bms, by = bound(nbytes, 4 * 4 * h * live * d, H100_BF16_FLOPS)
+    torch.cuda.synchronize()
+    return {"name": "decode_cross_attention", "route": "cuda",
+            "source": "vidchapters_tpu_torch/csrc/decode_attention.cu",
+            "replaces": "vidchapters_tpu/ops/decode_attention.py:117",
+            "max_abs_err": errs[torch.bfloat16], "max_abs_err_fp32": errs[torch.float32],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_ms, "timing": TIMING_GRAPH,
+            "eager_ms": {"kernel": ms_eager, "plain": plain_eager, "library": lib_eager},
+            "library": "SDPA (scale 1) over K/V expanded across beams",
+            "shape": f"q [{rows},{h},1,{d}] over k/v [{b0},{h},{lk},{d}] bf16, g 4"}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: training
 # ---------------------------------------------------------------------------
@@ -489,21 +671,23 @@ TRAIN_STEPS = 5            # timed steps, after one warm-up step
 FUSED_PER_STEP = 48        # 12 layers x (encoder self + decoder cross) x 2 passes
 
 
-def _write_train_dataset(root: Path, n_videos: int, seed: int = 0) -> Path:
+def _write_train_dataset(root: Path, n_videos: int, seed: int = 0, n_val: int = 0) -> Path:
     """Features (.npy per video, 80-240 frames of 768), an annotation json
     of 8 chapters per video (enough to fill 256 output tokens) and an ASR
-    pickle of 40 segments per video (enough to fill 1000 input tokens)."""
+    pickle of 40 segments per video (enough to fill 1000 input tokens):
+    ``ann.json`` holds the first ``n_videos``, ``val.json`` the ``n_val``
+    after them."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     (root / "features").mkdir()
-    ann, asr = {}, {}
-    for i in range(n_videos):
+    ann, val, asr = {}, {}, {}
+    for i in range(n_videos + n_val):
         vid = f"vid{i:08d}"
         np.save(root / "features" / f"{vid}.npy",
                 rng.standard_normal((int(rng.integers(80, 240)), 768)).astype(np.float32))
         starts = np.linspace(0.0, 540.0, 8)
-        ann[vid] = {"duration": 600.0,
+        (ann if i < n_videos else val)[vid] = {"duration": 600.0,
                     "timestamps": [[float(s), float(s) + 60.0] for s in starts],
                     "sentences": [f"chapter {j} of video {i}: we knead the dough, fold it "
                                   f"twice and let it rest" for j in range(8)]}
@@ -512,9 +696,28 @@ def _write_train_dataset(root: Path, n_videos: int, seed: int = 0) -> Path:
                              for j in range(40)],
                     "start": st.tolist(), "end": (st + 5.0).tolist()}
     (root / "ann.json").write_text(json.dumps(ann))
+    (root / "val.json").write_text(json.dumps(val))
     with open(root / "asr.pkl", "wb") as f:
         pickle.dump(asr, f)
     return root
+
+
+def _device_ms_by_kernel(prof):
+    """Device time (ms) by kernel name in a finished ``torch.profiler`` run:
+    device-side events only (operators and autograd nodes report their
+    kernels' time as their own)."""
+    import torch
+
+    kernels = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us and us > 0:
+            kernels[ev.key] = kernels.get(ev.key, 0.0) + us / 1e3
+    return kernels
 
 
 def _profile_step(step, state, batch, step_ms: float):
@@ -530,15 +733,7 @@ def _profile_step(step, state, batch, step_ms: float):
         step(state, batch, 0)
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
-    kernels = {}  # device-side events only: operators and autograd nodes
-    for ev in prof.key_averages():  # report their kernels' time as their own
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        if us and us > 0:
-            kernels[ev.key] = kernels.get(ev.key, 0.0) + us / 1e3
+    kernels = _device_ms_by_kernel(prof)
     groups = {"fused_attention_fwd": 0.0, "fused_attention_bwd": 0.0, "matmul (cuBLAS)": 0.0,
               "elementwise": 0.0, "reduce": 0.0, "other": 0.0}
     for name, ms in kernels.items():
@@ -841,56 +1036,332 @@ def phase_end_to_end(card: str):
     say(f"[e2e] {json.dumps(e2e)}")
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched on the serving path")
-    fp32 = fp32_token_check(cfg, cpu_state, engine, payloads[:2])
-    return e2e, launches, fp32
+    fp32, fp32_inputs = fp32_token_check(cfg, cpu_state, engine, payloads[:2])
+    return e2e, launches, fp32, (cpu_state, fp32_inputs)
 
 
-def fp32_token_check(cfg, state, engine, payloads):
-    """Two 1000-bucket requests at max_length 64 in fp32: kernels on the card
-    against the plain versions on the CPU; the tokens must be identical."""
+def _fp32_inputs(engine, payloads):
+    """Videos [2, 100, 768] and 1000-token inputs of two requests, numpy."""
     import numpy as np
-    import torch
 
     from vidchapters_tpu_torch.data.features import subsample_or_pad
-    from vidchapters_tpu_torch.models.t5 import shift_right
-    from vidchapters_tpu_torch.models.vid2seq import Vid2Seq
-    from vidchapters_tpu_torch.train.dvc_train import make_generate_fn
 
-    mcfg = dataclasses.replace(cfg.model, t5=dataclasses.replace(cfg.model.t5, dtype="float32"),
-                               vit=dataclasses.replace(cfg.model.vit, dtype="float32"))
-    # the repetition penalty keeps the random model off one repeated token,
-    # so the comparison spans 64 distinct decisions per hypothesis
-    gen = dataclasses.replace(cfg.generation, max_length=64, repetition_penalty=3.0)
     videos = np.stack([subsample_or_pad(np.asarray(p["features"], np.float32), 100, 768)
                        for p in payloads])
     tokens = np.zeros((2, 1000), np.int32)
     for i, p in enumerate(payloads):
         ids = engine._input_tokens(p["asr"], p["duration"])[:1000]
         tokens[i, :len(ids)] = ids
-    out = {}
-    for path, dev in (("kernels", DEVICE), ("plain", "cpu")):
-        model = Vid2Seq(mcfg)
-        model.load_state_dict(state)
-        model.to(dev).eval()
-        t0 = time.time()
-        seqs = make_generate_fn(model, gen)(torch.from_numpy(videos).to(dev),
-                                            torch.from_numpy(tokens).to(dev))
-        out[path] = seqs.cpu().numpy()
-        say(f"[fp32] {path} on {dev}: {time.time() - t0:.1f} s, "
-            f"first tokens {out[path][0, :8].tolist()}")
-    if not np.array_equal(out["kernels"], out["plain"]):
-        row, step = map(int, np.argwhere(out["kernels"] != out["plain"])[0])
-        with torch.no_grad():  # the plain path's own logits at that step
-            tv, tt = torch.from_numpy(videos[row:row + 1]), torch.from_numpy(tokens[row:row + 1])
-            enc, mask = model.encode(tv, tt, (tt != 0).to(torch.int32))
-            labels = torch.from_numpy(out["plain"][row:row + 1, :step + 1]).long()
-            logits = model.t5.decode(shift_right(labels), torch.ones_like(labels), enc, mask)
-            top2 = torch.topk(torch.log_softmax(logits[0, step], -1), 2).values
-        raise SmokeFailure(f"fp32 tokens differ at row {row} step {step}: kernels "
-                           f"{out['kernels'][row, step]} vs plain {out['plain'][row, step]}, "
-                           f"top-2 log-prob gap there {float(top2[0] - top2[1]):.3e}")
+    return videos, tokens
+
+
+def _fp32_model(cfg, state, dev):
+    from vidchapters_tpu_torch.models.vid2seq import Vid2Seq
+
+    mcfg = dataclasses.replace(cfg.model, t5=dataclasses.replace(cfg.model.t5, dtype="float32"),
+                               vit=dataclasses.replace(cfg.model.vit, dtype="float32"))
+    model = Vid2Seq(mcfg)
+    model.load_state_dict(state)
+    return model.to(dev).eval()
+
+
+def _fp32_tokens(cfg, state, gen, dev, videos, tokens, label):
+    """Tokens of ``make_generate_fn`` in fp32 on ``dev`` (numpy)."""
+    import torch
+
+    from vidchapters_tpu_torch.train.dvc_train import make_generate_fn
+
+    model = _fp32_model(cfg, state, dev)
+    t0 = time.time()
+    seqs = make_generate_fn(model, gen)(torch.from_numpy(videos).to(dev),
+                                        torch.from_numpy(tokens).to(dev)).cpu().numpy()
+    say(f"[fp32] {label} on {dev}: {time.time() - t0:.1f} s, first tokens {seqs[0, :8].tolist()}")
+    return seqs
+
+
+def _same_tokens(got, ref, what, cfg, state, videos, tokens):
+    """Fail with the first differing step and the reference's top-2 log-prob
+    gap there (teacher-forced through the full-sequence decoder on the CPU)."""
+    import numpy as np
+    import torch
+
+    from vidchapters_tpu_torch.models.t5 import shift_right
+
+    if np.array_equal(got, ref):
+        return
+    row, step = map(int, np.argwhere(got != ref)[0])
+    model = _fp32_model(cfg, state, "cpu")
+    with torch.no_grad():
+        tv, tt = torch.from_numpy(videos[row:row + 1]), torch.from_numpy(tokens[row:row + 1])
+        enc, mask = model.encode(tv, tt, (tt != 0).to(torch.int32))
+        labels = torch.from_numpy(ref[row:row + 1, :step + 1]).long()
+        logits = model.t5.decode(shift_right(labels), torch.ones_like(labels), enc, mask)
+        top2 = torch.topk(torch.log_softmax(logits[0, step], -1), 2).values
+    raise SmokeFailure(f"fp32 tokens differ ({what}) at row {row} step {step}: "
+                       f"{got[row, step]} vs {ref[row, step]}, top-2 log-prob gap there "
+                       f"{float(top2[0] - top2[1]):.3e}")
+
+
+def fp32_token_check(cfg, state, engine, payloads):
+    """Two 1000-bucket requests at max_length 64 in fp32: kernels on the card
+    against the plain versions on the CPU; the tokens must be identical."""
+    # the repetition penalty keeps the random model off one repeated token,
+    # so the comparison spans 64 distinct decisions per hypothesis
+    gen = dataclasses.replace(cfg.generation, max_length=64, repetition_penalty=3.0)
+    videos, tokens = _fp32_inputs(engine, payloads)
+    out = {path: _fp32_tokens(cfg, state, gen, dev, videos, tokens, path)
+           for path, dev in (("kernels", DEVICE), ("plain", "cpu"))}
+    _same_tokens(out["kernels"], out["plain"], "kernels vs plain", cfg, state, videos, tokens)
     say(f"[fp32] tokens identical over {out['plain'].shape} (max_length 64)")
-    return {"identical": True, "shape": list(out["plain"].shape)}
+    return {"identical": True, "shape": list(out["plain"].shape)}, (videos, tokens)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: train and evaluate at full width through dvc_main
+# ---------------------------------------------------------------------------
+
+EVAL_METRICS = ("Bleu_4", "METEOR", "Rouge-L", "CIDEr", "Recall", "Precision", "F1", "soda_c")
+DECODE_KERNELS = ("decode_self_attention", "decode_cross_attention")
+
+
+DECODE_PROFILE_STEPS = 64
+
+
+def _profile_decode(cfg, batch, mega: bool):
+    """One beam-4 generate call of 64 steps over the 8 val videos (bf16,
+    seeded random weights) on one decode route, after a warm-up call: its
+    wall time unprofiled, then under torch.profiler the device's kernel time
+    by group. Per step, the encoder's share included (it runs once a call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vidchapters_tpu_torch.models import t5 as t5_mod
+    from vidchapters_tpu_torch.models.vid2seq import Vid2Seq
+    from vidchapters_tpu_torch.train.dvc_train import make_generate_fn
+
+    old = t5_mod.USE_MEGA_DECODE
+    t5_mod.USE_MEGA_DECODE = None if mega else False
+    try:
+        model = Vid2Seq(cfg.model).init_weights(torch.Generator().manual_seed(0)).to(DEVICE)
+        generate = make_generate_fn(model, dataclasses.replace(
+            cfg.generation, max_length=DECODE_PROFILE_STEPS))
+    finally:
+        t5_mod.USE_MEGA_DECODE = old
+    video = torch.as_tensor(batch["video"], dtype=torch.float32, device=DEVICE)
+    tokens = torch.as_tensor(batch["input_tokens"], device=DEVICE)
+    generate(video, tokens)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    generate(video, tokens)
+    torch.cuda.synchronize()
+    wall_ms = (time.time() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        generate(video, tokens)
+        torch.cuda.synchronize()
+    groups = {"decode_attention": 0.0, "decode_megakernel": 0.0, "topk": 0.0,
+              "fused_attention_fwd": 0.0, "matmul (cuBLAS)": 0.0, "elementwise": 0.0,
+              "reduce": 0.0, "other": 0.0}
+    kernels = _device_ms_by_kernel(prof)
+    for name, ms in kernels.items():
+        low = name.lower()
+        key = next((g for g in ("decode_attention", "decode_megakernel", "topk",
+                                "fused_attention_fwd") if g in low), None)
+        if key is None and "mega_decode" in low:
+            key = "decode_megakernel"
+        if key is None:
+            if any(w in low for w in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):
+                key = "matmul (cuBLAS)"
+            elif "elementwise" in low:
+                key = "elementwise"
+            elif "reduce" in low or "softmax" in low:
+                key = "reduce"
+            else:
+                key = "other"
+        groups[key] += ms
+    busy = sum(kernels.values())
+    steps = DECODE_PROFILE_STEPS
+    out = {"steps": steps, "rows": int(video.shape[0]) * cfg.generation.num_beams,
+           "wall_ms_per_step": wall_ms / steps, "device_ms_per_step": busy / steps,
+           "idle_share": 1.0 - busy / wall_ms, "by_group_ms_per_step":
+           {k: v / steps for k, v in groups.items() if v}}
+    say(f"[decode] {'megakernel' if mega else 'standard'} route, beam 4, {steps} steps: "
+        f"{json.dumps(out)}")
+    del model, generate
+    torch.cuda.empty_cache()
+    return out
+
+
+class _Tee:
+    """A stdout that also keeps what it writes."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def phase_train_and_evaluate(card: str, fp32_state, fp32_inputs):
+    """``dvc_main.main`` on the card at full width (``ExperimentConfig()``:
+    T5-base + ViT-12, dropout 0.1, bf16 compute) over phase 3's synthetic
+    dataset with a val split (16 train, 8 val videos), greedy and beam search
+    on the standard cached decode (``USE_MEGA_DECODE = False``):
+
+    1. one epoch at batch 8 (2 steps), val eval at beam 4 / max_length 256,
+       ``log.txt``, the val predictions, ``best`` and ``last``, then the
+       final eval with ``best``;
+    2. ``eval_only`` with nucleus sampling (top_p 0.9): resumes from
+       ``last``, then the final eval.
+
+    The checkpoints (weights and two Adam moments, 3.47 GB each) go to a
+    temporary directory that is removed at the end. Each run's kernel counts
+    are zeroed just before it and read just after; both decode-attention
+    kernels must launch a multiple of 12 times (once per layer per step),
+    the decode megakernel never. Then fp32 tokens of phase 4's two requests
+    at max_length 64: the standard decode with the kernels on the card
+    against the plain versions on the CPU (beam 4 and greedy), and against
+    the megakernel on the card (beam 4)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from vidchapters_tpu_torch.config import CheckpointConfig, DatasetPaths, ExperimentConfig
+    from vidchapters_tpu_torch.data.dvc_dataset import DenseVideoCaptioningDataset, EpochIterator
+    from vidchapters_tpu_torch.data.tokenizer import build_tokenizer
+    from vidchapters_tpu_torch.models import t5 as t5_mod
+    from vidchapters_tpu_torch.ops import decode_attention, decode_megakernel, decoding
+    from vidchapters_tpu_torch.ops import fused_attention
+    from vidchapters_tpu_torch.train import dvc_main
+
+    kernels = {"decode_self_attention": decode_attention.SELF_KERNEL,
+               "decode_cross_attention": decode_attention.CROSS_KERNEL,
+               "decode_megakernel": decode_megakernel.KERNEL, "topk": decoding.TOPK_KERNEL,
+               "fused_attention_fwd": fused_attention.KERNEL,
+               "fused_attention_bwd": fused_attention.BWD_KERNEL}
+    evals, steps = [], []
+    real_evaluate, real_make_step = dvc_main.evaluate, dvc_main.make_train_step
+
+    def timed_evaluate(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = real_evaluate(*a, **k)
+        torch.cuda.synchronize()
+        evals.append({"videos": len(out[0]), "wall_s": time.time() - t0})
+        return out
+
+    def timed_make_step(*a, **k):
+        step = real_make_step(*a, **k)
+
+        def timed(state, batch, seed):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            m = step(state, batch, seed)
+            torch.cuda.synchronize()
+            steps.append((time.time() - t0) * 1e3)
+            return m
+
+        return timed
+
+    base = ExperimentConfig()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = _write_train_dataset(Path(tmp), n_videos=16, n_val=8)
+        ckpt = Path(tmp) / "ckpt"
+        cfg = dataclasses.replace(
+            base, datasets={"chapters": DatasetPaths(
+                train_json_path=str(root / "ann.json"), val_json_path=str(root / "val.json"),
+                features_path=str(root / "features"), subtitles_path=str(root / "asr.pkl"))},
+            train=dataclasses.replace(base.train, epochs=1, batch_size=8, eval_batch_size=8,
+                                      print_freq=1,
+                                      checkpoint=CheckpointConfig(save_dir=str(ckpt))))
+        nucleus = dataclasses.replace(cfg, generation=dataclasses.replace(
+            cfg.generation, use_nucleus_sampling=True, top_p=0.9))
+        old = (t5_mod.USE_MEGA_DECODE, dvc_main.evaluate, dvc_main.make_train_step)
+        t5_mod.USE_MEGA_DECODE = False
+        dvc_main.evaluate, dvc_main.make_train_step = timed_evaluate, timed_make_step
+        try:
+            for name, run_cfg, eval_only in (("beam4", cfg, False), ("nucleus", nucleus, True)):
+                n_evals = len(evals)
+                torch.cuda.synchronize()
+                for kern in kernels.values():
+                    kern.launches = 0
+                tee = _Tee(sys.stdout)
+                t0 = time.time()
+                with contextlib.redirect_stdout(tee):
+                    metrics = dvc_main.main(run_cfg, eval_only=eval_only, device=DEVICE)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+                launches = {n: k.launches for n, k in kernels.items()}
+                printed = "".join(tee.parts)
+                runs[name] = {"wall_s": wall, "launches": launches, "metrics": metrics,
+                              "evals": evals[n_evals:],
+                              "resumed": "resumed from epoch 0" in printed}
+                say(f"[dvc_main] {name}: {wall:.1f} s, launches {launches}, evals "
+                    f"{evals[n_evals:]}")
+                missing = [m for m in EVAL_METRICS if not np.isfinite(
+                    metrics.get(f"chapters_{m}", float("nan")))]
+                check(not missing, f"dvc_main {name}: metrics missing or not finite: {missing}")
+                for kname in DECODE_KERNELS:
+                    n = launches[kname]
+                    check(n > 0 and n % 12 == 0,
+                          f"dvc_main {name}: {kname} launched {n} times, not a multiple of 12")
+                check(launches["decode_megakernel"] == 0,
+                      f"dvc_main {name}: the decode megakernel ran on the standard route")
+            log = (ckpt / "log.txt").read_text().splitlines()
+            check(len(log) == 1 and json.loads(log[0])["epoch"] == 0, f"log.txt: {log}")
+            for f in ("chapters_val_preds_e0.json", "best", "last", "manager.json"):
+                check((ckpt / f).exists(), f"dvc_main wrote no {f}")
+            check(not runs["beam4"]["resumed"] and runs["nucleus"]["resumed"],
+                  "the eval_only run did not resume from `last` (or the first run did)")
+            check(len(steps) == 2, f"{len(steps)} train steps, expected 2")
+            ckpt_bytes = (ckpt / "last").stat().st_size
+        finally:
+            t5_mod.USE_MEGA_DECODE, dvc_main.evaluate, dvc_main.make_train_step = old
+        val_batch = next(iter(EpochIterator(
+            DenseVideoCaptioningDataset(str(root / "val.json"), str(root / "features"),
+                                        build_tokenizer("", num_bins=base.model.num_bins),
+                                        base.data, subtitles_path=str(root / "asr.pkl")),
+            8, base.data, shuffle=False, drop_last=False, bucket_inputs=True)))
+    beam_eval, nucleus_eval = runs["beam4"]["evals"][-1], runs["nucleus"]["evals"][-1]
+    summary = {"eval_videos_per_s_beam4_standard": beam_eval["videos"] / beam_eval["wall_s"],
+               "eval_videos_per_s_nucleus": nucleus_eval["videos"] / nucleus_eval["wall_s"],
+               "train_step_ms": steps, "checkpoint_bytes": ckpt_bytes, "card": card}
+    say(f"[dvc_main] {json.dumps(summary)}")
+    torch.cuda.empty_cache()
+    summary["decode_step"] = {route: _profile_decode(base, val_batch, route == "megakernel")
+                              for route in ("standard", "megakernel")}
+
+    # fp32 tokens: standard decode card vs CPU (beam 4, greedy), and vs the megakernel
+    videos, tokens = fp32_inputs
+    gen4 = dataclasses.replace(base.generation, max_length=64, repetition_penalty=3.0)
+    gen1 = dataclasses.replace(gen4, num_beams=1)
+    fp32 = {}
+    old_route = t5_mod.USE_MEGA_DECODE
+    try:
+        t5_mod.USE_MEGA_DECODE = False
+        std = {}
+        for label, gen in (("beam4", gen4), ("greedy", gen1)):
+            std[label] = {dev: _fp32_tokens(base, fp32_state, gen, dev, videos, tokens,
+                                            f"standard {label}")
+                          for dev in (DEVICE, "cpu")}
+            _same_tokens(std[label][DEVICE], std[label]["cpu"], f"standard {label}, card vs CPU",
+                         base, fp32_state, videos, tokens)
+            fp32[f"standard_{label}_card_vs_cpu"] = "identical"
+        t5_mod.USE_MEGA_DECODE = None
+        mega = _fp32_tokens(base, fp32_state, gen4, DEVICE, videos, tokens, "megakernel beam4")
+        _same_tokens(std["beam4"][DEVICE], mega, "standard vs megakernel, beam 4", base,
+                     fp32_state, videos, tokens)
+        fp32["standard_vs_megakernel_beam4"] = "identical"
+    finally:
+        t5_mod.USE_MEGA_DECODE = old_route
+    say(f"[fp32] standard decode: {fp32} over {list(mega.shape)} (max_length 64)")
+    summary.update(runs=runs, fp32_tokens=fp32)
+    return summary, runs["beam4"]["launches"]
 
 
 def main() -> int:
@@ -914,20 +1385,31 @@ def main() -> int:
         table = [check_fused_attention(gen), check_fused_attention_bwd(gen)]
         gen = serving_checks_generator()
         table += [check_topk(gen), check_megakernel(gen)]
+        gen = torch.Generator().manual_seed(2)
+        table += [check_decode_self_attention(gen), check_decode_cross_attention(gen)]
         for row in table:
             say(f"[time] {row['name']}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
                 f"library {row['library_ms']}, bound {row['bound_ms']:.4f} by "
                 f"{row['bound_by']}) on {card}")
         train, train_launches = phase_train(card)
-        e2e, serve_launches, fp32 = phase_end_to_end(card)
+        e2e, serve_launches, fp32, (fp32_state, fp32_inputs) = phase_end_to_end(card)
+        evaluation, eval_launches = phase_train_and_evaluate(card, fp32_state, fp32_inputs)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
     for row in table:  # each kernel's count on its own main path
-        row["launches"] = train_launches.get(row["name"], serve_launches.get(row["name"]))
+        if row["name"] in DECODE_KERNELS:
+            row["launches"] = eval_launches[row["name"]]
+        else:
+            row["launches"] = train_launches.get(row["name"], serve_launches.get(row["name"]))
     table[0]["launches_serving"] = serve_launches["fused_attention_fwd"]
+    say(f"[summary] serving {e2e['videos_per_s']:.3f} videos/s (megakernel, beam 4); eval "
+        f"{evaluation['eval_videos_per_s_beam4_standard']:.3f} videos/s (standard, beam 4), "
+        f"{evaluation['eval_videos_per_s_nucleus']:.3f} videos/s (nucleus); training "
+        f"{train['step_ms']:.1f} ms/step (phase 3), dvc_main steps "
+        f"{[round(x, 1) for x in evaluation['train_step_ms']]} ms")
     record = {"kernels": table, "train": train, "end_to_end": e2e, "fp32_tokens": fp32,
-              "card": card}
+              "evaluation": evaluation, "card": card}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

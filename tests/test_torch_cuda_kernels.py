@@ -159,3 +159,52 @@ def test_fused_attention_backward_matches_plain(dtype, tol, bias, rate):
         assert torch.equal(a, a2), f"{name}: two runs differ"  # no float atomics
         err = (a - r).abs().max().item()
         assert err <= tol, f"{name}: max abs err {err} > {tol}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("idx", [0, 100, 255])
+def test_decode_self_attention_matches_plain(dtype, tol, idx):
+    require_cuda()
+    from vidchapters_tpu_torch.ops import decode_attention as da
+
+    g = _gen()
+    r, h, length, d = 6, 3, 256, 64
+    q, k_new, v_new = (torch.randn(r, h, 1, d, generator=g).to("cuda", dtype) for _ in range(3))
+    kc, vc = (torch.randn(r, h, length, d, generator=g).to("cuda", dtype) for _ in range(2))
+    bias = torch.randn(1, h, 1, length, generator=g)
+    bias[..., idx + 1:] = da.NEG_INF
+    bias = bias.to("cuda", dtype)
+    kc2, vc2 = kc.clone(), vc.clone()
+    before = da.SELF_KERNEL.launches
+    out, k_out, v_out = da.decode_self_attention(q, k_new, v_new, kc, vc, bias, idx)
+    ref, k_ref, v_ref = da.decode_self_attention_plain(q, k_new, v_new, kc2, vc2, bias, idx)
+    torch.cuda.synchronize()
+    assert da.SELF_KERNEL.launches == before + 1
+    assert k_out is kc and v_out is vc                      # in place
+    assert torch.equal(kc, k_ref) and torch.equal(vc, v_ref)  # only row idx written
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("group", [1, 3, 4])
+@pytest.mark.parametrize("lk", [1100, 100])  # keys split across blocks, and not
+def test_decode_cross_attention_matches_plain(dtype, tol, group, lk):
+    require_cuda()
+    from vidchapters_tpu_torch.ops import decode_attention as da
+
+    g = _gen()
+    b0, h, d = 2, 3, 64
+    q = torch.randn(b0 * group, h, 1, d, generator=g).to("cuda", dtype)
+    k, v = (torch.randn(b0, h, lk, d, generator=g).to("cuda", dtype) for _ in range(2))
+    mask = torch.ones(b0, lk, dtype=torch.int32)
+    mask[0, lk * 2 // 3:] = 0
+    mask[1, 5:9] = 0
+    mask = mask.cuda()
+    before = da.CROSS_KERNEL.launches
+    got = da.decode_cross_attention(q, k, v, mask)
+    ref = da.decode_cross_attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert da.CROSS_KERNEL.launches == before + 1
+    assert (got.float() - ref.float()).abs().max().item() <= tol

@@ -43,8 +43,16 @@ def test_generate_tokens_identical_to_jax(models, num_beams, penalty):
 
 
 def test_nucleus_sampling_is_not_ported(models):
+    """Nucleus sampling (``num_beams == 0``), once refused, now generates
+    through the standard cached decode: int32 tokens of the full length from
+    a seeded generator, the same for the same seed (the test keeps its
+    name; tests/test_torch_standard_decode.py holds the sampler to JAX)."""
     from vidchapters_tpu_torch.config import GenerationConfig
     from vidchapters_tpu_torch.train.dvc_train import make_generate_fn
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_generate_fn(models[2], GenerationConfig(num_beams=0))
+    video, tokens, _ = batch(np.random.default_rng(0), b=2)
+    generate = make_generate_fn(models[2], GenerationConfig(num_beams=0, max_length=MAX_LEN))
+    draws = [generate(torch.from_numpy(video), torch.from_numpy(tokens),
+                      torch.Generator().manual_seed(7)) for _ in range(2)]
+    assert draws[0].dtype == torch.int32 and draws[0].shape == (2, MAX_LEN)
+    assert torch.equal(draws[0], draws[1])

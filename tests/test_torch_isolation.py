@@ -39,6 +39,8 @@ def test_package_imports_with_jax_blocked():
         "import vidchapters_tpu_torch.ops.decoding, vidchapters_tpu_torch.runtime.rng\n"
         "import vidchapters_tpu_torch.train.dvc_train, vidchapters_tpu_torch.train.schedules\n"
         "import vidchapters_tpu_torch.data.dvc_dataset, vidchapters_tpu_torch.utils.io\n"
+        "import vidchapters_tpu_torch.train.dvc_main, vidchapters_tpu_torch.ops.decode_attention\n"
+        "import vidchapters_tpu_torch.runtime.checkpoint, vidchapters_tpu_torch.evals\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'vidchapters_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

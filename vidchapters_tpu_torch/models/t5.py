@@ -17,9 +17,19 @@ the card holds the activations of the reference recipe.
 Parameters are held in their stored dtype (float32 by default) and every
 product runs in ``cfg.dtype`` (bfloat16 by default), as the JAX package's
 ``Dense(dtype=...)`` does. Long self-attention (Lq > 128 and Lq*Lk > 512^2)
-goes through ``ops/fused_attention``. Incremental decoding is
-``ops/decode_megakernel``; the standard per-layer ``init_cache`` /
-``decode_step`` path is not ported yet.
+goes through ``ops/fused_attention``.
+
+Incremental decoding has two routes. ``ops/decode_megakernel`` runs a whole
+decoder step in one launch; ``make_generate_fn`` takes it for greedy and
+beam search unless ``USE_MEGA_DECODE`` is False. The standard route is
+``init_cache`` / ``decode_step`` here, layer by layer (unrolled layers
+only; ``scan_layers`` is not ported). Its cache tree keeps the JAX keys:
+``block_{i}`` -> ``self`` (per-beam K/V rows, written at the step's index)
+/ ``cross`` (per-example K/V of the encoder states, shared by the beams).
+Each layer's two attentions go through ``ops/decode_attention``: on CUDA
+tensors its two kernels always run, on CPU tensors their plain versions.
+The JAX package reaches those kernels only under ``USE_FUSED_DECODE``,
+which it keeps off for the TPU's dispatch cost; the port has no such flag.
 """
 
 from __future__ import annotations
@@ -32,6 +42,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from vidchapters_tpu_torch.config import T5Config
+from vidchapters_tpu_torch.ops.decode_attention import (
+    decode_cross_attention,
+    decode_self_attention,
+)
 from vidchapters_tpu_torch.ops.fused_attention import (
     dropout_scale,
     fused_attention_padded,
@@ -52,6 +66,11 @@ CHUNK = 128
 # drop their probabilities with the hashed mask ``dense_keep_scale``
 # (t5.py:440-467 there), below it with an element mask.
 DENSE_REMAT_MIN_ELEMS = 256 * 256
+
+# the decode megakernel for greedy and beam search: True / None (the
+# default: take it) or False (the standard cached decode). Nucleus sampling
+# always takes the standard decode.
+USE_MEGA_DECODE = None
 
 
 def dense_keep_scale(seed: int, shape, rate: float, device=None) -> torch.Tensor:
@@ -205,8 +224,39 @@ class T5Attention(nn.Module):
             else:
                 probs = _apply_dropout(probs.to(q.dtype), drop, rng)
             out = torch.matmul(probs, v)
+        return self._merge(out)
+
+    def _merge(self, out: torch.Tensor) -> torch.Tensor:
+        """``[b, h, l, d]`` heads -> the output projection ``[b, l, d_model]``."""
         b, h, l, d = out.shape
-        return _linear(out.transpose(1, 2).reshape(b, l, h * d), self.o, dt)
+        return _linear(out.transpose(1, 2).reshape(b, l, h * d), self.o, _dtype(self.cfg))
+
+    # ----- incremental decoding (t5.py:350-399 there) -----
+
+    def decode_self(self, hidden: torch.Tensor, cache: dict, cache_index: int,
+                    bias_row: torch.Tensor):
+        """Self-attention of one decode step: ``hidden [b, 1, d_model]``; the
+        new K/V go to row ``cache_index`` of ``cache["k"]`` / ``cache["v"]``
+        (in place). Returns the output and the cache."""
+        dt = _dtype(self.cfg)
+        q, k_new, v_new = (self._split(_linear(hidden, lin, dt))
+                           for lin in (self.q, self.k, self.v))
+        out, k, v = decode_self_attention(q, k_new, v_new, cache["k"], cache["v"],
+                                          bias_row, cache_index)
+        return self._merge(out), {"k": k, "v": v}
+
+    def decode_cross(self, hidden: torch.Tensor, cache: dict,
+                     key_mask: torch.Tensor) -> torch.Tensor:
+        """Cross-attention of one decode step over the precomputed K/V, which
+        hold one row per example: the ``hidden.shape[0] // k.shape[0]`` beams
+        of an example share it."""
+        q = self._split(_linear(hidden, self.q, _dtype(self.cfg)))
+        return self._merge(decode_cross_attention(q, cache["k"], cache["v"], key_mask))
+
+    def precompute_kv(self, kv: torch.Tensor) -> dict:
+        dt = _dtype(self.cfg)
+        return {"k": self._split(_linear(kv, self.k, dt)).contiguous(),
+                "v": self._split(_linear(kv, self.v, dt)).contiguous()}
 
 
 class T5FeedForward(nn.Module):
@@ -257,6 +307,17 @@ class T5Block(nn.Module):
         h = self.ff(self.ff_norm(x), dropout_rate, rng)
         return x + _apply_dropout(h, dropout_rate, rng)
 
+    def decode(self, x: torch.Tensor, self_bias: torch.Tensor, cache: dict,
+               cache_index: int, cross_key_mask: torch.Tensor):
+        """One decode step of a decoder block: ``(x, {"self", "cross"})``."""
+        normed = self.self_attn_norm(x)
+        h, self_kv = self.self_attn.decode_self(normed, cache["self"], cache_index, self_bias)
+        x = x + h
+        x = x + self.cross_attn.decode_cross(self.cross_attn_norm(x), cache["cross"],
+                                             cross_key_mask)
+        x = x + self.ff(self.ff_norm(x))
+        return x, {"self": self_kv, "cross": cache["cross"]}
+
 
 class T5Stack(nn.Module):
     def __init__(self, cfg: T5Config, is_decoder: bool):
@@ -295,6 +356,42 @@ class T5Stack(nn.Module):
             x = blk(x, self_bias, enc_out, attention_mask, enc_mask, rate, rng)
         x = _apply_dropout(self.final_norm(x), rate, rng)
         return x[:, :l_orig] if l != l_orig else x
+
+    # ----- incremental decoding (t5.py:699-770 there, unrolled layers) -----
+
+    def init_cache(self, batch: int, max_len: int, enc_out: torch.Tensor) -> dict:
+        """Zeroed self K/V of ``batch`` rows (beams included) and the cross
+        K/V of ``enc_out``'s rows (one per example)."""
+        cfg = self.cfg
+        dt = _dtype(cfg)
+        shape = (batch, cfg.num_heads, max_len, cfg.d_kv)
+        dev = enc_out.device
+        return {f"block_{i}": {"self": {"k": torch.zeros(shape, dtype=dt, device=dev),
+                                        "v": torch.zeros(shape, dtype=dt, device=dev)},
+                               "cross": blk.cross_attn.precompute_kv(enc_out)}
+                for i, blk in enumerate(self.blocks)}
+
+    def decode_bias_table(self, max_len: int) -> torch.Tensor:
+        """``[L, H, L]`` self-attention bias of every decode step: row ``i``
+        is the relative-position bias of query ``i`` over all key slots,
+        ``NEG_INF`` past ``i``. Built once per generate call."""
+        bias = self.rel_bias(max_len, max_len)[0]                   # [H, L, L]
+        causal = torch.tril(torch.ones(max_len, max_len, dtype=torch.bool,
+                                       device=bias.device))
+        bias = torch.where(causal[None], bias, torch.full_like(bias, NEG_INF))
+        return bias.transpose(0, 1).contiguous()
+
+    def decode_step(self, token_embeds: torch.Tensor, cache: dict, cache_index: int,
+                    enc_mask: torch.Tensor, bias_table: torch.Tensor):
+        """One decode step. ``token_embeds [b, 1, d]``; ``bias_table`` from
+        ``decode_bias_table``."""
+        x = token_embeds.to(_dtype(self.cfg))
+        self_bias = bias_table[cache_index][None, :, None, :]        # [1, H, 1, L]
+        new_cache = {}
+        for i, blk in enumerate(self.blocks):
+            x, new_cache[f"block_{i}"] = blk.decode(x, self_bias, cache[f"block_{i}"],
+                                                    cache_index, enc_mask)
+        return self.final_norm(x), new_cache
 
 
 class T5ForConditionalGeneration(nn.Module):
@@ -345,6 +442,18 @@ class T5ForConditionalGeneration(nn.Module):
         enc = self.encode(input_ids=input_ids, attention_mask=attention_mask, rng=rng)
         return self.decode(decoder_input_ids, decoder_attention_mask, enc,
                            attention_mask, rng=rng)
+
+    # decode-step API used by ops.decoding
+
+    def init_cache(self, batch: int, max_len: int, enc_out: torch.Tensor) -> dict:
+        return self.decoder.init_cache(batch, max_len, enc_out)
+
+    def decode_step(self, token_ids: torch.Tensor, cache: dict, cache_index: int,
+                    enc_mask: torch.Tensor, bias_table: torch.Tensor):
+        """token_ids ``[b]`` -> (logits ``[b, vocab]`` float32, new cache)."""
+        hidden, cache = self.decoder.decode_step(self.embed(token_ids[:, None]), cache,
+                                                 cache_index, enc_mask, bias_table)
+        return self.logits_from_hidden(hidden)[:, 0], cache
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:

@@ -94,6 +94,13 @@ class Vid2Seq(nn.Module):
     def encode_for_generation(self, video, input_ids, attention_mask):
         return self.encode(video, input_ids, attention_mask)
 
+    def init_cache(self, batch: int, max_len: int, enc_out: torch.Tensor) -> dict:
+        return self.t5.init_cache(batch, max_len, enc_out)
+
+    def decode_step(self, token_ids: torch.Tensor, cache: dict, cache_index: int,
+                    enc_mask: torch.Tensor, bias_table: torch.Tensor):
+        return self.t5.decode_step(token_ids, cache, cache_index, enc_mask, bias_table)
+
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "Vid2Seq":
         """Seeded random weights (see the towers' ``init_weights``)."""

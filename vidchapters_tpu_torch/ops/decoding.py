@@ -1,4 +1,5 @@
-"""Autoregressive decoding: greedy and beam search over a static KV cache.
+"""Autoregressive decoding: greedy, beam search and nucleus sampling over a
+static KV cache.
 
 Counterpart of ``vidchapters_tpu/ops/decoding.py`` with the same HF beam
 semantics as the reference configures them (num_beams=4, length penalty,
@@ -15,6 +16,12 @@ The beam step's top-2K runs through ``_topk_small``: the ``csrc/topk.cu``
 kernel for CUDA tensors, ``_topk_iterative`` for CPU tensors. Both give
 ``lax.top_k``'s order (ties to the smallest index); ``torch.topk`` does not
 promise that order, so no top-k here uses it.
+
+``make_decode_fns`` binds a model's standard cached decode (``init_cache``
+/ ``decode_step``); ``ops/decode_megakernel.make_mega_decode_fns`` the
+decode kernel. Nucleus sampling draws with an explicit ``torch.Generator``:
+``jax.random``'s stream cannot be reproduced, so the port is held to the
+JAX package by its filter and by the distribution it samples.
 """
 
 from __future__ import annotations
@@ -35,9 +42,45 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 class DecodeFns(NamedTuple):
     init_cache: Callable[[int, torch.Tensor], Any]
     step: Callable[[torch.Tensor, Any, int, torch.Tensor], Tuple[torch.Tensor, Any]]
-    # beam search's cache reorder (the decode kernel defers the permutation
-    # into its next step)
+    # beam search's cache reorder, ``reorder_beam_cache`` when None (the
+    # decode kernel defers the permutation into its next step)
     reorder_cache: Any = None
+
+
+def make_decode_fns(model, max_length: int) -> DecodeFns:
+    """The standard cached decode of ``model`` (Vid2Seq or the T5) as
+    ``DecodeFns``: ``init_cache(batch, enc_out)`` takes the per-beam row
+    count and the per-example encoder states. The decoder's self-attention
+    bias table is built here, once."""
+    with torch.no_grad():
+        t5 = getattr(model, "t5", model)
+        bias_table = t5.decoder.decode_bias_table(max_length)
+
+    def init_cache(batch: int, enc_out: torch.Tensor):
+        return model.init_cache(batch, max_length, enc_out)
+
+    def step(tokens: torch.Tensor, cache, index: int, enc_mask: torch.Tensor):
+        return model.decode_step(tokens, cache, index, enc_mask, bias_table)
+
+    return DecodeFns(init_cache, step)
+
+
+def reorder_beam_cache(cache, flat_src: torch.Tensor):
+    """Permute a decode cache's per-beam rows to follow the surviving beams:
+    a row gather of every tensor whose leading dimension is the beam-flat
+    row count, except under any ``cross`` key (per-example K/V, which the
+    beams share)."""
+    rows = flat_src.shape[0]
+    src = flat_src.long()
+
+    def reorder(x):
+        if isinstance(x, dict):
+            return {k: (v if k == "cross" else reorder(v)) for k, v in x.items()}
+        if isinstance(x, torch.Tensor) and x.dim() and x.shape[0] == rows:
+            return x.index_select(0, src)
+        return x
+
+    return reorder(cache)
 
 
 def _apply_repetition_penalty(logits: torch.Tensor, sequences: torch.Tensor,
@@ -134,6 +177,58 @@ def greedy_decode(fns: DecodeFns, enc_out: torch.Tensor, enc_mask: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# Nucleus (top-p) sampling: the reference's num_beams=0 (dvc.py:177)
+# ---------------------------------------------------------------------------
+
+
+def topp_filter(logits: torch.Tensor, top_p: float) -> torch.Tensor:
+    """Logits outside each row's nucleus set to ``NEG_INF``: the smallest
+    prefix of the sorted row whose mass reaches ``top_p`` is kept (the
+    top-1 always); a position stays if the mass before it is < ``top_p``."""
+    sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+    sorted_probs = torch.softmax(sorted_logits, dim=-1)
+    cum = torch.cumsum(sorted_probs, dim=-1)
+    kept = (cum - sorted_probs) < top_p
+    threshold = torch.where(kept, sorted_logits,
+                            torch.full_like(sorted_logits, float("inf"))).min(dim=-1).values
+    return torch.where(logits < threshold[:, None], torch.full_like(logits, NEG_INF), logits)
+
+
+def categorical(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One draw per row from ``softmax(logits)`` by the Gumbel-max rule, as
+    ``jax.random.categorical`` draws (its uniforms from ``generator``)."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
+    return torch.argmax(logits.float() - torch.log(-torch.log(u)), dim=-1)
+
+
+def nucleus_sample(fns: DecodeFns, enc_out: torch.Tensor, enc_mask: torch.Tensor,
+                   max_length: int, generator: torch.Generator, top_p: float = 0.9,
+                   temperature: float = 1.0, eos_token_id: int = 1,
+                   decoder_start_token_id: int = 0, min_length: int = 0) -> torch.Tensor:
+    """Returns ``[batch, max_length]`` int32 sampled sequences (0-padded
+    after EOS); ``generator`` lives on the device of ``enc_out``."""
+    batch, dev = enc_out.shape[0], enc_out.device
+    cache = fns.init_cache(batch, enc_out)
+    tokens = torch.full((batch,), decoder_start_token_id, dtype=torch.int32, device=dev)
+    seqs = torch.zeros((batch, max_length), dtype=torch.int32, device=dev)
+    finished = torch.zeros((batch,), dtype=torch.bool, device=dev)
+    i = 0
+    while i < max_length and not bool(finished.all()):
+        logits, cache = fns.step(tokens, cache, i, enc_mask)
+        logits = logits / max(temperature, 1e-6)
+        if i + 1 < min_length:
+            logits[:, eos_token_id] = NEG_INF
+        nxt = categorical(topp_filter(logits, top_p), generator).to(torch.int32)
+        nxt = torch.where(finished, torch.zeros_like(nxt), nxt)
+        seqs[:, i] = nxt
+        finished = finished | (nxt == eos_token_id)
+        tokens = nxt
+        i += 1
+    return seqs
+
+
+# ---------------------------------------------------------------------------
 # Beam search
 # ---------------------------------------------------------------------------
 
@@ -144,8 +239,7 @@ def beam_search(fns: DecodeFns, enc_out: torch.Tensor, enc_mask: torch.Tensor,
                 min_length: int = 0, repetition_penalty: float = 1.0,
                 early_stopping: bool = False) -> torch.Tensor:
     """Returns ``[batch, max_length]`` int32 best sequences."""
-    if fns.reorder_cache is None:
-        raise ValueError("beam_search needs DecodeFns with a reorder_cache")
+    reorder_cache = fns.reorder_cache or reorder_beam_cache
     batch, dev = enc_out.shape[0], enc_out.device
     K = num_beams
     # self-attention caches are per beam; cross K/V per example
@@ -209,7 +303,7 @@ def beam_search(fns: DecodeFns, enc_out: torch.Tensor, enc_mask: torch.Tensor,
         running_seqs = _gather_beams(cand_seqs, keep)
         tokens = _gather_beams(token_idx, keep)
         src_beams = _gather_beams(beam_idx, keep)
-        cache = fns.reorder_cache(cache, (rows + src_beams).reshape(-1))
+        cache = reorder_cache(cache, (rows + src_beams).reshape(-1))
         i += 1
 
     none_finished = ~torch.any(finished_flags, dim=1)

@@ -1,0 +1,109 @@
+"""Checkpoint management: best / last / periodic, with ``torch.save``.
+
+Counterpart of ``vidchapters_tpu/runtime/checkpoint.py`` with the same
+policy (the reference's dvc.py:402-441): ``best`` by ``best_metric`` /
+``best_mode``, ``last`` for resume, ``keep_last`` / ``keep_best`` > 1 also
+archive ``last_e{epoch}`` / ``best_e{epoch}`` copies pruned oldest first,
+``epoch_{epoch}`` every ``save_every_epochs``, ``manager.json`` holding
+``best_value``, and a ``{name}.meta.json`` beside each checkpoint.
+
+A checkpoint is one ``torch.save`` file of ``{"model": state_dict,
+"optimizer": ClipAdamW state, "step", "epoch"}``, written to ``name.tmp``
+and renamed over ``name``, so a reader never sees half a file. At T5-base
+width with its two Adam moments that is 3.47 GB a file (3,470,764,565 bytes,
+written by ``chip_smoke.py``'s phase 5).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+from pathlib import Path
+from typing import Any, Dict, Optional
+
+import torch
+
+
+def state_payload(state, epoch: int) -> Dict[str, Any]:
+    """What a checkpoint holds of a ``train.dvc_train.TrainState``."""
+    return {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
+            "step": int(state.step), "epoch": int(epoch)}
+
+
+class CheckpointManager:
+    def __init__(self, save_dir: str, best_metric: str = "CIDEr",
+                 best_mode: str = "max", save_every_epochs: int = 0,
+                 keep_last: int = 1, keep_best: int = 1):
+        self.dir = Path(save_dir)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.best_metric = best_metric
+        self.best_mode = best_mode
+        self.save_every_epochs = save_every_epochs
+        self.keep_last = max(1, keep_last)
+        self.keep_best = max(1, keep_best)
+        self.best_value: Optional[float] = None
+        meta = self.dir / "manager.json"
+        if meta.exists():
+            self.best_value = json.loads(meta.read_text()).get("best_value")
+
+    def _save(self, name: str, payload: Dict[str, Any], meta: Dict[str, Any]) -> None:
+        tmp = self.dir / (name + ".tmp")
+        torch.save(payload, tmp)
+        os.replace(tmp, self.dir / name)
+        (self.dir / (name + ".meta.json")).write_text(json.dumps(meta))
+
+    def meta(self, name: str) -> Dict[str, Any]:
+        p = self.dir / (name + ".meta.json")
+        return json.loads(p.read_text()) if p.exists() else {}
+
+    def has(self, name: str) -> bool:
+        return (self.dir / name).exists()
+
+    def _prune_archives(self, prefix: str, keep: int) -> None:
+        """Drop the oldest ``{prefix}_e{epoch}`` archives beyond ``keep``."""
+        found = sorted((int(m.group(1)), p) for p in self.dir.iterdir()
+                       if (m := re.fullmatch(rf"{prefix}_e(\d+)", p.name)))
+        for _, p in found[:max(0, len(found) - keep)]:
+            p.unlink()
+            (self.dir / (p.name + ".meta.json")).unlink(missing_ok=True)
+
+    def save_last(self, state, epoch: int) -> None:
+        payload = state_payload(state, epoch)
+        self._save("last", payload, {"epoch": epoch})
+        if self.keep_last > 1:
+            self._save(f"last_e{epoch}", payload, {"epoch": epoch})
+            self._prune_archives("last", self.keep_last - 1)
+        if self.save_every_epochs and (epoch + 1) % self.save_every_epochs == 0:
+            self._save(f"epoch_{epoch}", payload, {"epoch": epoch})
+
+    def maybe_save_best(self, state, epoch: int, metrics: Dict[str, float]) -> bool:
+        value = metrics.get(self.best_metric)
+        if value is None:
+            return False
+        better = (self.best_value is None
+                  or (self.best_mode == "max" and value > self.best_value)
+                  or (self.best_mode == "min" and value < self.best_value))
+        if better:
+            self.best_value = float(value)
+            payload = state_payload(state, epoch)
+            meta = {"epoch": epoch, self.best_metric: float(value)}
+            self._save("best", payload, meta)
+            if self.keep_best > 1:
+                self._save(f"best_e{epoch}", payload, meta)
+                self._prune_archives("best", self.keep_best - 1)
+            (self.dir / "manager.json").write_text(json.dumps({"best_value": self.best_value}))
+        return better
+
+    def load(self, name: str, map_location=None) -> Dict[str, Any]:
+        """The payload of checkpoint ``name``."""
+        return torch.load(self.dir / name, map_location=map_location, weights_only=True)
+
+    def restore(self, name: str, state) -> None:
+        """Load checkpoint ``name`` into ``state`` (model, optimizer and step),
+        in place."""
+        device = next(state.model.parameters()).device
+        payload = self.load(name, map_location=device)
+        state.model.load_state_dict(payload["model"])
+        state.optimizer.load_state_dict(payload["optimizer"])
+        state.step = int(payload["step"])

@@ -1,0 +1,211 @@
+"""DVC / chapter-generation training and evaluation entry point (dvc.py).
+
+Counterpart of ``vidchapters_tpu/train/dvc_main.py`` (the reference's
+dvc.py:243-475) on one GPU: build the tokenizer, datasets, model and
+optimizer; train epoch by epoch; evaluate on val every
+``eval_every_epochs`` and keep the ``best`` checkpoint by CIDEr; save
+``last`` for resume; write ``log.txt`` (one JSON line per epoch) and the
+val predictions; then evaluate the ``best`` weights on the test split (val
+when there is none).
+
+    python -m vidchapters_tpu_torch.train.dvc_main --config exp.json [--eval]
+        [--load CKPT] [--device cuda|cpu]
+
+Not ported: the HowTo100M pretraining set (``htm``), the import of a
+reference ``.pth`` with ``--load``, and data parallelism over more than one
+GPU (ROADMAP.md). ``profile_dir`` writes a ``torch.profiler`` trace of the
+same steps the JAX package profiles.
+"""
+
+from __future__ import annotations
+
+import json
+import tempfile
+from pathlib import Path
+from typing import Dict
+
+import numpy as np
+import torch
+
+from vidchapters_tpu_torch.config import ExperimentConfig, default_dataset_paths
+from vidchapters_tpu_torch.data.dvc_dataset import DenseVideoCaptioningDataset, EpochIterator
+from vidchapters_tpu_torch.data.tokenizer import build_tokenizer
+from vidchapters_tpu_torch.models.vid2seq import Vid2Seq
+from vidchapters_tpu_torch.runtime.checkpoint import CheckpointManager
+from vidchapters_tpu_torch.runtime.collectives import is_main_process
+from vidchapters_tpu_torch.runtime.meters import MetricLogger
+from vidchapters_tpu_torch.train.dvc_train import (
+    TrainState,
+    batch_to_device,
+    evaluate,
+    make_train_step,
+)
+from vidchapters_tpu_torch.train.schedules import build_optimizer
+
+
+def build_datasets(cfg: ExperimentConfig, tokenizer):
+    """``(train, val, test)``: ``[(name, dataset)]`` and ``[(name, dataset,
+    reference json)]`` for each of ``cfg.combine_datasets``."""
+    train_sets, val_sets, test_sets = [], [], []
+    for name in cfg.combine_datasets:
+        if name == "htm":
+            raise NotImplementedError(
+                "the HowTo100M pretraining set (YTPretrainDataset) is not ported yet "
+                "(ROADMAP.md)")
+        # explicit per-dataset paths win; else the reference's standard layout
+        paths = cfg.datasets.get(name) or default_dataset_paths(cfg.paths, name)
+
+        def make(json_path):
+            return DenseVideoCaptioningDataset(json_path, paths.features_path, tokenizer,
+                                               cfg.data, subtitles_path=paths.subtitles_path)
+
+        train_sets.append((name, make(paths.train_json_path)))
+        val_sets.append((name, make(paths.val_json_path), paths.val_json_path))
+        if paths.test_json_path:
+            test_sets.append((name, make(paths.test_json_path), paths.test_json_path))
+    return train_sets, val_sets, test_sets
+
+
+def _load_weights(model: Vid2Seq, load: str, device) -> None:
+    """``--load``: the model weights of a checkpoint this module wrote."""
+    payload = torch.load(load, map_location=device, weights_only=True)
+    if not (isinstance(payload, dict) and "model" in payload and "optimizer" in payload):
+        raise NotImplementedError(
+            f"{load} is not a checkpoint of this package: importing a reference .pth "
+            f"(models/torch_import.py) is not ported yet (ROADMAP.md)")
+    model.load_state_dict(payload["model"])
+
+
+def main(cfg: ExperimentConfig, load: str = "", eval_only: bool = False,
+         device: str = "cuda") -> Dict[str, float]:
+    """Train and evaluate as configured; returns the final eval's metrics,
+    ``{f"{dataset}_{metric}": value}``. ``load``: start from the weights of
+    that checkpoint (and evaluate them, not ``best``, at the end).
+    ``eval_only``: no training, only the final eval."""
+    device = torch.device(device)
+    tok_path = cfg.tokenizer_path
+    if not tok_path and cfg.paths.presave_dir:
+        cand = Path(cfg.paths.presave_dir) / "t5-base" / "spiece.model"
+        tok_path = str(cand) if cand.exists() else ""
+    tokenizer = build_tokenizer(tok_path, num_bins=cfg.model.num_bins)
+    train_sets, val_sets, test_sets = build_datasets(cfg, tokenizer)
+    d = cfg.data
+
+    model = Vid2Seq(cfg.model).init_weights(torch.Generator().manual_seed(cfg.train.seed))
+    model.to(device)
+    if load:
+        print(f"loading checkpoint {load}")
+        _load_weights(model, load, device)
+    print(f"number of params: {sum(p.numel() for p in model.parameters())}")  # dvc.py:339-341
+
+    steps_per_epoch = sum(len(EpochIterator(ds, cfg.train.batch_size, d))
+                          for _, ds in train_sets)
+    optimizer = build_optimizer(cfg.train.optim, steps_per_epoch * cfg.train.epochs,
+                                model.parameters())
+    train_step = make_train_step(model, generative=cfg.train.generative,
+                                 denoising=cfg.train.denoising, genasr=cfg.train.genasr)
+    state = TrainState(model, optimizer)
+    cc = cfg.train.checkpoint
+    save_dir = cc.save_dir or str(Path(tempfile.gettempdir()) / "vidchapters_ckpt")
+    ckpt = CheckpointManager(save_dir, best_metric=cc.best_metric, best_mode=cc.best_mode,
+                             save_every_epochs=cc.save_every_epochs,
+                             keep_last=cc.keep_last, keep_best=cc.keep_best)
+    if ckpt.has("last") and not load:  # resume (dvc.py:354-361)
+        ckpt.restore("last", state)
+        print(f"resumed from epoch {ckpt.meta('last').get('epoch')}")
+
+    log_path = ckpt.dir / "log.txt"
+    start_epoch = int(ckpt.meta("last").get("epoch", -1)) + 1
+    for epoch in range(start_epoch, start_epoch if eval_only else cfg.train.epochs):
+        logger = MetricLogger()
+        for name, ds in train_sets:
+            it = EpochIterator(ds, cfg.train.batch_size, d, seed=cfg.train.seed)
+            it.set_epoch(epoch)
+
+            def drain(pending_metrics):
+                """Read a finished step's metrics; the NaN stop (dvc.py:107-110)
+                fires one step late."""
+                vals = {k: float(v) for k, v in pending_metrics.items()}
+                logger.update(**vals)
+                if not np.isfinite(vals["total_loss"]):
+                    raise RuntimeError("Loss is not finite, stopping training")
+
+            # one-step-delayed metric read: step i-1's values are fetched after
+            # step i is queued, so the host's batch preparation overlaps the
+            # device's work instead of waiting for it
+            pending = None
+            prof = None
+            for step_i, batch in enumerate(logger.log_every(
+                    it, cfg.train.print_freq, f"Epoch [{epoch}] {name}")):
+                if (cfg.train.profile_dir and epoch == 0
+                        and step_i == cfg.train.profile_start):
+                    prof = torch.profiler.profile()
+                    prof.start()
+                metrics = train_step(state, batch_to_device(batch, device), cfg.train.seed)
+                if pending is not None:
+                    drain(pending)
+                pending = metrics
+                if prof is not None and (step_i == cfg.train.profile_start
+                                         + cfg.train.profile_steps):
+                    prof.stop()
+                    out = Path(cfg.train.profile_dir)
+                    out.mkdir(parents=True, exist_ok=True)
+                    prof.export_chrome_trace(str(out / f"trace_e{epoch}.json"))
+                    print(f"profile written to {out}")
+                    prof = None
+            if prof is not None:  # the epoch ended inside the window
+                prof.stop()
+            if pending is not None:
+                drain(pending)
+
+        epoch_stats = {f"train_{k}": v for k, v in logger.global_averages().items()}
+        if (epoch + 1) % cfg.train.eval_every_epochs == 0:
+            for name, ds, ref_path in val_sets:
+                it = EpochIterator(ds, cfg.train.eval_batch_size, d, shuffle=False,
+                                   drop_last=False, bucket_inputs=True)
+                preds, metrics = evaluate(model, it, tokenizer, cfg.generation,
+                                          cfg.model.num_bins, references=[ref_path])
+                epoch_stats.update({f"{name}_{k}": v for k, v in metrics.items()})
+                if is_main_process():
+                    with open(ckpt.dir / f"{name}_val_preds_e{epoch}.json", "w") as f:
+                        json.dump({"results": preds}, f)
+                ckpt.maybe_save_best(state, epoch, metrics)
+
+        last_every = max(1, cfg.train.checkpoint.save_last_every_epochs)
+        if (epoch + 1) % last_every == 0 or epoch == cfg.train.epochs - 1:
+            ckpt.save_last(state, epoch)
+        if is_main_process():
+            with open(log_path, "a") as f:
+                f.write(json.dumps({"epoch": epoch, **epoch_stats}) + "\n")
+
+    # the final eval with the best weights, on test when configured, else val
+    # (dvc.py:447-464); with --load, the loaded weights
+    final_metrics: Dict[str, float] = {}
+    if ckpt.has("best") and not load:
+        ckpt.restore("best", state)
+    for name, ds, ref_path in (test_sets or val_sets):
+        it = EpochIterator(ds, cfg.train.eval_batch_size, d, shuffle=False,
+                           drop_last=False, bucket_inputs=True)
+        _, metrics = evaluate(model, it, tokenizer, cfg.generation, cfg.model.num_bins,
+                              references=[ref_path])
+        final_metrics.update({f"{name}_{k}": v for k, v in metrics.items()})
+    return final_metrics
+
+
+if __name__ == "__main__":
+    import argparse
+
+    from vidchapters_tpu_torch.config import load_config
+
+    p = argparse.ArgumentParser()
+    p.add_argument("--config", required=True, help="experiment json")
+    p.add_argument("--load", default="",
+                   help="start from the weights of a checkpoint written by this module "
+                        "(a reference .pth is not ported yet)")
+    p.add_argument("--eval", action="store_true",
+                   help="skip training; evaluate the loaded or best weights on the test "
+                        "(or val) split")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    a = p.parse_args()
+    print(main(load_config(ExperimentConfig, a.config), load=a.load, eval_only=a.eval,
+               device=a.device))

@@ -8,27 +8,42 @@ Counterpart of ``vidchapters_tpu/train/dvc_train.py``.
   with the cosine/warmup schedule, and the time-token embedding renorm
   (dvc.py:118-126). Dropout comes from a generator derived from (seed,
   step); the long attentions run the fused-attention kernels.
-- ``make_generate_fn``: encode once, then greedy or beam decode, every step
-  through the decode kernel (``ops/decode_megakernel``; on the CPU its
-  plain version). The TPU package's tiling conditions for choosing that
-  path (beams in {1,2,4,8}, ``B*beams % block``, gated ``d_ff % 128``) do
-  not apply to the CUDA kernel and are dropped; the function computed is
+- ``make_generate_fn``: encode once, then greedy, beam or nucleus decode.
+  ``_pick_decode_fns`` chooses the route: greedy and beam search take the
+  decode kernel (``ops/decode_megakernel``) unless ``models.t5.
+  USE_MEGA_DECODE`` is False, nucleus sampling always takes the standard
+  cached decode (``ops/decoding.make_decode_fns``, whose attentions are the
+  ``ops/decode_attention`` kernels). On the CPU every kernel runs its plain
+  version. The TPU package's tiling conditions for the decode kernel
+  (beams in {1,2,4,8}, ``B*beams % block``, gated ``d_ff % 128``) do not
+  apply to the CUDA kernel and are dropped; the function computed is
   unchanged.
+- ``evaluate``: generate per batch, parse the chapters, score them with
+  ``eval_dvc`` + ``eval_soda``.
 """
 
 from __future__ import annotations
 
 import copy
 from dataclasses import dataclass
-from typing import Callable, Dict, Mapping, Tuple
+from typing import Callable, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from vidchapters_tpu_torch.config import GenerationConfig
+from vidchapters_tpu_torch.data.time_tokens import decode_chapter_sequence
+from vidchapters_tpu_torch.models import t5 as t5_mod
 from vidchapters_tpu_torch.models.vid2seq import Vid2Seq
 from vidchapters_tpu_torch.ops.decode_megakernel import make_mega_decode_fns
-from vidchapters_tpu_torch.ops.decoding import beam_search, greedy_decode
+from vidchapters_tpu_torch.ops.decoding import (
+    DecodeFns,
+    beam_search,
+    greedy_decode,
+    make_decode_fns,
+    nucleus_sample,
+)
+from vidchapters_tpu_torch.runtime.collectives import gather_results
 from vidchapters_tpu_torch.runtime.rng import StepRng
 from vidchapters_tpu_torch.train.schedules import ClipAdamW
 
@@ -130,29 +145,47 @@ def make_train_step(model: Vid2Seq, generative: float = 1.0, denoising: float = 
     return train_step
 
 
+def _is_nucleus(gen: GenerationConfig) -> bool:
+    return gen.use_nucleus_sampling or gen.num_beams == 0
+
+
+def _pick_decode_fns(model: Vid2Seq, gen: GenerationConfig) -> DecodeFns:
+    """The decode kernel for greedy and beam search unless
+    ``t5.USE_MEGA_DECODE`` is False; the standard cached decode for nucleus
+    sampling, always (dvc_train.py:121-152 there)."""
+    if not _is_nucleus(gen) and t5_mod.USE_MEGA_DECODE is not False:
+        beams = gen.num_beams if gen.num_beams > 1 else 1
+        return make_mega_decode_fns(model.t5, gen.max_length, num_beams=beams)
+    return make_decode_fns(model, gen.max_length)
+
+
 def make_generate_fn(model: Vid2Seq, gen: GenerationConfig) -> Callable:
-    """``generate(video [B,T,D], input_tokens [B,S]) -> [B, max_length]``
-    int32 token ids, on the device of ``model``'s parameters.
+    """``generate(video [B,T,D], input_tokens [B,S], generator=None) ->
+    [B, max_length]`` int32 token ids, on the device of ``model``'s
+    parameters. Nucleus sampling draws from ``generator`` (a
+    ``torch.Generator`` on that device; seed 0 when None).
 
     Weights are cast once to ``gen.param_dtype`` (the JAX package casts
     every float32 leaf inside its jitted generate); compute runs in the
     model config's dtype (bfloat16 by default)."""
-    if gen.use_nucleus_sampling or gen.num_beams == 0:
-        raise NotImplementedError(
-            "nucleus sampling is not ported yet (ROADMAP.md: standard incremental "
-            "decode and nucleus sampling)")
     cast_to = getattr(torch, getattr(gen, "param_dtype", "float32"))
     if cast_to != torch.float32:
         model = copy.deepcopy(model).to(cast_to)
     model.eval()
-    beams = gen.num_beams if gen.num_beams > 1 else 1
-    fns = make_mega_decode_fns(model.t5, gen.max_length, num_beams=beams)
+    fns = _pick_decode_fns(model, gen)
 
     @torch.inference_mode()
-    def generate(video: torch.Tensor, input_tokens: torch.Tensor) -> torch.Tensor:
+    def generate(video: torch.Tensor, input_tokens: torch.Tensor,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         attn = (input_tokens != 0).to(torch.int32)
         enc_out, enc_mask = model.encode_for_generation(video, input_tokens, attn)
-        if beams == 1:
+        if _is_nucleus(gen):
+            if generator is None:
+                generator = torch.Generator(device=enc_out.device).manual_seed(0)
+            return nucleus_sample(fns, enc_out, enc_mask, gen.max_length, generator,
+                                  top_p=gen.top_p, temperature=gen.temperature,
+                                  min_length=gen.min_length)
+        if gen.num_beams <= 1:
             return greedy_decode(fns, enc_out, enc_mask, gen.max_length,
                                  min_length=gen.min_length,
                                  repetition_penalty=gen.repetition_penalty)
@@ -163,3 +196,40 @@ def make_generate_fn(model: Vid2Seq, gen: GenerationConfig) -> Callable:
                            repetition_penalty=gen.repetition_penalty)
 
     return generate
+
+
+def evaluate(model: Vid2Seq, data_iter: Iterable[Mapping], tokenizer,
+             gen: GenerationConfig, num_bins: int,
+             references: Optional[List] = None,
+             seed: int = 0) -> Tuple[Dict[str, list], Dict[str, float]]:
+    """Decode every batch on the device of ``model``'s parameters, parse the
+    chapters, and score them when ``references`` are given (dvc_train.py:
+    192-226 there). Batch n of a nucleus run samples from a generator
+    seeded ``seed + n``.
+
+    Returns (predictions in the submission schema ``{vid: [{sentence,
+    timestamp}]}``, metrics of ``eval_dvc`` + ``eval_soda``)."""
+    generate = make_generate_fn(model, gen)
+    device = next(model.parameters()).device
+    results: Dict[str, list] = {}
+    for n, batch in enumerate(data_iter):
+        input_tokens = batch.get("input_tokens")
+        if input_tokens is None:
+            input_tokens = np.ones((batch["video"].shape[0], 1), np.int32)
+        generator = torch.Generator(device=device).manual_seed(seed + n)
+        seqs = generate(torch.as_tensor(np.asarray(batch["video"]), dtype=torch.float32,
+                                        device=device),
+                        torch.as_tensor(np.asarray(input_tokens), device=device), generator)
+        texts = tokenizer.batch_decode(seqs.cpu().numpy(), skip_special_tokens=True)
+        for i, vid in enumerate(batch["video_id"]):
+            results[vid] = decode_chapter_sequence(texts[i], float(batch["duration"][i]),
+                                                   num_bins)
+    results = gather_results(results)
+    metrics: Dict[str, float] = {}
+    if references:
+        from vidchapters_tpu_torch.evals import eval_dvc, eval_soda
+
+        submission = {"results": results}
+        metrics.update(eval_dvc(submission, references, seed=seed))
+        metrics.update(eval_soda(submission, references))
+    return results, metrics

@@ -97,6 +97,20 @@ class ClipAdamW:
             p.copy_(p + (u * -lr).to(p.dtype))
         return g_norm
 
+    def state_dict(self) -> dict:
+        """The moments and the update count (the schedule is rebuilt from
+        the config)."""
+        return {"mu": list(self.mu), "nu": list(self.nu), "count": self.count}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        if len(state["mu"]) != len(self.params) or len(state["nu"]) != len(self.params):
+            raise ValueError(f"optimizer state holds {len(state['mu'])} moments for "
+                             f"{len(self.params)} parameters")
+        for mine, saved in zip(self.mu + self.nu, list(state["mu"]) + list(state["nu"])):
+            mine.copy_(saved)
+        self.count = int(state["count"])
+
 
 def build_optimizer(cfg: OptimConfig, num_training_steps: int,
                     params: Iterable[torch.nn.Parameter]) -> ClipAdamW:
