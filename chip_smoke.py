@@ -17,8 +17,11 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    forced ties, exactly; the decode kernel at 8 examples x 4 beams, 12
    layers, L=256, Lenc=1152, at several cache indices with a beam
    permutation; the decode self-attention at 32 rows x 12 heads, L=256,
-   cache indices 0/127/255 (caches bit for bit), and the decode
-   cross-attention at 8 examples x 4 and x 1 beams over 1152 padded keys.
+   cache indices 0/127/255 (caches bit for bit), the decode
+   cross-attention at 8 examples x 4 and x 1 beams over 1152 padded keys,
+   and PDVC's deformable attention forward and backward at the encoder's
+   188 and the decoder's 100 queries over value [1, 188, 8, 64] (locations
+   past both borders and on pixel centres).
    Each kernel's time (CUDA events), its plain version's time, the one-call
    library yardstick where one exists, and its bound.
 3. Training at full width: Vid2Seq (T5-base + 12-layer ViT, dropout 0.1)
@@ -42,12 +45,21 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    checkpoints, then an eval_only rerun with nucleus sampling that resumes;
    every DVC/SODA metric finite; fp32 tokens of the standard decode, card
    against CPU (beam 4, greedy) and against the decode kernel (beam 4).
+6. PDVC trained and evaluated at the full width of
+   configs/chapters_pdvc.json through train/pdvc_main: one epoch at batch
+   1 on 16 synthetic videos, the val eval on 8, best / last, eval_main from
+   the saved directory and the CLI's test mode; the deformable kernels'
+   launches exactly 4 forward per forward pass and 4 backward per train
+   step; train ms/step, eval videos/s, the matcher's time and a profile of
+   one train step and one eval batch; an fp32 gradient check of one step
+   and fp32 caption tokens of two val videos, card against CPU.
 
 The kernels' launch counts are zeroed just before each main path (phases
-3, 4 and each run of 5) and read just after it; the kernel line reports
+3, 4, 6 and each run of 5) and read just after it; the kernel line reports
 each kernel's count from its own path (training for the fused attention,
 serving for top-k and the decode kernel, phase 5's first run for the
-decode-attention kernels).
+decode-attention kernels, phase 6's pdvc_main run for the deformable
+attention).
 
 The last lines are the kernel table as one JSON object, the nvidia-smi
 line, and {"ok": true, "device": {...}}. The full record also goes to
@@ -170,7 +182,7 @@ def phase_device_and_build():
         f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.time()
     logs = _build.build(["fused_attention_fwd", "fused_attention_bwd", "topk",
-                         "decode_megakernel", "decode_attention"])
+                         "decode_megakernel", "decode_attention", "deformable_attention"])
     for name, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling entry", "smem")):
@@ -661,6 +673,133 @@ def check_decode_cross_attention(gen):
             "eager_ms": {"kernel": ms_eager, "plain": plain_eager, "library": lib_eager},
             "library": "SDPA (scale 1) over K/V expanded across beams",
             "shape": f"q [{rows},{h},1,{d}] over k/v [{b0},{h},{lk},{d}] bf16, g 4"}
+
+
+PDVC_LEVELS = (100, 50, 25, 13)  # 100 frames through three stride-2 convs
+PDVC_HEADS, PDVC_DHEAD, PDVC_POINTS = 8, 64, 4
+PDVC_ENC_LQ, PDVC_DEC_LQ = sum(PDVC_LEVELS), 100  # encoder queries = all 188 positions
+
+
+def _deformable_inputs(gen, lq: int):
+    """value [1, 188, 8, 64], locations in [-0.1, 1.1] (past both borders)
+    with point 0 of every level exactly on a pixel centre (k + 0.5) / T_l,
+    softmaxed weights over levels x points, and an output gradient, on the
+    card in float32."""
+    import torch
+
+    levels = len(PDVC_LEVELS)
+    value = torch.randn(1, sum(PDVC_LEVELS), PDVC_HEADS, PDVC_DHEAD, generator=gen)
+    loc = torch.rand(1, lq, PDVC_HEADS, levels, PDVC_POINTS, generator=gen) * 1.2 - 0.1
+    for lid, t in enumerate(PDVC_LEVELS):
+        k = torch.randint(0, t, (1, lq, PDVC_HEADS), generator=gen)
+        loc[:, :, :, lid, 0] = (k + 0.5) / t
+    attn = torch.softmax(torch.randn(1, lq, PDVC_HEADS, levels * PDVC_POINTS, generator=gen),
+                         dim=-1).reshape(1, lq, PDVC_HEADS, levels, PDVC_POINTS)
+    grad = torch.randn(1, lq, PDVC_HEADS * PDVC_DHEAD, generator=gen)
+    return [t.cuda() for t in (value, loc, attn, grad)]
+
+
+def _grid_sample_fallback(value, loc, attn):
+    """The reference's pure-PyTorch fallback (ms_deform_attn_core_pytorch as
+    tests/test_deformable_attention.py::torch_oracle builds it): per level a
+    pseudo-2D grid_sample(bilinear, border, align_corners=False) of height 1
+    and the attention-weighted sum over points."""
+    import torch
+    import torch.nn.functional as F
+
+    n, _, m, d = value.shape
+    lq = loc.shape[1]
+    out = 0
+    for lid, (v, t_l) in enumerate(zip(value.split(PDVC_LEVELS, dim=1), PDVC_LEVELS)):
+        vl = v.flatten(2).transpose(1, 2).reshape(n * m, d, 1, t_l)
+        gx = 2 * loc[:, :, :, lid] - 1
+        grid = torch.stack([gx, torch.zeros_like(gx)], -1).permute(0, 2, 1, 3, 4).flatten(0, 1)
+        sampled = F.grid_sample(vl, grid, mode="bilinear", padding_mode="border",
+                                align_corners=False)  # [N*M, D, Lq, P]
+        a = attn[:, :, :, lid].permute(0, 2, 1, 3).flatten(0, 1)
+        out = out + (sampled * a[:, None]).sum(-1).reshape(n, m, d, lq).permute(0, 3, 1, 2)
+    return out.reshape(n, lq, m * d)
+
+
+def check_deformable_attention(gen):
+    """The deformable attention forward and backward kernels against their
+    plain versions at PDVC's shapes: the encoder's 188 queries and the
+    decoder's 100 over value [1, 188, 8, 64], 4 levels x 4 points, float32.
+    Forward within 1e-5; dloc and dattn within 1e-4 of their largest
+    element; dvalue (fp32 atomics, any order) within 1e-5 of its norm.
+    Timed at the encoder's shape by CUDA-graph replay; the yardstick is the
+    reference's grid_sample fallback (no single PyTorch call computes this
+    function), forward and, through autograd, backward."""
+    import torch
+
+    from vidchapters_tpu_torch.ops import deformable_attention as da
+
+    shapes = PDVC_LEVELS
+    errs = {"fwd": 0.0, "dvalue": 0.0, "dloc": 0.0, "dattn": 0.0, "bwd_max_abs": 0.0}
+    for lq in (PDVC_ENC_LQ, PDVC_DEC_LQ):
+        value, loc, attn, grad = _deformable_inputs(gen, lq)
+        out = da.deformable_attention_1d(value, shapes, loc, attn)
+        ref = da.deformable_attention_1d_plain(value, shapes, loc, attn)
+        got = da.deformable_attention_1d_bwd(value, shapes, loc, attn, grad)
+        want = da.deformable_attention_1d_bwd_plain(value, shapes, loc, attn, grad)
+        torch.cuda.synchronize()
+        err = {"fwd": (out - ref).abs().max().item(),
+               "dvalue": ((got[0] - want[0]).norm() / want[0].norm()).item(),
+               "dloc": ((got[1] - want[1]).abs().max() / want[1].abs().max()).item(),
+               "dattn": ((got[2] - want[2]).abs().max() / want[2].abs().max()).item(),
+               "bwd_max_abs": max((a - b).abs().max().item() for a, b in zip(got, want))}
+        say(f"[check] deformable_attention Lq {lq} over value [1,188,8,64] f32: fwd max_abs_err "
+            f"{err['fwd']:.3e} (tol 1e-5); dvalue {err['dvalue']:.3e} of its norm (tol 1e-5), "
+            f"dloc {err['dloc']:.3e} and dattn {err['dattn']:.3e} of their max (tol 1e-4)")
+        check(err["fwd"] <= 1e-5, f"deformable forward Lq {lq}: err {err['fwd']}")
+        check(err["dvalue"] <= 1e-5, f"deformable dvalue Lq {lq}: {err['dvalue']}")
+        check(err["dloc"] <= 1e-4 and err["dattn"] <= 1e-4,
+              f"deformable dloc / dattn Lq {lq}: {err['dloc']} / {err['dattn']}")
+        errs = {k: max(v, err[k]) for k, v in errs.items()}
+    value, loc, attn, grad = _deformable_inputs(gen, PDVC_ENC_LQ)
+    lib_out = _grid_sample_fallback(value, loc, attn)
+    check((lib_out - da.deformable_attention_1d_plain(value, shapes, loc, attn)).abs().max()
+          .item() <= 1e-4, "the grid_sample fallback does not compute the same function")
+    leaves = [t.detach().requires_grad_(True) for t in (value, loc, attn)]
+
+    def library_bwd():
+        with torch.enable_grad():
+            return torch.autograd.grad(_grid_sample_fallback(*leaves), leaves, grad)
+
+    timed = {
+        "fwd": (lambda: da.deformable_attention_1d(value, shapes, loc, attn),
+                lambda: da.deformable_attention_1d_plain(value, shapes, loc, attn),
+                lambda: _grid_sample_fallback(value, loc, attn)),
+        "bwd": (lambda: da.deformable_attention_1d_bwd(value, shapes, loc, attn, grad),
+                lambda: da.deformable_attention_1d_bwd_plain(value, shapes, loc, attn, grad),
+                library_bwd)}
+    # bytes: each input read once, each output written once (fp32); operations:
+    # 2 multiplies and 2 adds per channel and sample forward, 4 more backward
+    # (two dot products) and 4 for the two dvalue updates
+    lq, m, d = PDVC_ENC_LQ, PDVC_HEADS, PDVC_DHEAD
+    samples = lq * m * len(shapes) * PDVC_POINTS
+    v_bytes, s_bytes, o_bytes = 4 * sum(shapes) * m * d, 4 * samples, 4 * lq * m * d
+    work = {"fwd": (v_bytes + 2 * s_bytes + o_bytes, 4 * samples * d),
+            "bwd": (2 * v_bytes + 4 * s_bytes + o_bytes, 12 * samples * d)}
+    rows = []
+    for part, (kernel, plain, library) in timed.items():
+        ms, eager = time_ms_graph(kernel), time_ms(kernel, 50)
+        bms, by = bound(*work[part], H100_FP32_FLOPS)
+        rows.append({
+            "name": f"deformable_attention_{part}", "route": "cuda",
+            "source": "vidchapters_tpu_torch/csrc/deformable_attention.cu",
+            "replaces": ("vidchapters_tpu/ops/deformable_attention.py:217" if part == "fwd" else
+                         "vidchapters_tpu/ops/deformable_attention.py:266 (custom VJP of :217)"),
+            "max_abs_err": errs["fwd"] if part == "fwd" else errs["bwd_max_abs"],
+            "errors": errs, "ms": ms, "plain_ms": time_ms_graph(plain), "bound_ms": bms,
+            "bound_by": by, "library_ms": time_ms_graph(library), "timing": TIMING_GRAPH,
+            "eager_ms": {"kernel": eager, "plain": time_ms(plain, 20),
+                         "library": time_ms(library, 20)},
+            "library": "reference fallback, 5+ calls: 4 x grid_sample(bilinear, border) + "
+                       "weighted sum" + (" (forward + autograd backward)" if part == "bwd" else ""),
+            "shape": f"value [1,188,8,64], loc/attn [1,{lq},8,4,4] f32, levels {shapes}"})
+    torch.cuda.synchronize()
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1364,6 +1503,451 @@ def phase_train_and_evaluate(card: str, fp32_state, fp32_inputs):
     return summary, runs["beam4"]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 6: PDVC trained and evaluated at full width through pdvc_main
+# ---------------------------------------------------------------------------
+
+PDVC_RECIPE = "configs/chapters_pdvc.json"
+DEFORM_KERNELS = ("deformable_attention_fwd", "deformable_attention_bwd")
+PDVC_METRICS = ("Bleu_4", "METEOR", "CIDEr", "Recall", "Precision", "soda_c")
+
+
+def _write_pdvc_dataset(root: Path, n_train: int, n_val: int, seed: int = 0) -> Path:
+    """CLIP-like features ([T, 768], T in [60, 400]) per video, train / val
+    jsons of videos 60-600 s long with 3-10 chapters, each captioned by
+    5-20 words of a 300-word list, and a metadata CSV of the val videos."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    syll = [c + v for c in "bcdfghklmnprstvz" for v in "aeiou"]
+    words = sorted({"".join(rng.choice(syll, int(rng.integers(1, 4)))) for _ in range(400)})[:300]
+    (root / "features").mkdir()
+    splits = {"train": {}, "val": {}}
+    for i in range(n_train + n_val):
+        vid = f"pdvc{i:07d}"  # 11 characters: the feature file's name
+        np.save(root / "features" / f"{vid}.npy",
+                rng.standard_normal((int(rng.integers(60, 401)), 768)).astype(np.float32))
+        dur = float(rng.uniform(60.0, 600.0))
+        k = int(rng.integers(3, 11))
+        edges = np.sort(np.concatenate([[0.0, dur], rng.uniform(0.0, dur, k - 1)]))
+        splits["train" if i < n_train else "val"][vid] = {
+            "duration": dur,
+            "timestamps": [[float(a), float(b)] for a, b in zip(edges, edges[1:])],
+            "sentences": [" ".join(rng.choice(words, int(rng.integers(5, 21)))) + "."
+                          for _ in range(k)]}
+    for name, ann in splits.items():
+        (root / f"{name}.json").write_text(json.dumps(ann))
+    (root / "meta.csv").write_text("filename,video-duration\n" + "".join(
+        f"/videos/{v}.mp4,{a['duration']}\n" for v, a in splits["val"].items()))
+    return root
+
+
+def _profile_pdvc(fn, wall_ms: float):
+    """``fn`` once under torch.profiler: device time by kernel group and the
+    device's idle share of an unprofiled call of ``wall_ms``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = _device_ms_by_kernel(prof)
+    groups = {"deformable_attention": 0.0, "matmul (cuBLAS)": 0.0, "elementwise": 0.0,
+              "reduce": 0.0, "other": 0.0}
+    for name, ms in kernels.items():
+        low = name.lower()
+        if "deform_" in low:
+            groups["deformable_attention"] += ms
+        elif any(w in low for w in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):
+            groups["matmul (cuBLAS)"] += ms
+        elif "elementwise" in low:
+            groups["elementwise"] += ms
+        elif "reduce" in low or "softmax" in low:
+            groups["reduce"] += ms
+        else:
+            groups["other"] += ms
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    # what the host issued: device kernels, and the operators called from
+    # Python or autograd (not those nested inside another operator)
+    n_kernels = sum(ev.count for ev in prof.key_averages()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA)
+    n_ops = sum(1 for ev in prof.events() if ev.name.startswith("aten::") and not (
+        ev.cpu_parent is not None and ev.cpu_parent.name.startswith("aten::")))
+    return {"wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+            "device_kernels": n_kernels, "top_level_ops": n_ops, "by_group_ms": groups,
+            "top_kernels_ms": [[n[:90], t] for n, t in top]}
+
+
+def _timed_ms(fn) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fn()
+    torch.cuda.synchronize()
+    return (time.time() - t0) * 1e3
+
+
+def pdvc_fp32_grad_check(cfg, host_batch):
+    """One train step's loss and gradients at full width in fp32 with
+    dropout 0, from the same weights and batch: the plain versions on the
+    CPU, then the kernels on the card. The matcher's assignments are
+    compared first. Where they differ, the card's assignment is costed
+    under the CPU's cost matrix: it must be a near-tie (within 2 x targets
+    x 1e-4 of the CPU's total: each auction ends within targets x eps of the
+    optimum), it is reported as such, and the card's step takes the CPU's assignments, so
+    that the gradients compare one function. The loss must then agree to
+    1e-5 relative and every gradient to 1e-4 of its norm (+1e-6 for
+    gradients that are 0 up to rounding, such as the query self-attention's
+    key biases)."""
+    import torch
+
+    from vidchapters_tpu_torch.models import pdvc_loss
+    from vidchapters_tpu_torch.models.pdvc import PDVC
+    from vidchapters_tpu_torch.ops import deformable_attention as da
+    from vidchapters_tpu_torch.train.pdvc_train import pdvc_batch_to_device
+
+    cfg0 = dataclasses.replace(cfg, dropout=0.0)
+    weights = PDVC(cfg0).init_weights(torch.Generator().manual_seed(1)).state_dict()
+    coefs = dict(cost_class=cfg0.cls_loss_coef, cost_bbox=cfg0.bbox_loss_coef,
+                 cost_giou=cfg0.giou_loss_coef)
+    res, matching = {}, {}
+    real_match = pdvc_loss.match_pdvc
+    for path, dev in (("plain", "cpu"), ("kernels", DEVICE)):
+        model = PDVC(cfg0)
+        model.load_state_dict(weights)
+        model.to(dev)
+        batch = pdvc_batch_to_device(host_batch, dev)
+        counts0 = (da.FWD_KERNEL.launches, da.BWD_KERNEL.launches)
+        t0 = time.time()
+        out = model(batch["video"], batch["video_mask"])
+        assigns = [real_match(out["pred_logits"][lid], out["pred_boxes"][lid], batch["boxes"],
+                              batch["valid"], cfg0, **coefs).cpu()
+                   for lid in range(cfg0.dec_layers)]
+        if path == "plain":
+            costs = [pdvc_loss.match_cost(out["pred_logits"][lid], out["pred_boxes"][lid],
+                                          batch["boxes"], cfg0, **coefs)[0]
+                     for lid in range(cfg0.dec_layers)]
+        else:  # compare, then give the card's step the CPU's assignments
+            valid = batch["valid"][0].cpu() > 0
+            cpu_assigns = res["plain"][2]
+            for lid, (ak, ap) in enumerate(zip(assigns, cpu_assigns)):
+                if torch.equal(ak, ap):
+                    continue
+                t_idx = torch.arange(len(valid))[valid]
+                total = lambda a: float(costs[lid][a[0, valid], t_idx].sum())  # noqa: E731
+                gap = total(ak) - total(ap)
+                matching[f"layer_{lid}"] = {"card": ak.tolist(), "cpu": ap.tolist(),
+                                            "cost_gap_under_cpu_cost": gap}
+                # each auction ends within n_valid * eps of the optimum
+                tol = 2 * int(valid.sum()) * 1e-4
+                say(f"[pdvc-fp32-grad] matcher assignments differ card vs CPU at decoder layer "
+                    f"{lid}: {ak.tolist()} vs {ap.tolist()}; the card's costs {gap:.3e} more "
+                    f"under the CPU's cost matrix (a near-tie if within {tol:.1e})")
+                check(abs(gap) <= tol, f"PDVC fp32 check: the matcher's assignments differ "
+                                       f"card vs CPU at layer {lid} by a cost of {gap}")
+            forced = iter(cpu_assigns)
+            pdvc_loss.match_pdvc = lambda *a, **k: next(forced).to(DEVICE)
+        try:
+            targets = {k: batch[k] for k in ("boxes", "valid", "captions")}
+            total_loss, _ = pdvc_loss.pdvc_criterion(model, out, targets, cfg0)
+        finally:
+            pdvc_loss.match_pdvc = real_match
+        total_loss.backward()
+        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu()
+                 for n, p in model.named_parameters()}
+        res[path] = (float(total_loss.detach()), grads, assigns,
+                     (da.FWD_KERNEL.launches - counts0[0], da.BWD_KERNEL.launches - counts0[1]))
+        say(f"[pdvc-fp32-grad] {path} on {dev}: {time.time() - t0:.1f} s, total {res[path][0]:.6f}")
+        del model, out, total_loss
+    loss_k, g_k, _, launched = res["kernels"]
+    loss_p, g_p, _, _ = res["plain"]
+    per_pass = cfg0.enc_layers + cfg0.dec_layers
+    check(launched == (per_pass, per_pass), f"fp32 check launched {launched} deformable "
+                                            f"fwd / bwd kernels, expected {per_pass} each")
+    rel = {n: float((g_k[n] - g_p[n]).norm()) / max(float(g_p[n].norm()), 1e-30) for n in g_p}
+    over = {n: float((g_k[n] - g_p[n]).norm()) - (1e-4 * float(g_p[n].norm()) + 1e-6)
+            for n in g_p}
+    worst = max(over, key=over.get)
+    worst_rel = max((n for n in g_p if float(g_p[n].norm()) > 1e-3), key=rel.get)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    say(f"[pdvc-fp32-grad] assignments {'identical' if not matching else matching}; loss rel "
+        f"diff {loss_rel:.2e} (tol 1e-5); {len(rel)} gradients, worst relative {worst_rel} at "
+        f"{rel[worst_rel]:.2e} of its norm; closest to the tolerance {worst} "
+        f"({rel[worst]:.2e} of a norm {float(g_p[worst].norm()):.3e})")
+    check(loss_rel <= 1e-5, f"PDVC fp32 loss card {loss_k} vs CPU {loss_p}")
+    check(over[worst] <= 0, f"PDVC fp32 gradient {worst}: {rel[worst]:.2e} of its norm")
+    return {"loss_kernels": loss_k, "loss_plain": loss_p, "loss_rel_diff": loss_rel,
+            "assignments": matching or "identical", "n_gradients": len(rel),
+            "worst_gradient": worst_rel, "worst_rel_err": rel[worst_rel],
+            "depth": "full (2+2 layers), full width, batch 1"}
+
+
+def pdvc_fp32_token_check(cfg, host_batch):
+    """Greedy caption tokens (and proposals) of ``make_pdvc_infer`` in fp32
+    for two val videos: the kernels on the card against the plain versions
+    on the CPU, from seeded weights (not ``best``: the backward's fp32
+    atomics make each run's trained weights, and so its near-ties, differ)
+    with the caption head's logit layer drawn normal(0, 1) (the init's
+    uniform(0.1) layer, and the head after one epoch on random data, emit
+    EOS first, which would leave nothing to compare). The tokens must be
+    identical and hold words; a difference is reported with the CPU's top-2
+    log-prob gap there."""
+    import numpy as np
+    import torch
+
+    from vidchapters_tpu_torch.models.pdvc import PDVC
+    from vidchapters_tpu_torch.train.pdvc_train import make_pdvc_infer
+
+    weights = PDVC(cfg).init_weights(torch.Generator().manual_seed(2)).state_dict()
+    weights["captioner.logit_w"] = torch.randn(weights["captioner.logit_w"].shape,
+                                               generator=torch.Generator().manual_seed(7))
+    posts, models = {}, {}
+    for dev in (DEVICE, "cpu"):
+        model = PDVC(cfg)
+        model.load_state_dict(weights)
+        models[dev] = model.to(dev).eval()
+        t0 = time.time()
+        posts[dev] = make_pdvc_infer(models[dev], cfg)(host_batch["video"],
+                                                      host_batch["video_mask"],
+                                                      host_batch["duration"])
+        say(f"[pdvc-fp32-tokens] infer on {dev}: {time.time() - t0:.1f} s")
+    got, ref = posts[DEVICE], posts["cpu"]
+    if not np.array_equal(got["seq"], ref["seq"]):
+        b, j, s = map(int, np.argwhere(got["seq"] != ref["seq"])[0])
+        q = int(ref["query_order"][b, j])
+        model = models["cpu"]
+        with torch.no_grad():
+            out = model(torch.as_tensor(host_batch["video"][b:b + 1]),
+                        torch.as_tensor(host_batch["video_mask"][b:b + 1]))
+            ctx = model.caption_context(out, torch.tensor([[q]]))
+            seq = torch.as_tensor(np.concatenate([[0], ref["seq"][b, j, :s + 1]]))[None].long()
+            logp = model.caption_logprobs(out["hs"][-1][:, q], seq, ctx)[0, s]
+            top2 = torch.topk(logp, 2).values
+        raise SmokeFailure(f"PDVC fp32 tokens differ card vs CPU at video {b}, query {q}, step "
+                           f"{s}: {got['seq'][b, j, s]} vs {ref['seq'][b, j, s]}; the CPU's "
+                           f"top-2 log-prob gap there {float(top2[0] - top2[1]):.3e}")
+    score_err = float(np.abs(got["scores"] - ref["scores"]).max())
+    check(np.array_equal(got["query_order"], ref["query_order"]) and score_err <= 1e-4,
+          f"PDVC fp32 proposals differ card vs CPU (score err {score_err})")
+    n_words = int((ref["seq"] > 0).sum())
+    check(n_words > 0, "PDVC fp32 token check: the captions hold no words")
+    say(f"[pdvc-fp32-tokens] tokens identical over {list(ref['seq'].shape)} ({n_words} words); "
+        f"proposal order identical, scores within {score_err:.2e}")
+    return {"identical": True, "shape": list(ref["seq"].shape), "words": n_words,
+            "score_max_abs_err": score_err}
+
+
+def phase_pdvc(card: str, cfg=None, n_train: int = 16, n_val: int = 8):
+    """PDVC through ``train/pdvc_main`` on the card at the full width of
+    configs/chapters_pdvc.json (hidden 512, 8 heads, 2+2 layers, 100
+    queries, 4 levels x 4 points, LSTM-DSA caption head with vocab 33598,
+    fp32), on a synthetic on-disk dataset of ``n_train`` + ``n_val`` videos:
+
+    1. ``main``: one epoch at the recipe's batch 1, lr 1e-4, StepLR 8, the
+       val eval, ``best`` / ``last`` / ``translator.json`` / ``info.json``,
+       the final eval with ``best``. The deformable kernels' counts are
+       zeroed just before and read just after: the forward must launch once
+       per encoder and decoder layer per forward pass (train steps and eval
+       batches), the backward once per layer per train step;
+    2. ``eval_main`` from the saved directory (``best``), then the CLI's
+       test mode over the val videos' metadata CSV;
+    3. one train step and one eval batch under torch.profiler;
+    4. the fp32 gradient check and the fp32 caption-token check (seeded
+       weights), card against CPU.
+
+    Cut from the recipe: one epoch instead of five, random-init weights."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from vidchapters_tpu_torch.config import PDVCConfig, save_config
+    from vidchapters_tpu_torch.data.pdvc_dataset import PDVCDataset, Translator, pdvc_collate
+    from vidchapters_tpu_torch.models import pdvc_loss
+    from vidchapters_tpu_torch.models.pdvc import PDVC
+    from vidchapters_tpu_torch.ops import deformable_attention as da
+    from vidchapters_tpu_torch.train import pdvc_main
+    from vidchapters_tpu_torch.train.pdvc_train import (
+        PDVCTrainState,
+        build_pdvc_optimizer,
+        make_pdvc_infer,
+        make_pdvc_train_step,
+        pdvc_batch_to_device,
+    )
+
+    recipe = json.loads((ROOT / PDVC_RECIPE).read_text())
+    cfg = cfg or dataclasses.replace(PDVCConfig(), **recipe["model"])
+    tr = recipe["train"]
+    bs, per_pass = tr["batch_size"], cfg.enc_layers + cfg.dec_layers
+    kernels = {"deformable_attention_fwd": da.FWD_KERNEL,
+               "deformable_attention_bwd": da.BWD_KERNEL}
+    steps, evals, match_ms = [], [], []
+    real = (pdvc_main.make_pdvc_train_step, pdvc_main.evaluate_pdvc, pdvc_loss.match_pdvc)
+
+    def timed_make_step(*a, **k):
+        step = real[0](*a, **k)
+
+        def timed(state, batch, seed):
+            out = {}
+            steps.append(_timed_ms(lambda: out.update(step(state, batch, seed))))
+            return out
+
+        return timed
+
+    def timed_evaluate(*a, **k):
+        out = []
+        ms = _timed_ms(lambda: out.append(real[1](*a, **k)))
+        evals.append({"videos": len(out[0][0]), "wall_s": ms / 1e3})
+        return out[0]
+
+    def timed_match(*a, **k):
+        out = []
+        match_ms.append(_timed_ms(lambda: out.append(real[2](*a, **k))))
+        return out[0]
+
+    def counts():
+        return {n: k.launches for n, k in kernels.items()}
+
+    def zero():
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+
+    summary = {"card": card, "config": f"{PDVC_RECIPE} model section",
+               "cut": ["1 epoch (recipe: 5)", "random-init weights",
+                       f"synthetic data: {n_train} train + {n_val} val videos"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = _write_pdvc_dataset(Path(tmp), n_train, n_val)
+        save, out_dir = Path(tmp) / "ckpt", Path(tmp) / "eval"
+        data = (str(root / "train.json"), str(root / "val.json"), str(root / "features"), cfg)
+        pdvc_main.make_pdvc_train_step, pdvc_main.evaluate_pdvc = timed_make_step, timed_evaluate
+        pdvc_loss.match_pdvc = timed_match
+        try:
+            zero()
+            torch.cuda.reset_peak_memory_stats()
+            tee = _Tee(sys.stdout)
+            t0 = time.time()
+            with contextlib.redirect_stdout(tee):
+                metrics = pdvc_main.main(*data, str(save), n_epochs=1, batch_size=bs,
+                                         lr=tr["lr"], lr_drop_epochs=tr["lr_drop_epochs"],
+                                         max_events=tr["max_events"], seed=0, device=DEVICE)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = counts()
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            pdvc_main.make_pdvc_train_step, pdvc_main.evaluate_pdvc = real[:2]
+            pdvc_loss.match_pdvc = real[2]
+        n_steps = n_train // bs
+        eval_batches = 2 * -(-n_val // bs)  # the val eval and the final eval
+        want = {"deformable_attention_fwd": per_pass * (n_steps + eval_batches),
+                "deformable_attention_bwd": per_pass * n_steps}
+        say(f"[pdvc_main] train + evaluate: {wall:.1f} s, {len(steps)} steps, launches "
+            f"{launches} (expected {want}), evals {evals}")
+        check(len(steps) == n_steps, f"{len(steps)} PDVC train steps, expected {n_steps}")
+        check(launches == want, f"deformable launches {launches}, expected {want}")
+        check(len(match_ms) == cfg.dec_layers * n_steps,
+              f"{len(match_ms)} matcher calls, expected {cfg.dec_layers} per step")
+        missing = [m for m in PDVC_METRICS if not np.isfinite(metrics.get(m, float("nan")))]
+        check(not missing, f"pdvc_main: metrics missing or not finite: {missing}")
+        for f in ("best", "last", "translator.json", "info.json", "manager.json"):
+            check((save / f).exists(), f"pdvc_main wrote no {f}")
+        info = json.loads((save / "info.json").read_text())
+        check([h["epoch"] for h in info["histories"]] == [0], f"info.json: {info['histories']}")
+        best_epoch = json.loads((save / "best.meta.json").read_text())["epoch"]
+        ckpt_bytes = (save / "last").stat().st_size
+
+        # eval_main from the saved directory, then the CLI's test mode
+        zero()
+        tee = _Tee(sys.stdout)
+        t0 = time.time()
+        with contextlib.redirect_stdout(tee):
+            scored = pdvc_main.eval_main(str(save), data[1], data[2], cfg, save_dir=str(out_dir),
+                                         batch_size=bs, max_events=tr["max_events"],
+                                         device=DEVICE)
+        eval_main_s = time.time() - t0
+        eval_launches = counts()
+        check("loaded PDVC 'best' checkpoint" in "".join(tee.parts), "eval_main did not load best")
+        check(eval_launches == {"deformable_attention_fwd": per_pass * -(-n_val // bs),
+                                "deformable_attention_bwd": 0},
+              f"eval_main launches {eval_launches}")
+        missing = [m for m in PDVC_METRICS if not np.isfinite(scored.get(m, float("nan")))]
+        check(not missing, f"eval_main: metrics missing or not finite: {missing}")
+        save_config(cfg, str(Path(tmp) / "cfg.json"))
+        tee = _Tee(sys.stdout)
+        t0 = time.time()
+        with contextlib.redirect_stdout(tee):
+            pdvc_main._cli(["--eval", "--load", str(save), "--features-path", data[2],
+                            "--config", str(Path(tmp) / "cfg.json"), "--save-dir", str(out_dir),
+                            "--test-meta-csv", str(root / "meta.csv"), "--batch-size", str(bs),
+                            "--device", DEVICE])
+        test_mode_s = time.time() - t0
+        check(json.loads("".join(tee.parts).strip().splitlines()[-1]) == {},
+              "test mode printed metrics")
+        dvc = json.loads((out_dir / "dvc_results.json").read_text())["results"]
+        val_ids = set(json.loads(Path(data[1]).read_text()))
+        check(set(dvc) == val_ids and all(
+            p and all("sentence" in x and "timestamp" in x for x in p) for p in dvc.values()),
+              f"test mode results cover {len(dvc)} of {len(val_ids)} videos, or some are empty")
+        say(f"[pdvc_main] eval_main {eval_main_s:.1f} s (launches {eval_launches}), test mode "
+            f"{test_mode_s:.1f} s, {sum(len(p) for p in dvc.values())} proposals")
+
+        best = torch.load(save / "best", map_location="cpu", weights_only=True)["model"]
+        translator = Translator.from_json(str(save / "translator.json"))
+        train_ds = PDVCDataset(data[0], data[2], translator, cfg, max_events=tr["max_events"])
+        val_ds = PDVCDataset(data[1], data[2], translator, cfg, max_events=tr["max_events"])
+        big = max(range(len(train_ds)), key=lambda i: int(train_ds[i]["valid"].sum()))
+        train_batch = pdvc_collate([train_ds[big]])
+        val_batch = pdvc_collate([val_ds[0], val_ds[1]])
+        one = pdvc_collate([val_ds[0]])
+
+    timed_steps = steps[1:] if len(steps) > 1 else steps
+    final_eval = evals[-1]
+    summary.update({
+        "train_step_ms": steps, "train_step_ms_mean_after_first": float(np.mean(timed_steps)),
+        "train_videos_per_s": bs * len(timed_steps) / (sum(timed_steps) / 1e3),
+        "eval_videos_per_s": final_eval["videos"] / final_eval["wall_s"], "evals": evals,
+        "matcher_ms_per_step": float(np.sum(match_ms)) / max(n_steps, 1),
+        "matcher_ms_per_call": float(np.mean(match_ms)), "peak_memory_bytes": peak,
+        "run_wall_s": wall, "launches": launches, "metrics": metrics, "best_epoch": best_epoch,
+        "eval_main": {"wall_s": eval_main_s, "launches": eval_launches, "metrics": scored},
+        "test_mode_wall_s": test_mode_s, "checkpoint_bytes": ckpt_bytes})
+    say(f"[pdvc] train {summary['train_step_ms_mean_after_first']:.2f} ms/step "
+        f"({summary['train_videos_per_s']:.2f} videos/s), eval "
+        f"{summary['eval_videos_per_s']:.3f} videos/s (decode + rerank + scoring), matcher "
+        f"{summary['matcher_ms_per_step']:.2f} ms/step, peak {peak} bytes")
+
+    # one train step and one eval batch under the profiler
+    model = PDVC(cfg).to(DEVICE)
+    model.load_state_dict(best)
+    state = PDVCTrainState(model, build_pdvc_optimizer(model.parameters(), lr=tr["lr"]))
+    step = make_pdvc_train_step(model, cfg)
+    batch = pdvc_batch_to_device(train_batch, DEVICE)
+    infer = make_pdvc_infer(model, cfg)
+    for _ in range(2):
+        step(state, batch, 0)
+        infer(one["video"], one["video_mask"], one["duration"])
+    summary["profile"] = {
+        "train_step": _profile_pdvc(lambda: step(state, batch, 0),
+                                    _timed_ms(lambda: step(state, batch, 0))),
+        "eval_batch": _profile_pdvc(
+            lambda: infer(one["video"], one["video_mask"], one["duration"]),
+            _timed_ms(lambda: infer(one["video"], one["video_mask"], one["duration"])))}
+    for what, prof in summary["profile"].items():
+        say(f"[pdvc] profiled {what}: {json.dumps({k: v for k, v in prof.items() if k != 'top_kernels_ms'})}")
+        for name, ms in prof["top_kernels_ms"]:
+            say(f"[pdvc]   {ms:9.3f} ms  {name}")
+    del model, state, step, infer
+    torch.cuda.empty_cache()
+
+    summary["fp32_grad_check"] = pdvc_fp32_grad_check(cfg, train_batch)
+    summary["fp32_tokens"] = pdvc_fp32_token_check(cfg, val_batch)
+    return summary, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1387,6 +1971,7 @@ def main() -> int:
         table += [check_topk(gen), check_megakernel(gen)]
         gen = torch.Generator().manual_seed(2)
         table += [check_decode_self_attention(gen), check_decode_cross_attention(gen)]
+        table += check_deformable_attention(torch.Generator().manual_seed(3))
         for row in table:
             say(f"[time] {row['name']}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
                 f"library {row['library_ms']}, bound {row['bound_ms']:.4f} by "
@@ -1394,12 +1979,17 @@ def main() -> int:
         train, train_launches = phase_train(card)
         e2e, serve_launches, fp32, (fp32_state, fp32_inputs) = phase_end_to_end(card)
         evaluation, eval_launches = phase_train_and_evaluate(card, fp32_state, fp32_inputs)
+        del fp32_state, fp32_inputs
+        torch.cuda.empty_cache()
+        pdvc, pdvc_launches = phase_pdvc(card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
     for row in table:  # each kernel's count on its own main path
         if row["name"] in DECODE_KERNELS:
             row["launches"] = eval_launches[row["name"]]
+        elif row["name"] in DEFORM_KERNELS:
+            row["launches"] = pdvc_launches[row["name"]]
         else:
             row["launches"] = train_launches.get(row["name"], serve_launches.get(row["name"]))
     table[0]["launches_serving"] = serve_launches["fused_attention_fwd"]
@@ -1407,9 +1997,11 @@ def main() -> int:
         f"{evaluation['eval_videos_per_s_beam4_standard']:.3f} videos/s (standard, beam 4), "
         f"{evaluation['eval_videos_per_s_nucleus']:.3f} videos/s (nucleus); training "
         f"{train['step_ms']:.1f} ms/step (phase 3), dvc_main steps "
-        f"{[round(x, 1) for x in evaluation['train_step_ms']]} ms")
+        f"{[round(x, 1) for x in evaluation['train_step_ms']]} ms; PDVC "
+        f"{pdvc['train_step_ms_mean_after_first']:.2f} ms/step, eval "
+        f"{pdvc['eval_videos_per_s']:.3f} videos/s")
     record = {"kernels": table, "train": train, "end_to_end": e2e, "fp32_tokens": fp32,
-              "evaluation": evaluation, "card": card}
+              "evaluation": evaluation, "pdvc": pdvc, "card": card}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -208,3 +208,59 @@ def test_decode_cross_attention_matches_plain(dtype, tol, group, lk):
     torch.cuda.synchronize()
     assert da.CROSS_KERNEL.launches == before + 1
     assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+def _deformable_case(lq: int, m: int, d: int, shapes=(100, 50, 25, 13), p: int = 4):
+    """value, locations in [-0.1, 1.1] with point 0 on pixel centres, softmaxed
+    weights and an output gradient, on the card."""
+    g = _gen()
+    value = torch.randn(1, sum(shapes), m, d, generator=g)
+    loc = torch.rand(1, lq, m, len(shapes), p, generator=g) * 1.2 - 0.1
+    for lid, t in enumerate(shapes):
+        k = torch.randint(0, t, (1, lq, m), generator=g)
+        loc[:, :, :, lid, 0] = (k + 0.5) / t
+    attn = torch.softmax(torch.randn(1, lq, m, len(shapes) * p, generator=g), -1)
+    attn = attn.reshape(1, lq, m, len(shapes), p)
+    grad = torch.randn(1, lq, m * d, generator=g)
+    return [t.cuda() for t in (value, loc, attn, grad)], shapes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,m,d", [(188, 8, 64), (100, 8, 64), (37, 4, 16)])
+def test_deformable_attention_matches_plain(lq, m, d):
+    require_cuda()
+    from vidchapters_tpu_torch.ops import deformable_attention as da
+
+    (value, loc, attn, grad), shapes = _deformable_case(lq, m, d)
+    before = (da.FWD_KERNEL.launches, da.BWD_KERNEL.launches)
+    out = da.deformable_attention_1d(value, shapes, loc, attn)
+    got = da.deformable_attention_1d_bwd(value, shapes, loc, attn, grad)
+    ref_out = da.deformable_attention_1d_plain(value, shapes, loc, attn)
+    ref = da.deformable_attention_1d_bwd_plain(value, shapes, loc, attn, grad)
+    torch.cuda.synchronize()
+    assert (da.FWD_KERNEL.launches, da.BWD_KERNEL.launches) == (before[0] + 1, before[1] + 1)
+    assert (out - ref_out).abs().max().item() <= 1e-5
+    dv, dloc, dattn = got
+    assert ((dv - ref[0]).norm() / ref[0].norm()).item() <= 1e-5  # atomics: any order
+    for a, r in ((dloc, ref[1]), (dattn, ref[2])):
+        assert (a - r).abs().max().item() <= 1e-4 * r.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_deformable_attention_launches_or_raises():
+    """A CUDA tensor goes to the kernel, whose only type is float32: a
+    bfloat16 one raises, and no plain version runs in its place."""
+    require_cuda()
+    from vidchapters_tpu_torch.ops import deformable_attention as da
+
+    (value, loc, attn, grad), shapes = _deformable_case(20, 2, 32)
+    before = da.FWD_KERNEL.launches
+    with pytest.raises(TypeError, match="float32"):
+        da.deformable_attention_1d(value.bfloat16(), shapes, loc, attn)
+    with pytest.raises(TypeError, match="float32"):
+        da.deformable_attention_1d_bwd(value, shapes, loc, attn, grad.bfloat16())
+    assert da.FWD_KERNEL.launches == before
+    v = value.clone().requires_grad_(True)
+    da.deformable_attention_1d(v, shapes, loc, attn).backward(grad)
+    torch.cuda.synchronize()
+    assert da.FWD_KERNEL.launches == before + 1 and v.grad is not None

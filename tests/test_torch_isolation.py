@@ -41,6 +41,10 @@ def test_package_imports_with_jax_blocked():
         "import vidchapters_tpu_torch.data.dvc_dataset, vidchapters_tpu_torch.utils.io\n"
         "import vidchapters_tpu_torch.train.dvc_main, vidchapters_tpu_torch.ops.decode_attention\n"
         "import vidchapters_tpu_torch.runtime.checkpoint, vidchapters_tpu_torch.evals\n"
+        "import vidchapters_tpu_torch.train.pdvc_main, vidchapters_tpu_torch.train.pdvc_train\n"
+        "import vidchapters_tpu_torch.models.pdvc, vidchapters_tpu_torch.models.pdvc_loss\n"
+        "import vidchapters_tpu_torch.ops.deformable_attention, vidchapters_tpu_torch.ops.matching\n"
+        "import vidchapters_tpu_torch.ops.span_ops, vidchapters_tpu_torch.data.pdvc_dataset\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'vidchapters_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

@@ -27,6 +27,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from vidchapters_tpu_torch import resolve_device
 from vidchapters_tpu_torch.config import ExperimentConfig, default_dataset_paths
 from vidchapters_tpu_torch.data.dvc_dataset import DenseVideoCaptioningDataset, EpochIterator
 from vidchapters_tpu_torch.data.tokenizer import build_tokenizer
@@ -77,12 +78,13 @@ def _load_weights(model: Vid2Seq, load: str, device) -> None:
 
 
 def main(cfg: ExperimentConfig, load: str = "", eval_only: bool = False,
-         device: str = "cuda") -> Dict[str, float]:
+         device: "str | torch.device | None" = None) -> Dict[str, float]:
     """Train and evaluate as configured; returns the final eval's metrics,
     ``{f"{dataset}_{metric}": value}``. ``load``: start from the weights of
     that checkpoint (and evaluate them, not ``best``, at the end).
-    ``eval_only``: no training, only the final eval."""
-    device = torch.device(device)
+    ``eval_only``: no training, only the final eval. ``device``: CUDA unless
+    the caller asks for the CPU; raises when CUDA is absent."""
+    device = resolve_device(device)
     tok_path = cfg.tokenizer_path
     if not tok_path and cfg.paths.presave_dir:
         cand = Path(cfg.paths.presave_dir) / "t5-base" / "spiece.model"
