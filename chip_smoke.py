@@ -19,9 +19,12 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    permutation; the decode self-attention at 32 rows x 12 heads, L=256,
    cache indices 0/127/255 (caches bit for bit), the decode
    cross-attention at 8 examples x 4 and x 1 beams over 1152 padded keys,
-   and PDVC's deformable attention forward and backward at the encoder's
+   PDVC's deformable attention forward and backward at the encoder's
    188 and the decoder's 100 queries over value [1, 188, 8, 64] (locations
-   past both borders and on pixel centres).
+   past both borders and on pixel centres), the Whisper decode kernel at
+   large-v2 width (fp32 and bf16, cross K/V int8 and unquantized, greedy 8
+   rows and beam 2 x 5 and 8 x 5, cache indices 0/100/223), and the seven feature
+   probes against their known answers.
    Each kernel's time (CUDA events), its plain version's time, the one-call
    library yardstick where one exists, and its bound.
 3. Training at full width: Vid2Seq (T5-base + 12-layer ViT, dropout 0.1)
@@ -53,13 +56,21 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    step; train ms/step, eval videos/s, the matcher's time and a profile of
    one train step and one eval batch; an fp32 gradient check of one step
    and fp32 caption tokens of two val videos, card against CPU.
+7. The ASR factory at Whisper large-v2 width with seeded random weights
+   and the transcriber's defaults: 8 synthetic .wav files (tones and noise
+   with silent gaps, 20-65 s) through factory/asr.run_batched_asr at batch
+   8, both merges, one transcribe at beam 5 with the VAD; the Whisper
+   kernel's launches exactly 223 per decode call plus one per language
+   detection; audio-seconds per second, peak memory, a profiled decode
+   call; fp32 tokens and beam ancestry at 4+4 layers, card against CPU.
 
 The kernels' launch counts are zeroed just before each main path (phases
-3, 4, 6 and each run of 5) and read just after it; the kernel line reports
-each kernel's count from its own path (training for the fused attention,
-serving for top-k and the decode kernel, phase 5's first run for the
-decode-attention kernels, phase 6's pdvc_main run for the deformable
-attention).
+3, 4, 6, 7 and each run of 5) and read just after it; the kernel line
+reports each kernel's count from its own path (training for the fused
+attention, serving for top-k and the decode kernel, phase 5's first run for
+the decode-attention kernels, phase 6's pdvc_main run for the deformable
+attention, phase 7's sweep for the Whisper kernel). The probes lie on no
+path: their count is phase 2's.
 
 The last lines are the kernel table as one JSON object, the nvidia-smi
 line, and {"ok": true, "device": {...}}. The full record also goes to
@@ -182,7 +193,8 @@ def phase_device_and_build():
         f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t0 = time.time()
     logs = _build.build(["fused_attention_fwd", "fused_attention_bwd", "topk",
-                         "decode_megakernel", "decode_attention", "deformable_attention"])
+                         "decode_megakernel", "decode_attention", "deformable_attention",
+                         "whisper_megakernel", "probes"])
     for name, log in logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling entry", "smem")):
@@ -799,6 +811,223 @@ def check_deformable_attention(gen):
                        "weighted sum" + (" (forward + autograd backward)" if part == "bwd" else ""),
             "shape": f"value [1,188,8,64], loc/attn [1,{lq},8,4,4] f32, levels {shapes}"})
     torch.cuda.synchronize()
+    return rows
+
+
+WHISPER_N, WHISPER_D, WHISPER_H, WHISPER_DFF = 32, 1280, 20, 5120  # large-v2's decoder
+WHISPER_L, WHISPER_LENC = 224, 1500  # max_decode_len 224; 30 s of audio at 50 frames/s
+
+
+# the Whisper kernel's limit against its plain version, a share of the plain
+# version's largest hidden element (here and in the card tests)
+WHISPER_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+
+
+def _whisper_step_inputs(gen, b0: int, group: int, dtype, quant: bool, n: int = WHISPER_N,
+                         d: int = WHISPER_D, dff: int = WHISPER_DFF, length: int = WHISPER_L,
+                         lenc: int = WHISPER_LENC):
+    """Seeded inputs of one Whisper decode step on the card (by default at
+    large-v2 width): stacked weights ([N, out, in], LeCun-scaled), caches
+    and the cross K/V (int8 with its per-lane scales when ``quant``, padded
+    as ``make_whisper_mega_fns`` pads it: 1500 -> 1504 rows), a beam
+    permutation within each example."""
+    import torch
+
+    from vidchapters_tpu_torch.ops import whisper_megakernel as wm
+
+    rows, lencp = b0 * group, wm._round_up(lenc, 32 if quant else 16)
+    rnd = lambda *s, std=1.0: torch.randn(*s, generator=gen, device="cuda") * std  # noqa: E731
+    shapes = {"wqkv": (3 * d, d), "wo_self": (d, d), "wq_cross": (d, d), "wo_cross": (d, d),
+              "wi": (dff, d), "wo_ff": (d, dff)}
+    biases = dict(zip(shapes, ("bqkv", "bo_self", "bq_cross", "bo_cross", "bi", "bo_ff")))
+    st = {"ln_scale": 1.0 + rnd(n, 3, d, std=0.1), "ln_bias": rnd(n, 3, d, std=0.1)}
+    for name, (o, i) in shapes.items():
+        st[name] = rnd(n, o, i, std=i ** -0.5).to(dtype)
+        st[biases[name]] = rnd(n, 1, o, std=0.02)
+    st["bqkv"][:, :, d:2 * d] = 0.0  # the bias-free k projection
+    x = rnd(rows, d).to(dtype)
+    kc, vc = (rnd(rows, n, length, d).to(dtype) for _ in range(2))
+    cross = []
+    for _ in range(2):
+        a = torch.zeros(b0, n, lencp, d, device="cuda")
+        a[:, :, :lenc] = rnd(b0, n, lenc, d)
+        cross.append(wm._quantize_lanes(a.to(dtype)) if quant else (a.to(dtype), None))
+    src = torch.tensor([(r // group) * group + (r * 3 + 1) % group for r in range(rows)],
+                       dtype=torch.int32, device="cuda") if group > 1 else None
+    return st, x, kc, vc, cross, src
+
+
+def _whisper_step_bound(rows: int, b0: int, idx: int, quant: bool, beam: bool):
+    """(ms, by) of one large-v2 decode step: every weight read once, the
+    cross K/V's 1500 live rows (+ scales), the live self-cache rows read and
+    the rows written (beam: the permuted rows < idx too), x, hidden, k/v new."""
+    n, d, dff, lenc = WHISPER_N, WHISPER_D, WHISPER_DFF, WHISPER_LENC
+    params = n * (3 * d * d + 3 * d * d + 2 * d * dff)
+    nbytes = (params * 2 + n * 4 * (6 * d + 3 * d + d + d + dff + d)   # weights, LN, biases
+              + 2 * b0 * n * lenc * d * (1 if quant else 2)           # cross K/V
+              + (2 * b0 * n * d * 4 if quant else 0)                  # scales
+              + 2 * rows * n * idx * d * 2                            # self rows read
+              + 2 * rows * n * ((idx + 1) if beam else 1) * d * 2     # self rows written
+              + rows * d * 2 * 2 + 2 * rows * n * d * 2)              # x, hidden, k/v new
+    flops = 2 * rows * params + 4 * rows * n * d * (idx + 1 + lenc)
+    return bound(nbytes, flops, H100_BF16_FLOPS)
+
+
+WHISPER_PHASES = ("set-up", "qkv", "self-attention", "self out", "cross q", "cross-attention",
+                  "cross out", "fc1", "fc2")
+
+
+def _whisper_phases(call):
+    """ms of each phase of one kernel step, summed over the layers, from the
+    kernel's own timeline (%globaltimer after each grid barrier; the median
+    of 5 calls)."""
+    import statistics
+
+    import torch
+
+    runs = []
+    for _ in range(5):
+        tl = torch.zeros(8 * WHISPER_N + 2, dtype=torch.int64, device="cuda")
+        call(tl)
+        torch.cuda.synchronize()
+        t = tl.cpu().tolist()
+        per = [(t[1] - t[0]) / 1e6] + [0.0] * 8
+        for i in range(2, len(t)):
+            per[1 + (i - 2) % 8] += (t[i] - t[i - 1]) / 1e6
+        runs.append(per)
+    return {name: statistics.median(r[i] for r in runs) for i, name in enumerate(WHISPER_PHASES)}
+
+
+def check_whisper_megakernel(gen):
+    """The Whisper decode kernel against its plain version at large-v2 width
+    (32 layers, d 1280, 20 heads, d_ff 5120, L 224, 1500 encoder frames),
+    fp32 and bf16, cross K/V int8 and unquantized: the greedy form at 8 rows
+    and the beam forms at 2 and 8 examples x 5 beams (10 and 40 rows, the
+    second ``transcribe_batch``'s beam rung at batch 8) with a permutation,
+    each at cache indices 0, 100 and 223. hidden and k/v new within
+    ``WHISPER_TOL`` of the plain version's largest hidden element, the
+    copied cache rows bit for bit, row idx the new k/v. Timed by CUDA-graph
+    replay at the sweep's shape (greedy, 8 rows, int8, bf16) and both beam
+    forms, at idx 111 (the middle of a 223-step decode)."""
+    import torch
+
+    from vidchapters_tpu_torch.ops import whisper_megakernel as wm
+
+    heads, lenc = WHISPER_H, WHISPER_LENC
+    forms = ((8, 1), (2, 5), (8, 5))
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = WHISPER_TOL[str(dtype).split(".")[-1]]
+        for quant in (True, False):
+            for b0, group in forms:
+                st, x, kc, vc, cross, src = _whisper_step_inputs(gen, b0, group, dtype, quant)
+                (kx, ks), (vx, vs) = cross
+                worst = 0.0
+                for idx in (0, 100, WHISPER_L - 1):
+                    k_in, v_in = kc.clone(), vc.clone()
+                    got = wm.whisper_mega_step(st, x, k_in, v_in, kx, vx, idx, heads, lenc, ks, vs,
+                                               group, src)
+                    k_ref, v_ref = kc.clone(), vc.clone()
+                    ref = wm.whisper_mega_step_plain(st, x, k_ref, v_ref, kx, vx, idx, heads,
+                                                     lenc, ks, vs, group, src)
+                    torch.cuda.synchronize()
+                    top = ref[0].float().abs().max().item()
+                    err = max((a.float() - r.float()).abs().max().item()
+                              for a, r in zip(got[:3], ref[:3]))
+                    check(all(torch.isfinite(a.float()).all().item() for a in got[:3]),
+                          f"whisper kernel {dtype} quant={quant} g={group} idx={idx}: not finite")
+                    check(err <= tol * top, f"whisper kernel {dtype} quant={quant} {b0}x{group} "
+                                            f"idx={idx}: err {err} > {tol} x {top}")
+                    caches = (k_in, v_in) if src is None else got[3:]
+                    for c_got, new in ((caches[0], got[1]), (caches[1], got[2])):
+                        check(torch.equal(c_got[:, :, idx], new),
+                              f"whisper kernel {dtype} g={group} idx={idx}: row idx != new k/v")
+                    if src is not None:
+                        for c_got, c_ref in ((got[3], ref[3]), (got[4], ref[4])):
+                            check(torch.equal(c_got[:, :, :idx], c_ref[:, :, :idx]),
+                                  f"whisper kernel {dtype} idx={idx}: permuted rows differ")
+                    worst = max(worst, err / top)
+                errs[(str(dtype).split(".")[-1], "int8" if quant else "plain", f"{b0}x{group}")] = worst
+                say(f"[check] whisper kernel {dtype} cross {'int8' if quant else 'unquantized'} "
+                    f"{b0}x{group} idx 0/100/223: max err {worst:.3e} of the largest hidden "
+                    f"element (limit {tol}); copied cache rows and new rows exact")
+                del st, x, kc, vc, cross
+                torch.cuda.empty_cache()
+    times = {}
+    idx = 111
+    for b0, group in forms:
+        st, x, kc, vc, cross, src = _whisper_step_inputs(gen, b0, group, torch.bfloat16, True)
+        (kx, ks), (vx, vs) = cross
+        outs = (torch.empty_like(kc), torch.empty_like(vc)) if src is not None else None
+        kernel = lambda: wm.whisper_mega_step(st, x, kc, vc, kx, vx, idx, heads, lenc, ks,  # noqa: E731
+                                              vs, group, src, outs)
+        plain = lambda: wm.whisper_mega_step_plain(st, x, kc, vc, kx, vx, idx, heads, lenc,  # noqa: E731
+                                                   ks, vs, group, src, outs)
+        t = {"ms": time_ms_graph(kernel, 10, 3), "eager_ms": time_ms(kernel, 10),
+             "plain_ms": time_ms_graph(plain, 3, 2)}
+        t["bound_ms"], t["bound_by"] = _whisper_step_bound(b0 * group, b0, idx, True, group > 1)
+        t["phases_ms"] = _whisper_phases(
+            lambda tl: wm.whisper_mega_step(st, x, kc, vc, kx, vx, idx, heads, lenc, ks, vs, group,
+                                            src, outs, timeline=tl))
+        times[f"{b0}x{group}"] = t
+        say(f"[time] whisper kernel {b0}x{group} bf16 int8 idx {idx}: {t}")
+        del st, x, kc, vc, cross, outs
+        torch.cuda.empty_cache()
+    g1 = times["8x1"]
+    return {"name": "whisper_megakernel", "route": "cuda",
+            "source": "vidchapters_tpu_torch/csrc/whisper_megakernel.cu",
+            "replaces": "vidchapters_tpu/ops/whisper_megakernel.py:463",
+            "max_abs_err": max(v for k, v in errs.items() if k[0] == "bfloat16"),
+            "max_abs_err_fp32": max(v for k, v in errs.items() if k[0] == "float32"),
+            "errors": {"/".join(map(str, k)): v for k, v in errs.items()},
+            "error_unit": "max abs error / largest element of the plain version's hidden",
+            "ms": g1["ms"], "plain_ms": g1["plain_ms"], "bound_ms": g1["bound_ms"],
+            "bound_by": g1["bound_by"], "library_ms": None, "library": "none (no single call)",
+            "eager_ms": g1["eager_ms"], "beam_2x5": times["2x5"], "beam_8x5": times["8x5"],
+            "tolerance": WHISPER_TOL,
+            "timing": TIMING_GRAPH,
+            "shape": "large-v2 decoder, 8 rows, L 224, 1500 frames int8, idx 111, bf16"}
+
+
+def check_probes():
+    """The seven feature probes (csrc/probes.cu) against their known answers
+    and their plain versions, exactly; each timed by CUDA-graph replay. The
+    grid-cell probe reports its time per cell of its (12 x 8) grid."""
+    import torch
+
+    from vidchapters_tpu_torch.ops import probes as pb
+
+    library = {"reshape_split_minor": lambda x: torch.mul(x, 2.0),
+               "dot_general_2batch": lambda q, c: torch.matmul(q, c.transpose(-1, -2)),
+               "dot_general_1batch_3d": torch.bmm,
+               "blockspec_5d_bf16": lambda c: torch.sum(c[-1], dim=(1, 2), dtype=torch.float32),
+               "lane_slice_64": lambda x: x[:, 64:128].contiguous(),
+               "grid_cell_overhead": lambda x, w: torch.matmul(
+                   x.view(12, 64, 768), w).view(96, 8, 768)}
+    results = pb.run_probes("cuda")
+    bad = {name: r for name, r in results.items() if not r["ok"] or r["plain_max_abs_err"]}
+    check(not bad, f"probes differ from their known answers or plain versions: {bad}")
+    rows = []
+    for pr in pb.PROBES:
+        xs = pr.inputs(torch.device("cuda"))
+        got = pr.fn(*xs)
+        nbytes = sum(x.numel() * x.element_size() for x in xs) + got.numel() * got.element_size()
+        flops = {"dot_general_2batch": 2 * 8 * 12 * 32 * 64, "dot_general_1batch_3d": 2 * 12 * 8 * 32 * 64,
+                 "grid_cell_overhead": 2 * 96 * 8 * 768 * 768}.get(pr.name, got.numel())
+        bms, by = bound(nbytes, flops, H100_FP32_FLOPS)
+        lib = library.get(pr.name)
+        row = {"name": f"probe_{pr.name}", "route": "cuda",
+               "source": "vidchapters_tpu_torch/csrc/probes.cu", "replaces": pr.replaces,
+               "max_abs_err": results[pr.name]["max_abs_err"],
+               "ms": time_ms_graph(lambda: pr.fn(*xs)),
+               "plain_ms": time_ms_graph(lambda: pr.plain(*xs)), "bound_ms": bms, "bound_by": by,
+               "library_ms": None if lib is None else time_ms_graph(lambda: lib(*xs)),
+               "timing": TIMING_GRAPH}
+        if pr.name == "grid_cell_overhead":
+            row["us_per_cell"] = row["ms"] * 1e3 / 96
+        rows.append(row)
+    say("[check] probes p1-p7: every output equals its known answer and its plain version "
+        f"(p5: 12 x 32 per row); p7 {rows[-1]['us_per_cell']:.3f} us per cell")
     return rows
 
 
@@ -1948,6 +2177,275 @@ def phase_pdvc(card: str, cfg=None, n_train: int = 16, n_val: int = 8):
     return summary, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the ASR factory at Whisper large-v2 width
+# ---------------------------------------------------------------------------
+
+
+ASR_SECONDS = (20.0, 26.5, 33.0, 39.5, 46.0, 52.5, 59.0, 65.0)  # the 8 synthetic videos
+ASR_STEPS = 223  # decoder steps per decode call: max_decode_len 224, less 1
+
+
+def _write_asr_wavs(root: Path, seconds, seed: int = 0):
+    """Seeded 16 kHz mono .wav files: a few tones plus noise, with silent
+    gaps of 2-6 s; video ids of 11 characters, as the merges key them."""
+    import wave
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i, dur in enumerate(seconds):
+        t = np.arange(int(16000 * dur)) / 16000
+        sig = sum(0.2 * np.sin(2 * np.pi * rng.uniform(120, 900) * t + rng.uniform(0, 6))
+                  for _ in range(3))
+        sig = sig + rng.normal(size=t.shape) * 0.03
+        for start in rng.uniform(0, dur - 6, 2):
+            sig[int(start * 16000):int((start + rng.uniform(2, 6)) * 16000)] = 0.0
+        path = root / f"asrvid{i:05d}.wav"
+        with wave.open(str(path), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes((np.clip(sig, -1, 1) * 32767).astype(np.int16).tobytes())
+        paths.append(str(path))
+    return paths
+
+
+def _whisper_model(cfg, device: str, seed: int):
+    """The port's Whisper built on ``device`` with seeded random weights."""
+    import torch
+
+    from vidchapters_tpu_torch.models.whisper import Whisper
+
+    with torch.device(device):
+        model = Whisper(cfg)
+    model.init_weights(torch.Generator(device=device).manual_seed(seed))
+    return model
+
+
+def _profile_asr_decode(tr, enc, prefix):
+    """One greedy decode call (223 steps at the sweep's batch) under
+    torch.profiler, and one unprofiled: wall and device ms per step, device
+    time by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    temps = torch.zeros(enc.shape[0], device=enc.device)
+    run = lambda: tr._decode(enc, prefix, temps, 0, False)  # noqa: E731
+    run()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    run()
+    torch.cuda.synchronize()
+    wall_ms = (time.time() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = _device_ms_by_kernel(prof)
+    busy = sum(kernels.values())
+    mega = sum(ms for name, ms in kernels.items() if "whisper_mega" in name)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    return {"steps": ASR_STEPS, "rows": int(enc.shape[0]), "wall_ms_per_step": wall_ms / ASR_STEPS,
+            "device_ms_per_step": busy / ASR_STEPS, "kernel_ms_per_step": mega / ASR_STEPS,
+            "idle_share": 1.0 - busy / wall_ms if busy else None,
+            "top_kernels_ms": [[n[:90], t] for n, t in top]}
+
+
+def asr_fp32_token_check(cfg):
+    """Large-v2 widths cut to 4+4 layers, fp32, seeded weights: one 30 s
+    window decoded greedily under the timestamp rules and one beam-5 window,
+    with the decode kernel on the card and its plain version on the CPU; the
+    tokens and the beam ancestry (each step's parent rows) must be
+    identical."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from vidchapters_tpu_torch.factory.audio import log_mel_spectrogram
+    from vidchapters_tpu_torch.factory.whisper_transcribe import WhisperTranscriber
+
+    cut = dataclasses.replace(cfg, encoder_layers=4, decoder_layers=4, dtype="float32")
+    card_model = _whisper_model(cut, DEVICE, seed=11)
+    cpu_model = copy.deepcopy(card_model).to("cpu")
+    rng = np.random.default_rng(5)
+    t = np.arange(16000 * 30) / 16000
+    mel = log_mel_spectrogram((0.3 * np.sin(2 * np.pi * 220 * t)
+                               + rng.normal(size=t.shape) * 0.05).astype(np.float32))
+    out = {"config": "large-v2 widths, 4+4 layers, fp32"}
+    for name, beam in (("greedy", None), ("beam5", 5)):
+        runs = []
+        for model, dev in ((card_model, DEVICE), (cpu_model, "cpu")):
+            tr = WhisperTranscriber(model, device=dev, language="en", temperatures=(0.0,),
+                                    compression_ratio_threshold=None, logprob_threshold=None,
+                                    no_speech_threshold=None, beam_size=beam)
+            parents = []
+            if beam:
+                real = tr.decode_fns.reorder_cache
+                tr.decode_fns = tr.decode_fns._replace(reorder_cache=lambda c, s: (
+                    parents.append(s.cpu().numpy().tolist()), real(c, s))[1])
+            t0 = time.time()
+            toks, avg_lp, nsp, _ = tr._decode_window(mel, 0)
+            runs.append({"tokens": toks, "parents": parents, "avg_logprob": avg_lp,
+                         "no_speech": nsp, "wall_s": time.time() - t0})
+        card, cpu = runs
+        check(card["tokens"] == cpu["tokens"],
+              f"fp32 ASR {name}: tokens differ between the card and the CPU")
+        check(card["parents"] == cpu["parents"],
+              f"fp32 ASR {name}: beam ancestry differs between the card and the CPU")
+        out[name] = {"tokens": len(card["tokens"]), "parent_steps": len(card["parents"]),
+                     "avg_logprob_card": card["avg_logprob"], "avg_logprob_cpu": cpu["avg_logprob"],
+                     "wall_s_card": card["wall_s"], "wall_s_cpu": cpu["wall_s"]}
+        say(f"[asr] fp32 {name}: {len(card['tokens'])} tokens identical card / CPU"
+            + (f", ancestry of {len(card['parents'])} steps identical" if beam else "")
+            + f" (avg log-prob {card['avg_logprob']:.6f} / {cpu['avg_logprob']:.6f})")
+    return out
+
+
+def phase_asr(card: str, cfg=None, seconds=ASR_SECONDS):
+    """The ASR factory (``factory/asr.run_batched_asr`` over
+    ``factory/whisper_transcribe.WhisperTranscriber``) on the card at
+    Whisper large-v2 width (vocab 51865, 80 mels, 32+32 layers, d 1280, 20
+    heads, d_ff 5120, bf16 compute) with seeded random weights and the
+    transcriber's defaults (language detection, thresholds 2.4 / -1.0 /
+    0.6, temperatures 0 .. 1.0, max_decode_len 224, the timestamp rules):
+
+    1. 8 synthetic .wav files (tones and noise with silent gaps, 20-65 s)
+       through ``run_batched_asr`` at batch 8; every pickle holds text /
+       start / end / language; ``merge_asr_pickles`` carries each over
+       whole, and ``merge_and_process`` of the same segments in whisperx
+       form gives back their non-empty texts, times and language;
+    2. one ``transcribe`` of the first file with beam 5 and the VAD;
+    3. one greedy decode call at batch 8 under torch.profiler;
+    4. the fp32 token check (4+4 layers, card against CPU).
+
+    The decode kernel's launches are zeroed before 1 and 2 and read after:
+    each must equal 223 x (decode calls) + (language-detection calls). With
+    random weights the average log-prob is about -ln 51865, so every window
+    climbs all six rungs. Cut from a deployment: random weights, 8 videos."""
+    import numpy as np
+    import torch
+
+    from vidchapters_tpu_torch.factory import asr
+    from vidchapters_tpu_torch.factory.whisper_transcribe import WhisperTranscriber
+    from vidchapters_tpu_torch.models.whisper import LARGE_V2
+    from vidchapters_tpu_torch.ops import whisper_megakernel as wm
+
+    cfg = cfg or LARGE_V2
+    summary = {"card": card, "config": "Whisper large-v2 (LARGE_V2), seeded random weights",
+               "audio_s": list(seconds)}
+    model = _whisper_model(cfg, DEVICE, seed=7)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = _write_asr_wavs(Path(tmp), seconds)
+        out_dir = Path(tmp) / "asr"
+        tr = WhisperTranscriber(model, device=DEVICE)
+        keys = []
+        real_decode = tr._decode
+
+        def keyed_decode(enc, prefix, temperature, key, sample):
+            keys.append(key)
+            return real_decode(enc, prefix, temperature, key, sample)
+
+        tr._decode = keyed_decode
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        wm.KERNEL.launches = 0
+        t0 = time.time()
+        n = asr.run_batched_asr(paths, str(out_dir), tr, batch_size=8)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = wm.KERNEL.launches
+        peak = torch.cuda.max_memory_allocated()
+        want = ASR_STEPS * tr.decode_calls + tr.detect_calls
+        windows = len({k // 131 for k in keys})
+        say(f"[asr] run_batched_asr: {n} videos, {sum(seconds):.1f} s of audio in {wall:.2f} s "
+            f"= {sum(seconds) / wall:.2f} audio-s/s; {windows} lockstep windows, "
+            f"{tr.decode_calls} decode calls (rungs {[k % 131 for k in keys]}), "
+            f"{tr.detect_calls} detect; launches {launches} (expected {want}); peak {peak} bytes")
+        check(n == len(paths), f"run_batched_asr processed {n} of {len(paths)} videos")
+        check(launches == want, f"whisper kernel launches {launches}, expected {want}")
+        pickles = {}
+        for p in paths:
+            with open(out_dir / (Path(p).stem + ".pkl"), "rb") as f:
+                pickles[Path(p).stem] = pickle.load(f)
+        for vid, res in pickles.items():
+            check(set(res) == {"text", "start", "end", "language"}
+                  and len(res["text"]) == len(res["start"]) == len(res["end"])
+                  and all(np.isfinite(res["start"])) and all(np.isfinite(res["end"])),
+                  f"ASR pickle {vid}: {sorted(res)}")
+        # the factory's pickles are already in the datasets' schema: the plain
+        # merge must carry each one over whole
+        merged = asr.merge_asr_pickles(str(out_dir), str(Path(tmp) / "asr.pkl"))
+        check(merged == {asr.normalize_video_id(v): r for v, r in pickles.items()},
+              f"merge_asr_pickles keys {sorted(merged)} or contents differ from the pickles")
+        # merge_and_process reads whisperx-aligned segments (the output of the
+        # alignment step): give it the sweep's segments in that form and
+        # expect the non-empty texts back with their times and language
+        aligned_dir = Path(tmp) / "aligned"
+        aligned_dir.mkdir()
+        expected = {}
+        for vid, res in pickles.items():
+            segs = [{"text": t, "start": s, "end": e}
+                    for t, s, e in zip(res["text"], res["start"], res["end"])]
+            with open(aligned_dir / f"{vid}.pkl", "wb") as f:
+                pickle.dump({"segments": segs, "language": res["language"]}, f)
+            kept = [(t.strip(), float(s), float(e)) for t, s, e in
+                    zip(res["text"], res["start"], res["end"]) if t.strip()]
+            expected[asr.normalize_video_id(vid)] = {
+                "text": [k[0] for k in kept], "start": [k[1] for k in kept],
+                "end": [k[2] for k in kept], "language": res["language"]}
+        proc = asr.merge_and_process(str(aligned_dir), str(Path(tmp) / "asr_proc.pkl"))
+        check(proc == expected, "merge_and_process of the aligned segments differs from the "
+                                "sweep's non-empty segments")
+        summary["sweep"] = {
+            "videos": n, "audio_s": sum(seconds), "wall_s": wall,
+            "audio_s_per_s": sum(seconds) / wall, "windows": windows,
+            "decode_calls": tr.decode_calls, "detect_calls": tr.detect_calls,
+            "rungs": [k % 131 for k in keys], "launches": launches, "peak_memory_bytes": peak,
+            "segments": {v: len(r["text"]) for v, r in pickles.items()},
+            "languages": {v: r["language"] for v, r in pickles.items()}}
+
+        # one video, beam 5 and the VAD
+        from vidchapters_tpu_torch.factory.audio import load_audio
+
+        beam = WhisperTranscriber(model, device=DEVICE, beam_size=5, vad=True)
+        audio = load_audio(paths[0])
+        wm.KERNEL.launches = 0
+        t0 = time.time()
+        res = beam.transcribe(audio)
+        torch.cuda.synchronize()
+        beam_wall = time.time() - t0
+        beam_launches = wm.KERNEL.launches
+        want_beam = ASR_STEPS * beam.decode_calls + beam.detect_calls
+        say(f"[asr] transcribe beam 5 + VAD: {len(audio) / 16000:.1f} s in {beam_wall:.2f} s, "
+            f"{beam.decode_calls} decode calls, {len(res['text'])} segments, launches "
+            f"{beam_launches} (expected {want_beam})")
+        check(set(res) == {"text", "start", "end", "language"}, f"beam transcribe: {sorted(res)}")
+        check(beam_launches == want_beam,
+              f"beam whisper kernel launches {beam_launches}, expected {want_beam}")
+        summary["beam5_vad"] = {"audio_s": len(audio) / 16000, "wall_s": beam_wall,
+                                "decode_calls": beam.decode_calls, "launches": beam_launches,
+                                "segments": len(res["text"])}
+        del beam
+        torch.cuda.empty_cache()
+
+        # a decode call at the sweep's batch under the profiler
+        from vidchapters_tpu_torch.factory.audio import log_mel_spectrogram
+
+        mels = np.stack([log_mel_spectrogram(load_audio(p)[:480000]) for p in paths])
+        enc = tr._encode(mels)
+        prefix = tr._prefix([tr._sot_sequence(None)] * len(paths))
+        summary["decode_profile"] = _profile_asr_decode(tr, enc, prefix)
+        say(f"[asr] profiled decode call: "
+            f"{json.dumps({k: v for k, v in summary['decode_profile'].items() if k != 'top_kernels_ms'})}")
+        del tr, enc, model
+        torch.cuda.empty_cache()
+    summary["fp32_tokens"] = asr_fp32_token_check(cfg)
+    return summary, {"whisper_megakernel": launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -1972,6 +2470,13 @@ def main() -> int:
         gen = torch.Generator().manual_seed(2)
         table += [check_decode_self_attention(gen), check_decode_cross_attention(gen)]
         table += check_deformable_attention(torch.Generator().manual_seed(3))
+        table.append(check_whisper_megakernel(torch.Generator(device="cuda").manual_seed(4)))
+        torch.cuda.empty_cache()
+        from vidchapters_tpu_torch.ops import probes
+
+        probes.KERNEL.launches = 0
+        table += check_probes()
+        probe_launches = probes.KERNEL.launches
         for row in table:
             say(f"[time] {row['name']}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
                 f"library {row['library_ms']}, bound {row['bound_ms']:.4f} by "
@@ -1982,6 +2487,8 @@ def main() -> int:
         del fp32_state, fp32_inputs
         torch.cuda.empty_cache()
         pdvc, pdvc_launches = phase_pdvc(card)
+        torch.cuda.empty_cache()
+        asr_run, asr_launches = phase_asr(card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
@@ -1990,6 +2497,12 @@ def main() -> int:
             row["launches"] = eval_launches[row["name"]]
         elif row["name"] in DEFORM_KERNELS:
             row["launches"] = pdvc_launches[row["name"]]
+        elif row["name"] in asr_launches:
+            row["launches"] = asr_launches[row["name"]]
+        elif row["name"].startswith("probe_"):
+            # the probes lie on no path: their count is phase 2's own run
+            row["launches"] = probe_launches
+            row["launches_from"] = "phase 2 (the probes lie on no main path)"
         else:
             row["launches"] = train_launches.get(row["name"], serve_launches.get(row["name"]))
     table[0]["launches_serving"] = serve_launches["fused_attention_fwd"]
@@ -1999,9 +2512,10 @@ def main() -> int:
         f"{train['step_ms']:.1f} ms/step (phase 3), dvc_main steps "
         f"{[round(x, 1) for x in evaluation['train_step_ms']]} ms; PDVC "
         f"{pdvc['train_step_ms_mean_after_first']:.2f} ms/step, eval "
-        f"{pdvc['eval_videos_per_s']:.3f} videos/s")
+        f"{pdvc['eval_videos_per_s']:.3f} videos/s; ASR "
+        f"{asr_run['sweep']['audio_s_per_s']:.2f} audio-s/s (large-v2, batch 8)")
     record = {"kernels": table, "train": train, "end_to_end": e2e, "fp32_tokens": fp32,
-              "evaluation": evaluation, "pdvc": pdvc, "card": card}
+              "evaluation": evaluation, "pdvc": pdvc, "asr": asr_run, "card": card}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

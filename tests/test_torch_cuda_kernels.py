@@ -264,3 +264,84 @@ def test_deformable_attention_launches_or_raises():
     da.deformable_attention_1d(v, shapes, loc, attn).backward(grad)
     torch.cuda.synchronize()
     assert da.FWD_KERNEL.launches == before + 1 and v.grad is not None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("group", [1, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_whisper_megakernel_matches_plain(dtype, group, quant):
+    """The Whisper decode kernel at 2 layers, d 256, 4 heads, d_ff 512, L 16
+    and 40 encoder frames: hidden and k/v new within 1e-4 of the plain
+    version's largest element in fp32 (bf16: 5e-2 of it), row idx the new
+    k/v, the permuted rows exact, one launch per call."""
+    require_cuda()
+    from chip_smoke import WHISPER_TOL, _whisper_step_inputs
+    from vidchapters_tpu_torch.ops import whisper_megakernel as wm
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    b0 = 3 if group == 1 else 2
+    st, x, kc, vc, ((kx, ks), (vx, vs)), src = _whisper_step_inputs(
+        g, b0, group, dtype, quant, n=2, d=256, dff=512, length=16, lenc=40)
+    for idx in (0, 7, 15):
+        k1, v1 = kc.clone(), vc.clone()
+        before = wm.KERNEL.launches
+        got = wm.whisper_mega_step(st, x, k1, v1, kx, vx, idx, 4, 40, ks, vs, group, src)
+        ref = wm.whisper_mega_step_plain(st, x, kc.clone(), vc.clone(), kx, vx, idx, 4, 40, ks,
+                                         vs, group, src)
+        torch.cuda.synchronize()
+        assert wm.KERNEL.launches == before + 1
+        top = ref[0].float().abs().max().item()
+        tol = WHISPER_TOL[str(dtype).split(".")[-1]] * top
+        for a, r in zip(got[:3], ref[:3]):
+            assert (a.float() - r.float()).abs().max().item() <= tol
+        caches = (k1, v1) if src is None else got[3:]
+        assert torch.equal(caches[0][:, :, idx], got[1])
+        assert torch.equal(caches[1][:, :, idx], got[2])
+        if src is not None:
+            assert torch.equal(got[3][:, :, :idx], ref[3][:, :, :idx])
+            assert torch.equal(got[4][:, :, :idx], ref[4][:, :, :idx])
+
+
+@pytest.mark.cuda
+def test_whisper_transcriber_tokens_match_cpu():
+    """A small fp32 Whisper with the full vocab: one window decoded greedily
+    under the timestamp rules and one with beam 3, the decode kernel on the
+    card against its plain version on the CPU: identical tokens."""
+    require_cuda()
+    import copy
+
+    import numpy as np
+
+    from vidchapters_tpu_torch.factory.whisper_transcribe import WhisperTranscriber
+    from vidchapters_tpu_torch.models.whisper import Whisper, WhisperConfig
+    from vidchapters_tpu_torch.ops import whisper_megakernel as wm
+
+    cfg = WhisperConfig(d_model=256, encoder_layers=2, decoder_layers=2, num_heads=4, d_ff=512,
+                        dtype="float32")
+    with torch.device("cuda"):
+        model = Whisper(cfg)
+    model.init_weights(torch.Generator(device="cuda").manual_seed(2))
+    cpu = copy.deepcopy(model).to("cpu")
+    mel = np.random.default_rng(0).normal(0, 1, (80, 3000)).astype(np.float32)
+    kw = dict(language="en", temperatures=(0.0,), compression_ratio_threshold=None,
+              logprob_threshold=None, no_speech_threshold=None, max_decode_len=32)
+    for beam in (None, 3):
+        before = wm.KERNEL.launches
+        card = WhisperTranscriber(model, device="cuda", beam_size=beam, **kw)
+        got = card._decode_window(mel, 0)
+        assert wm.KERNEL.launches == before + 31
+        ref = WhisperTranscriber(cpu, device="cpu", beam_size=beam, **kw)._decode_window(mel, 0)
+        assert got[0] == ref[0]
+
+
+@pytest.mark.cuda
+def test_probes_match_known_answers():
+    require_cuda()
+    from vidchapters_tpu_torch.ops import probes
+
+    before = probes.KERNEL.launches
+    out = probes.run_probes("cuda")
+    torch.cuda.synchronize()
+    assert probes.KERNEL.launches == before + len(probes.PROBES)
+    assert all(r["ok"] for r in out.values()), out

@@ -45,6 +45,10 @@ def test_package_imports_with_jax_blocked():
         "import vidchapters_tpu_torch.models.pdvc, vidchapters_tpu_torch.models.pdvc_loss\n"
         "import vidchapters_tpu_torch.ops.deformable_attention, vidchapters_tpu_torch.ops.matching\n"
         "import vidchapters_tpu_torch.ops.span_ops, vidchapters_tpu_torch.data.pdvc_dataset\n"
+        "import vidchapters_tpu_torch.factory.audio, vidchapters_tpu_torch.factory.vad\n"
+        "import vidchapters_tpu_torch.factory.asr, vidchapters_tpu_torch.factory.whisper_transcribe\n"
+        "import vidchapters_tpu_torch.models.whisper, vidchapters_tpu_torch.ops.whisper_megakernel\n"
+        "import vidchapters_tpu_torch.ops.probes\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'vidchapters_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")
