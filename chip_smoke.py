@@ -13,7 +13,12 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    encoder form [8,12,1024,64] + bias (and a 1000-long padded case) and the
    cross form 256 x 1152 without bias, in fp32 and bf16, with dropout 0.1
    and without; its backward (dq, dk, dv, dbias) at both forms and, through
-   autograd, at the 1000-long padded case; top-k over [8, 4*32200] with
+   autograd, at the 1000-long padded case; both in bf16 (the tensor-core
+   route) also at head widths 32 and 128 and at a train step's ragged
+   lengths (the encoder's 1100 padded to 1152, the denoising
+   cross-attention's 304 queries over 904 keys padded to 1024), two
+   backward runs bit-identical; the bf16 kernels' SASS (cuobjdump) must
+   hold tensor-core instructions (HMMA); top-k over [8, 4*32200] with
    forced ties, exactly; the decode kernel at 8 examples x 4 beams, 12
    layers, L=256, Lenc=1152, at several cache indices with a beam
    permutation; the decode self-attention at 32 rows x 12 heads, L=256,
@@ -26,13 +31,16 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    rows and beam 2 x 5 and 8 x 5, cache indices 0/100/223), and the seven feature
    probes against their known answers.
    Each kernel's time (CUDA events), its plain version's time, the one-call
-   library yardstick where one exists, and its bound.
+   library yardstick where one exists, and its bound; the fused attention
+   also in its serving form (no dropout, no lse) and its two cross forms,
+   each beside SDPA's time, and its kernels' -Xptxas -v lines.
 3. Training at full width: Vid2Seq (T5-base + 12-layer ViT, dropout 0.1)
    trained by make_train_step on batches of 8 from the port's EpochIterator
    over a synthetic on-disk dataset (input 1000, output 256, denoising
    804 / 304 tokens): 1 warm-up step, 5 timed steps (step ms, videos/s,
    peak memory, the fused-attention launches, 48 of each per step), one
-   profiled step, then an fp32 gradient check: one step at 2+2 layers,
+   profiled step (device time by kernel group and of each fused-attention
+   kernel by name), then an fp32 gradient check: one step at 2+2 layers,
    dropout 0, kernels on the card against the plain versions on the CPU.
 4. Serving end to end at full width: Vid2Seq with seeded
    random weights, beam 4 / max_length 256, behind serve() on 127.0.0.1;
@@ -200,7 +208,23 @@ def phase_device_and_build():
             if any(w in line for w in ("registers", "spill", "Compiling entry", "smem")):
                 say(f"[build] {name}: {line.strip()}")
     say(f"[build] ok in {time.time() - t0:.1f} s ({', '.join(logs)})")
+    BUILD_LOGS.update(logs)
     return card
+
+
+BUILD_LOGS = {}  # -Xptxas -v output of each library built in phase 1
+
+
+def _ptxas_lines(name: str):
+    """Registers, shared memory and spills of each kernel of one library, as
+    ``-Xptxas -v`` printed them: ``{function: "Used N registers, ..."}``."""
+    out, fn = {}, None
+    for line in BUILD_LOGS.get(name, "").splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1] if "'" in line else line
+        elif fn is not None and ("registers" in line or "spill" in line):
+            out[fn] = (out.get(fn, "") + " " + line.split(":", 1)[-1].strip()).strip()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -212,18 +236,20 @@ SEED = 0x5EED1234  # the dropout seed of the kernel checks
 RATE = 0.1         # the recipe's dropout rate
 
 
-def _attention_inputs(gen, form: str, dtype, length: int = 1024):
+def _attention_inputs(gen, form: str, dtype, length: int = 1024, d: int = 64,
+                      cross: tuple = (256, 1152)):
     """The two forms the training path gives the fused attention: "encoder"
-    (T5 encoder self-attention, [8,12,L,64] with the relative-position bias
+    (T5 encoder self-attention, [8,12,L,d] with the relative-position bias
     and per-example key padding) and "cross" (decoder cross-attention, 256
-    queries over 1152 keys, no bias, 100 frames + per-example ASR length).
-    Also a random output gradient."""
+    queries over 1152 keys by default, or the denoising pass's 304 over 904,
+    no bias, 100 frames + per-example ASR length). Also a random output
+    gradient."""
     import torch
 
     from vidchapters_tpu_torch.models.t5 import relative_position_bucket
 
-    b, h, d = 8, 12, 64
-    lq, lk = (length, length) if form == "encoder" else (256, 1152)
+    b, h = 8, 12
+    lq, lk = (length, length) if form == "encoder" else cross
     q = torch.randn(b, h, lq, d, generator=gen) * 0.5
     k, v = (torch.randn(b, h, lk, d, generator=gen) * 0.5 for _ in range(2))
     bias = None
@@ -237,10 +263,23 @@ def _attention_inputs(gen, form: str, dtype, length: int = 1024):
             mask[i, lk - 37 * i:] = 0
     else:
         for i in range(b):
-            mask[i, 100 + 1000 - 90 * i:] = 0
+            mask[i, min(lk, 1100) - 90 * i:] = 0
     dout = torch.randn(b, h, lq, d, generator=gen)
     on = lambda t: None if t is None else t.to("cuda", dtype)  # noqa: E731
     return on(q), on(k), on(v), on(bias), mask.cuda(), on(dout)
+
+
+def _pad_as_wrapper(q, k, v, bias, mask, dout=None):
+    """The inputs at the lengths fused_attention_padded gives the kernels
+    (padded keys masked, padded query rows of dout zero), so that a plain
+    version sees the keep mask hashed over the same padded Lk."""
+    from vidchapters_tpu_torch.ops import fused_attention as fa
+
+    lqp, lkp = fa.padded_lengths(q.shape[2], k.shape[2])
+    q, dout = (None if t is None else fa._pad_to(t, lqp, 2) for t in (q, dout))
+    k, v = (fa._pad_to(t, lkp, 2) for t in (k, v))
+    bias = None if bias is None else fa._pad_to(fa._pad_to(bias, lqp, 2), lkp, 3)
+    return q, k, v, bias, fa._pad_to(mask, lkp, 1), dout
 
 
 def check_fused_attention(gen):
@@ -252,27 +291,28 @@ def check_fused_attention(gen):
     from vidchapters_tpu_torch.ops import fused_attention as fa
 
     errs = {}
-    cases = [(form, length, dtype, tol, rate)
+    cases = [((form, length, dtype, rate), f"{form} L={length} {dtype}", tol, rate,
+              (form, dtype, length))
              for form, length in (("encoder", 1024), ("cross", 1024), ("encoder", 1000))
              for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2))
              for rate in (0.0, RATE) if length == 1024 or dtype == torch.float32]
-    for form, length, dtype, tol, rate in cases:
-        q, k, v, bias, mask, _ = _attention_inputs(gen, form, dtype, length)
+    # bf16 only, the tensor-core route: the extra head widths and ragged lengths
+    cases += [(label, label, 2e-2, RATE, (form, torch.bfloat16, length, d, cross))
+              for form, length, d, cross in FA_BF16_SHAPES
+              for label in [_shape_label(form, length, d, cross)]]
+    for key, label, tol, rate, draw in cases:
+        q, k, v, bias, mask, _ = _attention_inputs(gen, *draw)
         got = fa.fused_attention_padded(q, k, v, bias, mask, seed=SEED, dropout_rate=rate)
-        if length % 128:  # the plain version at the padded shape, as the wrapper pads
-            lp = -(-length // 128) * 128
-            qp, kp, vp = (fa._pad_to(t, lp, 2) for t in (q, k, v))
-            ref = fa.fused_attention_plain(qp, kp, vp, fa._pad_to(fa._pad_to(bias, lp, 2), lp, 3),
-                                           fa._pad_to(mask, lp, 1), SEED, rate)[:, :, :length]
-        else:
-            ref = fa.fused_attention_plain(q, k, v, bias, mask, SEED, rate)
+        # the plain version at the lengths the wrapper pads to (the keep mask
+        # hashes the padded Lk), its padded query rows sliced off
+        ref = fa.fused_attention_plain(*_pad_as_wrapper(q, k, v, bias, mask)[:5], SEED,
+                                       rate)[:, :, :q.shape[2]]
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item()
-        say(f"[check] fused_attention {form} L={length} {dtype} dropout {rate}: "
-            f"max_abs_err {err:.3e} (tol {tol})")
-        check(err <= tol, f"fused_attention {form} L={length} {dtype} rate {rate}: "
-                          f"err {err} > {tol}")
-        errs[(form, length, dtype, rate)] = err
+        say(f"[check] fused_attention {label} dropout {rate}: max_abs_err {err:.3e} "
+            f"(tol {tol})")
+        check(err <= tol, f"fused_attention {label} rate {rate}: err {err} > {tol}")
+        errs[key] = err
     q, k, v, bias, mask, _ = _attention_inputs(gen, "encoder", torch.bfloat16)
     b, h, l, d = q.shape
     # the training form: dropout and the log-sum-exp for the backward
@@ -282,6 +322,18 @@ def check_fused_attention(gen):
     float_mask = (bias + (mask[:, None, None, :].to(bias.dtype) - 1) * 1e9).contiguous()
     lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         q, k, v, attn_mask=float_mask, dropout_p=RATE, scale=1.0))
+    lib_ms_serving = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=float_mask, scale=1.0))
+    cross_ms = {}
+    for cross in ((256, 1152), (304, 904)):  # the two cross forms of a train step
+        cq, ck, cv, _, cmask, _ = _pad_as_wrapper(
+            *_attention_inputs(gen, "cross", torch.bfloat16, cross=cross)[:5])
+        cmadd = ((cmask[:, None, None, :].to(cq.dtype) - 1) * 1e9).expand(
+            -1, cq.shape[1], cq.shape[2], -1).contiguous()
+        cross_ms[cross] = (
+            time_ms(lambda: fa._forward(cq, ck, cv, None, cmask, SEED, RATE, want_lse=True)),
+            time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                cq, ck, cv, attn_mask=cmadd, dropout_p=RATE, scale=1.0)))
     nbytes = 4 * b * h * l * d * 2 + h * l * l * 2 + b * l * 4 + b * h * l * 4
     bms, by = bound(nbytes, 4 * b * h * l * l * d, H100_BF16_FLOPS)
     torch.cuda.synchronize()
@@ -291,9 +343,43 @@ def check_fused_attention(gen):
             "max_abs_err": errs[("encoder", 1024, torch.bfloat16, RATE)],
             "max_abs_err_fp32": errs[("encoder", 1024, torch.float32, RATE)],
             "max_abs_err_all": max(errs.values()),
-            "ms": ms, "ms_serving_form": ms_serving, "plain_ms": plain_ms, "bound_ms": bms,
-            "bound_by": by, "library_ms": lib_ms,
-            "shape": "q/k/v [8,12,1024,64] bf16, bias [1,12,1024,1024], dropout 0.1, lse out"}
+            "ms": ms, "ms_serving_form": ms_serving,
+            "ms_cross_form": cross_ms[(256, 1152)][0],
+            "ms_cross_denoise_form": cross_ms[(304, 904)][0],
+            "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": lib_ms, "library_ms_serving_form": lib_ms_serving,
+            "library_ms_cross_form": cross_ms[(256, 1152)][1],
+            "library_ms_cross_denoise_form": cross_ms[(304, 904)][1],
+            "library": "SDPA with a float mask (bias + key mask), dropout 0.1; the serving "
+                       "form without dropout",
+            "shape": "q/k/v [8,12,1024,64] bf16, bias [1,12,1024,1024], dropout 0.1, lse out; "
+                     "cross forms 256 x 1152 and 304 x 904 (padded to 1024) keys, no bias",
+            "ptxas": _ptxas_lines("fused_attention_fwd")}
+
+
+# the bf16 shapes beside the main one: head widths 32 and 128, and the
+# ragged lengths of a train step (the encoder's 1100 tokens pad to 1152, the
+# denoising cross-attention's 304 queries over 904 keys pad to 1024)
+FA_BF16_SHAPES = (("encoder", 1024, 32, None), ("encoder", 1024, 128, None),
+                  ("encoder", 1100, 64, None), ("cross", 0, 64, (304, 904)))
+
+
+def bf16_grad_tol(ref) -> float:
+    """The bound of the bf16 backward's checks at the extra shapes: 2e-2,
+    or 2^-7 of the largest reference element (one to two bf16 ulps of it)
+    where that is larger. dS and P keep are rounded to bf16 before their
+    products; where the kernel's fp32 dS and the plain version's lie an fp32
+    ulp apart across a rounding boundary they round to neighbouring bf16
+    values, and one such term moves a gradient element by a bf16 ulp of
+    |dS| |K|. That grows with |dS|: the 304 x 904 cross form has examples
+    with 274 valid keys, and its dq, up to 5.8, reads 2.3e-2 from the plain
+    version."""
+    return max(2e-2, 2.0 * 2.0 ** -8 * float(ref.abs().max()))
+
+
+def _shape_label(form, length, d, cross):
+    return (f"{form} L={length} D={d}" if form == "encoder"
+            else f"{form} {cross[0]}x{cross[1]} D={d}")
 
 
 def _sdpa_fwd_bwd(q, k, v, bias, mask, dout):
@@ -356,6 +442,27 @@ def check_fused_attention_bwd(gen):
                 + f" (tol {tol}); two runs bit-identical")
             check(max(per.values()) <= tol, f"fused_attention_bwd {form} {dtype}: {per} > {tol}")
             errs[(form, dtype)] = max(per.values())
+    for form, length, d, cross in FA_BF16_SHAPES:
+        q, k, v, bias, mask, dout = _pad_as_wrapper(
+            *_attention_inputs(gen, form, torch.bfloat16, length, d, cross))
+        out, lse = fa._forward(q, k, v, bias, mask, SEED, RATE, want_lse=True)
+        got = fa.fused_attention_bwd(q, k, v, bias, mask, SEED, RATE, out, dout, lse)
+        again = fa.fused_attention_bwd(q, k, v, bias, mask, SEED, RATE, out, dout, lse)
+        ref = fa.fused_attention_bwd_plain(q, k, v, bias, mask, SEED, RATE, out, dout)
+        torch.cuda.synchronize()
+        per, tols = {}, {}
+        label = _shape_label(form, length, d, cross)
+        for name, a, a2, r in zip(("dq", "dk", "dv", "dbias"), got, again, ref):
+            if r is None:
+                continue
+            check(torch.equal(a, a2), f"fused_attention_bwd {label}: {name} differs between "
+                                      f"two runs")
+            per[name], tols[name] = (a - r).abs().max().item(), bf16_grad_tol(r)
+        say(f"[check] fused_attention_bwd {label} bf16 dropout {RATE}: max_abs_err "
+            + ", ".join(f"{n} {e:.3e} (tol {tols[n]:.3e})" for n, e in per.items())
+            + "; two runs bit-identical")
+        check(all(per[n] <= tols[n] for n in per), f"fused_attention_bwd {label}: {per} > {tols}")
+        errs[label] = max(per.values())
     # autograd through the padding wrapper at L=1000 (pads to 1024), fp32
     q, k, v, bias, mask, dout = _attention_inputs(gen, "encoder", torch.float32, 1000)
     leaves = [t.requires_grad_() for t in (q, k, v, bias)]
@@ -391,6 +498,9 @@ def check_fused_attention_bwd(gen):
     cout, clse = fa._forward(cq, ck, cv, None, cmask, SEED, RATE, want_lse=True)
     ms_cross = time_ms(lambda: fa.fused_attention_bwd(cq, ck, cv, None, cmask, SEED, RATE,
                                                       cout, cdout, clse), 10)
+    out0, lse0 = fa._forward(q, k, v, bias, mask, SEED, 0.0, want_lse=True)
+    ms_no_dropout = time_ms(lambda: fa.fused_attention_bwd(q, k, v, bias, mask, SEED, 0.0,
+                                                           out0, dout, lse0), 10)
     # each input read once (q, k, v, out, dout, bias, mask, lse), each output
     # written once (dq, dk, dv, dbias in fp32); five L x L x D products
     nbytes = (5 * b * h * l * d * 2 + h * l * l * 2 + b * l * 4 + b * h * l * 4
@@ -404,10 +514,42 @@ def check_fused_attention_bwd(gen):
             "max_abs_err_fp32": errs[("encoder", torch.float32)],
             "max_abs_err_all": max(errs.values()),
             "ms": ms, "ms_fwd_plus_bwd": ms_fwd_bwd, "ms_cross_form": ms_cross,
+            "ms_no_dropout": ms_no_dropout,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": lib_ms, "library": f"SDPA fwd+bwd, float mask with bias grad, "
                                              f"backend {backend}",
-            "shape": "q/k/v/out/dout [8,12,1024,64] bf16, bias [1,12,1024,1024], dropout 0.1"}
+            "shape": "q/k/v/out/dout [8,12,1024,64] bf16, bias [1,12,1024,1024], dropout 0.1",
+            "ptxas": _ptxas_lines("fused_attention_bwd")}
+
+
+TC_KERNELS = ("fused_attention_fwd_tc", "fused_attention_bwd_dkdv_tc",
+              "fused_attention_bwd_dq_tc")  # the bf16 route's kernels
+
+
+def check_tensor_cores():
+    """The bf16 fused-attention kernels run on the tensor cores: the SASS of
+    every bf16 kernel (TC_KERNELS, at each head width) in the built libraries holds HMMA
+    instructions (mma.sync), counted per function. Fails without cuobjdump."""
+    from vidchapters_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    check(tool.exists(), f"cuobjdump not found beside nvcc ({tool}): the tensor-core gate "
+                         f"cannot run")
+    counts = {}
+    for name in ("fused_attention_fwd", "fused_attention_bwd"):
+        sass = subprocess.run([str(tool), "-sass", str(_build._lib_path(name))],
+                              capture_output=True, text=True, timeout=300)
+        check(sass.returncode == 0, f"cuobjdump -sass {name} failed: {sass.stderr[:500]}")
+        for section in sass.stdout.split("Function : ")[1:]:
+            fn = section.split("\n", 1)[0].strip()
+            if any(w in fn for w in TC_KERNELS):
+                counts[fn] = section.count("HMMA") + section.count("HGMMA")
+    say(f"[check] tensor cores: {len(counts)} bf16 kernels, HMMA/HGMMA count "
+        + ", ".join(f"{fn[:60]} {c}" for fn, c in sorted(counts.items())))
+    check(len(counts) == 12, f"expected 12 bf16 kernels (fwd with and without the "
+                             f"dropout walk, dkdv, dq; D 32/64/128), found {sorted(counts)}")
+    check(all(c > 0 for c in counts.values()), f"a bf16 kernel has no HMMA: {counts}")
+    return counts
 
 
 def serving_checks_generator():
@@ -1108,7 +1250,7 @@ def _profile_step(step, state, batch, step_ms: float):
         low = name.lower()
         if "fused_attention_fwd" in low:
             groups["fused_attention_fwd"] += ms
-        elif any(w in low for w in ("dkdv_kernel", "dq_kernel", "delta_kernel")):
+        elif any(w in low for w in FUSED_BWD_NAMES):
             groups["fused_attention_bwd"] += ms
         elif any(w in low for w in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):
             groups["matmul (cuBLAS)"] += ms
@@ -1120,9 +1262,17 @@ def _profile_step(step, state, batch, step_ms: float):
             groups["other"] += ms
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
+    fused = {n[:120]: t for n, t in kernels.items()
+             if "fused_attention" in n.lower() or any(w in n.lower() for w in FUSED_BWD_NAMES)}
     return {"wall_ms_profiled": wall_ms, "device_busy_ms": busy,
             "idle_share": (1.0 - busy / step_ms) if busy else None,
-            "by_group_ms": groups, "top_kernels_ms": [[n[:90], t] for n, t in top]}
+            "by_group_ms": groups, "fused_attention_kernels_ms": fused,
+            "top_kernels_ms": [[n[:90], t] for n, t in top]}
+
+
+# the backward's kernels by name: the bf16 route's fused_attention_bwd_* and
+# the fp32 route's, with delta_kernel shared
+FUSED_BWD_NAMES = ("fused_attention_bwd", "dkdv_kernel", "dq_kernel", "delta_kernel")
 
 
 def _rel_bias_grad_ms(length: int = 1024):
@@ -2465,6 +2615,7 @@ def main() -> int:
         card = phase_device_and_build()
         gen = torch.Generator().manual_seed(1)
         table = [check_fused_attention(gen), check_fused_attention_bwd(gen)]
+        table[0]["hmma_per_kernel"] = check_tensor_cores()
         gen = serving_checks_generator()
         table += [check_topk(gen), check_megakernel(gen)]
         gen = torch.Generator().manual_seed(2)

@@ -7,9 +7,11 @@ from __future__ import annotations
 import numpy as np
 
 
-def small_cfgs(num_decoder_layers: int = 2, feed_forward_proj: str = "relu"):
+def small_cfgs(num_decoder_layers: int = 2, feed_forward_proj: str = "relu",
+               dtype: str = "float32"):
     """(JAX Vid2SeqConfig, port Vid2SeqConfig) at d 128, 2+2 layers, 4
-    heads, fp32: the same fields in both packages."""
+    heads, compute in ``dtype`` (fp32 by default): the same fields in both
+    packages."""
     from vidchapters_tpu import config as jc
     from vidchapters_tpu_torch import config as tc
 
@@ -17,10 +19,10 @@ def small_cfgs(num_decoder_layers: int = 2, feed_forward_proj: str = "relu"):
         t5 = m.T5Config(vocab_size=32200, d_model=128, d_kv=32, d_ff=256,
                         num_layers=2, num_decoder_layers=num_decoder_layers,
                         num_heads=4, dropout_rate=0.0, encoder_dropout=0.0,
-                        decoder_dropout=0.0, dtype="float32",
+                        decoder_dropout=0.0, dtype=dtype,
                         feed_forward_proj=feed_forward_proj)
         vit = m.TemporalViTConfig(num_features=16, embed_dim=128, depth=2,
-                                  num_heads=4, mlp_dim=256, dtype="float32")
+                                  num_heads=4, mlp_dim=256, dtype=dtype)
         return m.Vid2SeqConfig(t5=t5, vit=vit, num_bins=100)
 
     return make(jc), make(tc)

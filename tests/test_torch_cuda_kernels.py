@@ -345,3 +345,77 @@ def test_probes_match_known_answers():
     torch.cuda.synchronize()
     assert probes.KERNEL.launches == before + len(probes.PROBES)
     assert all(r["ok"] for r in out.values()), out
+
+
+def _bf16_grad_tol(ref) -> float:
+    """2e-2, or 2^-7 of the largest reference element where that is larger:
+    dS is rounded to bf16 before its products, and an element that the
+    kernel and the plain version hold an fp32 ulp apart across a rounding
+    boundary moves a gradient element by a bf16 ulp of |dS| |K| (chip_smoke.py,
+    bf16_grad_tol)."""
+    return max(2e-2, 2.0 ** -7 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("lq", [304, 1000, 1024])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_fused_attention_bf16_tensor_cores_match_plain(d, lq, bias, rate):
+    """The bf16 (tensor-core) forward and backward against the plain
+    versions at every head width, with and without bias and dropout, at a
+    ragged query length (304 over 904 keys), the padded 1000 and 1024; two
+    backward runs bit-identical."""
+    require_cuda()
+    from vidchapters_tpu_torch.ops import fused_attention as fa
+
+    g = torch.Generator().manual_seed(d + lq)
+    lk = 904 if lq == 304 else lq
+    q = torch.randn(2, 3, lq, d, generator=g) * 0.5
+    k, v = (torch.randn(2, 3, lk, d, generator=g) * 0.5 for _ in range(2))
+    b = torch.randn(1, 3, lq, lk, generator=g) if bias else None
+    mask = torch.ones(2, lk, dtype=torch.int32)
+    mask[1, lk - 150:] = 0
+    dout = torch.randn(2, 3, lq, d, generator=g)
+    on = lambda t: None if t is None else t.cuda().to(torch.bfloat16)  # noqa: E731
+    q, k, v, b, dout, mask = on(q), on(k), on(v), on(b), on(dout), mask.cuda()
+    before = (fa.KERNEL.launches, fa.BWD_KERNEL.launches)
+    got = fa.fused_attention_padded(q, k, v, b, mask, seed=5, dropout_rate=rate)
+    # the plain version at the lengths the wrapper pads to (the keep mask
+    # hashes the padded Lk); padded keys are masked, padded rows sliced off
+    lqp, lkp = fa.padded_lengths(lq, lk)
+    qp, doutp = fa._pad_to(q, lqp, 2), fa._pad_to(dout, lqp, 2)
+    kp, vp = fa._pad_to(k, lkp, 2), fa._pad_to(v, lkp, 2)
+    bp = None if b is None else fa._pad_to(fa._pad_to(b, lqp, 2), lkp, 3)
+    mp = fa._pad_to(mask, lkp, 1)
+    ref = fa.fused_attention_plain(qp, kp, vp, bp, mp, 5, rate)[:, :, :lq]
+    torch.cuda.synchronize()
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
+
+    out, lse = fa._forward(qp, kp, vp, bp, mp, 5, rate, want_lse=True)
+    scores = fa._scores(qp, kp, bp, mp)
+    assert torch.allclose(lse, torch.logsumexp(scores, dim=-1), atol=1e-4, rtol=1e-5)
+    grads = fa.fused_attention_bwd(qp, kp, vp, bp, mp, 5, rate, out, doutp, lse)
+    again = fa.fused_attention_bwd(qp, kp, vp, bp, mp, 5, rate, out, doutp, lse)
+    refs = fa.fused_attention_bwd_plain(qp, kp, vp, bp, mp, 5, rate, out, doutp)
+    torch.cuda.synchronize()
+    assert (fa.KERNEL.launches, fa.BWD_KERNEL.launches) == (before[0] + 2, before[1] + 2)
+    assert (grads[3] is None) == (not bias)
+    for name, a, a2, r in zip(("dq", "dk", "dv", "dbias"), grads, again, refs):
+        if r is None:
+            continue
+        assert a.dtype == torch.float32 and a.shape == r.shape, name
+        assert torch.equal(a, a2), f"{name}: two runs differ"  # no float atomics
+        err, tol = (a - r).abs().max().item(), _bf16_grad_tol(r)
+        assert err <= tol, f"{name}: max abs err {err} > {tol}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_fused_attention_refuses_other_dtypes_on_the_card(dtype):
+    require_cuda()
+    from vidchapters_tpu_torch.ops import fused_attention as fa
+
+    q = torch.zeros(1, 1, 64, 64, device="cuda", dtype=dtype)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fa.fused_attention(q, q, q, None, torch.ones(1, 64, dtype=torch.int32, device="cuda"))

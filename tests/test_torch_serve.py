@@ -133,3 +133,114 @@ def test_cuda_default_raises_without_a_card():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             resolve_device()
     assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.fixture(scope="module")
+def trained_run(tmp_path_factory):
+    """One epoch of ``train/dvc_main.main`` at a tiny width into a temporary
+    save directory, with the trained model kept in memory."""
+    from tests.test_torch_dvc_main import _tiny_cfg, _write_dataset
+    from vidchapters_tpu_torch.train import dvc_main
+
+    root = tmp_path_factory.mktemp("dvc_run")
+    _write_dataset(root)
+    cfg = _tiny_cfg(root, num_beams=2)
+    states = []
+
+    class Recorded(dvc_main.TrainState):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            states.append(self)
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(dvc_main, "TrainState", Recorded)
+    try:
+        dvc_main.main(cfg, device="cpu")
+    finally:
+        mp.undo()
+    assert len(states) == 1
+    return cfg, root / "ckpt", states[0].model
+
+
+def _same_state(model, ref) -> None:
+    import torch
+
+    got, want = model.state_dict(), ref.state_dict()
+    assert got.keys() == want.keys()
+    for name, t in want.items():
+        assert torch.equal(got[name], t), name
+
+
+def _tokens(cfg, model):
+    import torch
+
+    from vidchapters_tpu_torch.train.dvc_train import make_generate_fn
+
+    rng = np.random.default_rng(3)
+    video = torch.from_numpy(rng.normal(size=(2, cfg.data.max_feats, cfg.data.features_dim))
+                             .astype(np.float32))
+    tokens = torch.from_numpy(rng.integers(3, 100, size=(2, 12)).astype(np.int64))
+    return make_generate_fn(model, cfg.generation)(video, tokens)
+
+
+def test_serve_ckpt_from_dvc_main_save_directory(trained_run):
+    import torch
+
+    from vidchapters_tpu_torch.models.vid2seq import Vid2Seq
+    from vidchapters_tpu_torch.serve import load_serving_params
+
+    cfg, save_dir, trained = trained_run
+    assert (save_dir / "best").exists() and (save_dir / "last").exists()
+    served = load_serving_params(Vid2Seq(cfg.model), str(save_dir))
+    _same_state(served, trained)
+    best = torch.load(save_dir / "best", weights_only=True)["model"]
+    for name, t in served.state_dict().items():
+        assert torch.equal(t, best[name]), name
+    np.testing.assert_array_equal(_tokens(cfg, served).numpy(), _tokens(cfg, trained).numpy())
+
+
+def test_serve_ckpt_falls_back_to_last(trained_run, tmp_path):
+    import shutil
+
+    from vidchapters_tpu_torch.models.vid2seq import Vid2Seq
+    from vidchapters_tpu_torch.serve import load_serving_params
+
+    cfg, save_dir, trained = trained_run
+    only_last, empty = tmp_path / "only_last", tmp_path / "empty"
+    only_last.mkdir()
+    empty.mkdir()
+    shutil.copy(save_dir / "last", only_last / "last")
+    _same_state(load_serving_params(Vid2Seq(cfg.model), str(only_last)), trained)
+    with pytest.raises(FileNotFoundError, match="neither a 'best' nor a 'last'"):
+        load_serving_params(Vid2Seq(cfg.model), str(empty))
+
+
+@pytest.mark.parametrize("form", ["payload_file", "bare_state_dict"])
+def test_serve_ckpt_from_a_file(trained_run, tmp_path, form):
+    import torch
+
+    from vidchapters_tpu_torch.models.vid2seq import Vid2Seq
+    from vidchapters_tpu_torch.serve import load_serving_params
+
+    cfg, save_dir, trained = trained_run
+    path = tmp_path / "weights.pt"
+    if form == "payload_file":
+        path.write_bytes((save_dir / "best").read_bytes())
+    else:
+        torch.save(trained.state_dict(), path)
+    served = load_serving_params(Vid2Seq(cfg.model), str(path))
+    _same_state(served, trained)
+    np.testing.assert_array_equal(_tokens(cfg, served).numpy(), _tokens(cfg, trained).numpy())
+
+
+def test_serve_ckpt_refuses_a_foreign_file(tmp_path):
+    import torch
+
+    from tests.test_torch_dvc_main import _tiny_cfg
+    from vidchapters_tpu_torch.models.vid2seq import Vid2Seq
+    from vidchapters_tpu_torch.serve import load_serving_params
+
+    path = tmp_path / "foreign.pth"
+    torch.save({"state": {"encoder.weight": torch.zeros(2)}, "epoch": 3}, path)
+    with pytest.raises(ValueError, match="ROADMAP.md §1 item 2"):
+        load_serving_params(Vid2Seq(_tiny_cfg(tmp_path).model), str(path))

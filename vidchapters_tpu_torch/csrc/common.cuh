@@ -49,20 +49,31 @@ __device__ __forceinline__ unsigned dropout_mix(const Dropout& dr, int b, int h)
   return dr.seed ^ ((unsigned)b * 0x9E3779B1u) ^ ((unsigned)h * 0x85EBCA6Bu);
 }
 
-__device__ __forceinline__ float keep_scale(const Dropout& dr, unsigned mixed, int row,
-                                            int key, int Lk) {
-  const unsigned half = (unsigned)Lk >> 1;
-  const bool high = (unsigned)key >= half;
-  unsigned x = (unsigned)row * half + ((unsigned)key - (high ? half : 0u));
+// The hash of (row, col), col < half = Lk / 2: its low 16 bits decide key
+// col, its high 16 bits key col + half.
+__device__ __forceinline__ unsigned keep_hash(unsigned mixed, int row, unsigned col,
+                                              unsigned half) {
+  unsigned x = (unsigned)row * half + col;
   x ^= mixed;
   x *= 0xCC9E2D51u;
   x ^= x >> 16;
   x *= 0x85EBCA6Bu;
   x ^= x >> 13;
   x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  const unsigned bits = high ? (x >> 16) : (x & 0xFFFFu);
+  return x ^ (x >> 16);
+}
+
+// The scale of one 16-bit decision: inv where kept, else 0.
+__device__ __forceinline__ float keep_bits(const Dropout& dr, unsigned bits) {
   return bits >= dr.thresh ? dr.inv : 0.f;
+}
+
+__device__ __forceinline__ float keep_scale(const Dropout& dr, unsigned mixed, int row,
+                                            int key, int Lk) {
+  const unsigned half = (unsigned)Lk >> 1;
+  const bool high = (unsigned)key >= half;
+  const unsigned x = keep_hash(mixed, row, (unsigned)key - (high ? half : 0u), half);
+  return keep_bits(dr, high ? (x >> 16) : (x & 0xFFFFu));
 }
 
 }  // namespace vc

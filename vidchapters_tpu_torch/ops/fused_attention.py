@@ -10,6 +10,11 @@ tensor in device memory. Counterpart of
   log-sum-exp for the backward) and the backward ``csrc/fused_attention_bwd.cu``
   (dq, dk, dv and ``dbias = sum_b dS``, recomputing the probabilities from
   that log-sum-exp).
+- Each source has two routes by dtype. bfloat16, the compute dtype of every
+  main path, runs on the tensor cores (``mma.sync`` with bf16 operands and
+  fp32 accumulators). float32 keeps the first kernels, on the fp32 CUDA
+  cores: only the checks that hold the card against the CPU at 1e-4 run
+  fp32, and TF32 tensor cores would break them. Other dtypes raise.
 - For CPU tensors both run their plain PyTorch versions,
   ``fused_attention_plain`` and ``fused_attention_bwd_plain``, which are also
   the kernels' yardsticks on the card.
@@ -35,7 +40,7 @@ HEAD_DIMS = (32, 64, 128)  # head widths the kernels are instantiated for
 KERNEL = CudaKernel("fused_attention_fwd", {
     "fused_attention_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, I, U32, I, I, F, P]})
 BWD_KERNEL = CudaKernel("fused_attention_bwd", {
-    "fused_attention_bwd": [P, P, P, P, P, P, P, P, P, P, P, P, P,
+    "fused_attention_bwd": [P, P, P, P, P, P, P, P, P, P, P, P, P, P,
                             I, I, I, I, I, I, U32, I, I, F, P]})
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -201,6 +206,13 @@ def _dropout_args(seed: int, dropout_rate: float):
             dropout_scale(dropout_rate) if on else 1.0)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (the kernels copy rows
+    in 16-byte pieces); a view at an odd offset is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _forward(q, k, v, bias, key_mask, seed: int, dropout_rate: float,
              want_lse: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(out, lse): CPU tensors take the plain version (no lse); CUDA
@@ -208,12 +220,17 @@ def _forward(q, k, v, bias, key_mask, seed: int, dropout_rate: float,
     (``[B, H, Lq]`` float32) when asked."""
     if q.device.type == "cpu":
         return fused_attention_plain(q, k, v, bias, key_mask, seed, dropout_rate), None
+    return _launch_forward(q, k, v, bias, key_mask, seed, dropout_rate, want_lse)
+
+
+def _launch_forward(q, k, v, bias, key_mask, seed: int, dropout_rate: float,
+                    want_lse: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     _check(q, k, v, bias, key_mask, "fused_attention")
     b, h, lq, d = q.shape
     lk = k.shape[2]
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    bias = bias.contiguous() if bias is not None else None
-    mask = key_mask.to(torch.int32).contiguous()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    bias = _aligned(bias) if bias is not None else None
+    mask = _aligned(key_mask.to(torch.int32))
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, lq), dtype=torch.float32, device=q.device)
            if want_lse else None)
@@ -225,6 +242,17 @@ def _forward(q, k, v, bias, key_mask, seed: int, dropout_rate: float,
     return out, lse
 
 
+def dbias_scratch_shape(b: int, h: int, lq: int, lk: int, dtype: torch.dtype,
+                        has_bias: bool) -> Optional[Tuple[int, int, int, int]]:
+    """Shape of the backward's float32 scratch for the per-example dS
+    partials that the bf16 route sums into dbias in example order: ``[B, H,
+    Lq, Lk]`` with a bias and B > 1, else None (the float32 route sums in its
+    own kernel, and with B = 1 the partial is dbias itself)."""
+    if not has_bias or b == 1 or dtype != torch.bfloat16:
+        return None
+    return (b, h, lq, lk)
+
+
 def fused_attention_bwd(q, k, v, bias, key_mask, seed: int, dropout_rate: float,
                         out, dout, lse) -> Tuple[torch.Tensor, ...]:
     """float32 ``(dq, dk, dv, dbias)`` of the fused attention. CPU tensors
@@ -233,6 +261,11 @@ def fused_attention_bwd(q, k, v, bias, key_mask, seed: int, dropout_rate: float,
     if q.device.type == "cpu":
         return fused_attention_bwd_plain(q, k, v, bias, key_mask, seed, dropout_rate,
                                          out, dout)
+    return _launch_backward(q, k, v, bias, key_mask, seed, dropout_rate, out, dout, lse)
+
+
+def _launch_backward(q, k, v, bias, key_mask, seed: int, dropout_rate: float,
+                     out, dout, lse) -> Tuple[torch.Tensor, ...]:
     _check(q, k, v, bias, key_mask, "fused_attention_bwd")
     b, h, lq, d = q.shape
     lk = k.shape[2]
@@ -240,19 +273,22 @@ def fused_attention_bwd(q, k, v, bias, key_mask, seed: int, dropout_rate: float,
         raise ValueError("fused_attention_bwd: out and dout must match q")
     if lse is None or tuple(lse.shape) != (b, h, lq) or lse.dtype != torch.float32:
         raise ValueError(f"fused_attention_bwd: lse must be float32 [{b},{h},{lq}]")
-    q, k, v, out, lse = (t.contiguous() for t in (q, k, v, out, lse))
-    dout = dout.to(q.dtype).contiguous()
-    bias = bias.contiguous() if bias is not None else None
-    mask = key_mask.to(torch.int32).contiguous()
+    q, k, v, out, lse = (_aligned(t) for t in (q, k, v, out, lse))
+    dout = _aligned(dout.to(q.dtype))
+    bias = _aligned(bias) if bias is not None else None
+    mask = _aligned(key_mask.to(torch.int32))
     f32 = dict(dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty(q.shape, **f32), torch.empty(k.shape, **f32), torch.empty(v.shape, **f32)
     dbias = torch.empty((1, h, lq, lk), **f32) if bias is not None else None
     delta = torch.empty((b, h, lq), **f32)  # scratch: rowsum(dout * out)
+    part_shape = dbias_scratch_shape(b, h, lq, lk, q.dtype, bias is not None)
+    part = torch.empty(part_shape, **f32) if part_shape is not None else None
     BWD_KERNEL.launch("fused_attention_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       0 if bias is None else bias.data_ptr(), mask.data_ptr(),
                       out.data_ptr(), dout.data_ptr(), lse.data_ptr(),
                       dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                       0 if dbias is None else dbias.data_ptr(), delta.data_ptr(),
+                      0 if part is None else part.data_ptr(),
                       b, h, lq, lk, d, _DTYPE_CODE[q.dtype],
                       *_dropout_args(seed, dropout_rate), stream_ptr())
     return dq, dk, dv, dbias
@@ -294,6 +330,13 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _forward(q, k, v, bias, key_mask, seed, dropout_rate, want_lse=False)[0]
 
 
+def padded_lengths(lq: int, lk: int) -> Tuple[int, int]:
+    """``(Lq, Lk)`` as ``fused_attention_padded`` pads them: Lq to a
+    multiple of 8 up to 512 and of 128 beyond, Lk to a multiple of 128."""
+    lqp = -(-lq // 8) * 8 if lq <= 512 else -(-lq // BLOCK_Q) * BLOCK_Q
+    return lqp, -(-lk // BLOCK_Q) * BLOCK_Q
+
+
 def fused_attention_padded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: Optional[torch.Tensor], key_mask: torch.Tensor,
                            seed: int = 0, dropout_rate: float = 0.0) -> torch.Tensor:
@@ -302,8 +345,7 @@ def fused_attention_padded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     query rows sliced off), as fused_attention.py:395-418 there does. The
     keep mask is hashed over the padded Lk, as there."""
     lq, lk = q.shape[2], k.shape[2]
-    lqp = (-(-lq // 8) * 8 if lq <= 512 else -(-lq // BLOCK_Q) * BLOCK_Q)
-    lkp = -(-lk // BLOCK_Q) * BLOCK_Q
+    lqp, lkp = padded_lengths(lq, lk)
     if lqp != lq:
         q = _pad_to(q, lqp, 2)
     if lkp != lk:

@@ -21,7 +21,7 @@ encode, beam decode, ``<time=k>`` parse, answered as JSON over HTTP:
 
 Usage:
     python -m vidchapters_tpu_torch.serve --config exp.json \
-        [--ckpt state_dict.pt] [--device cuda] --port 8976
+        [--ckpt SAVE_DIR | CKPT_FILE | state_dict.pt] [--device cuda] --port 8976
 (--ckpt omitted = seeded random weights: smoke/benchmark mode.)
 """
 
@@ -31,6 +31,7 @@ import json
 import queue as queue_mod
 import threading
 import time
+from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -46,6 +47,7 @@ from vidchapters_tpu_torch.data.time_tokens import (
     build_time_text_sequence,
     decode_chapter_sequence,
 )
+from vidchapters_tpu_torch.runtime.checkpoint import CheckpointManager
 
 
 class _Pending:
@@ -430,15 +432,44 @@ def _to_host(seqs) -> np.ndarray:
 
 
 def load_serving_params(model, ckpt: Optional[str], seed: int = 0):
-    """Weights for the server, in place on ``model``: a ``torch.save``d
-    state_dict of the port, or seeded random weights (``torch.Generator``)
-    when ``ckpt`` is None. Returns ``model``."""
-    if ckpt:
-        model.load_state_dict(torch.load(ckpt, map_location="cpu",
-                                         weights_only=True))
+    """Weights for the server, in place on ``model``; returns ``model``.
+    ``ckpt`` is one of:
+
+    - a save directory of ``train/dvc_main``: its ``best`` checkpoint if
+      there is one, else ``last`` (as vidchapters_tpu/serve.py:459-465
+      restores one);
+    - a checkpoint file of that module (a payload with a ``"model"`` key);
+    - a ``torch.save``d bare state_dict of the port's Vid2Seq;
+    - None: seeded random weights (``torch.Generator``).
+
+    Anything else raises: a reference ``.pth`` is not importable yet
+    (ROADMAP.md §1 item 2)."""
+    if not ckpt:
+        model.init_weights(torch.Generator().manual_seed(seed))
+        return model
+    path = Path(ckpt)
+    if path.is_dir():
+        mgr = CheckpointManager(str(path))
+        name = "best" if mgr.has("best") else "last"
+        if not mgr.has(name):
+            raise FileNotFoundError(f"{ckpt} holds neither a 'best' nor a 'last' "
+                                    f"checkpoint of train/dvc_main")
+        model.load_state_dict(mgr.load(name, map_location="cpu")["model"])
+        print(f"restored '{name}' from {ckpt}")
+        return model
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(payload, dict) and isinstance(payload.get("model"), dict):
+        model.load_state_dict(payload["model"])
+        print(f"loaded checkpoint {ckpt}")
+    elif isinstance(payload, dict) and payload and all(
+            isinstance(v, torch.Tensor) for v in payload.values()):
+        model.load_state_dict(payload)
         print(f"loaded state_dict {ckpt}")
     else:
-        model.init_weights(torch.Generator().manual_seed(seed))
+        raise ValueError(
+            f"{ckpt} is neither a checkpoint of train/dvc_main nor a state_dict of the "
+            f"port's Vid2Seq; importing a reference .pth is not ported yet "
+            f"(ROADMAP.md §1 item 2)")
     return model
 
 
@@ -452,8 +483,10 @@ def main(args=None) -> None:
     p = argparse.ArgumentParser(description="Chapter-generation server")
     p.add_argument("--config", required=True, help="ExperimentConfig json")
     p.add_argument("--ckpt", default=None,
-                   help="torch.save'd state_dict of the port's Vid2Seq; "
-                        "omit for seeded random weights")
+                   help="a train/dvc_main save directory (best, else last), "
+                        "one of its checkpoint files, or a torch.save'd "
+                        "state_dict of the port's Vid2Seq; omit for seeded "
+                        "random weights")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights when --ckpt is omitted")
     p.add_argument("--device", default="cuda",
