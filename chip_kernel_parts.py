@@ -1,0 +1,82 @@
+#!/usr/bin/env python3
+"""Where two of the port's decode-path numbers come from, on one GPU.
+
+    python3 chip_kernel_parts.py
+
+1. The bf16 decode kernel's bound (chip_smoke.decode_kernel_tol): at
+   chip_smoke's full-width inputs (8 examples x 4 beams, 12 layers, bf16),
+   cache indices 0/1/127/128/255, the largest |difference| of hidden, k_new
+   and v_new between the kernel and its plain version on the card, and
+   between the plain version on the CPU and on the card, with the largest
+   reference element and the share of elements past 3e-2.
+2. The top-k kernel's time by part: device time (CUDA-graph replay) at
+   [8, 128800] f32 for k 1 / 5 / 8 / 16 and 1 / 16 / 31 / 64 blocks a row,
+   on random rows and on descending rows (after the first k elements none
+   enters a thread's list, so the scan costs one compare an element).
+
+Prints one JSON object; needs the card (exits 1 without one).
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAIL: CUDA is not available; this script measures on a GPU", flush=True)
+        return 1
+    import chip_smoke as cs
+    from vidchapters_tpu_torch.ops import decode_megakernel as dm
+    from vidchapters_tpu_torch.ops import decoding as dec
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    gen = cs.serving_checks_generator()
+    torch.randn(8, 4 * 32200, generator=gen)  # check_topk's draw: the same inputs as the smoke
+    stacked, x, kc, vc, kx, vx, bias_all, mask, src = cs.megakernel_inputs(gen)
+    g, heads, dt = cs.MEGA_SHAPE["g"], cs.MEGA_SHAPE["heads"], torch.bfloat16
+
+    def on(dev):
+        st = {k: (v.to(dev) if k in ("ln", "final_ln") else v.to(dev, dt))
+              for k, v in stacked.items()}
+        return st, [t.to(dev, dt) for t in (x, kc, vc, kx, vx)], mask.to(dev), src.to(dev)
+
+    card_in, cpu_in = on("cuda"), on("cpu")
+    rounding = []
+    for idx in (0, 1, 127, 128, 255):
+        br, b0b = bias_all[idx], bias_all[0, :1].contiguous()
+        outs = {}
+        for name, fn, (st, ts, m, s) in (("kernel", dm.mega_decode_step, card_in),
+                                         ("plain_card", dm.mega_decode_step_plain, card_in),
+                                         ("plain_cpu", dm.mega_decode_step_plain, cpu_in)):
+            dev = ts[0].device
+            outs[name] = [t.float().cpu() for t in fn(st, *ts, br.to(dev), b0b.to(dev), m, idx,
+                                                      g, heads, src=s)[:3]]
+        row = {"idx": idx}
+        for j, part in enumerate(("hidden", "k_new", "v_new")):
+            ref = outs["plain_card"][j]
+            row[part] = {"largest": ref.abs().max().item()}
+            for other in ("kernel", "plain_cpu"):
+                diff = (outs[other][j] - ref).abs()
+                row[part][f"{other}_vs_plain_card"] = diff.max().item()
+                row[part][f"{other}_share_past_3e-2"] = (diff > 3e-2).float().mean().item()
+        rounding.append(row)
+
+    rand = torch.randn(8, 4 * 32200, generator=torch.Generator().manual_seed(0)).cuda()
+    desc = torch.arange(4 * 32200, dtype=torch.float32).flip(0).repeat(8, 1).cuda()
+    topk = {f"{name} k{k} S{s}": cs.time_ms_graph(lambda: dec._launch_topk(xx, k, s))
+            for name, xx in (("random", rand), ("descending", desc))
+            for k in (1, 5, 8, 16) for s in (1, 16, 31, 64)}
+    print(json.dumps({"card": card, "decode_kernel_bf16_rounding": rounding,
+                      "topk_ms_by_part": topk}, indent=1), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

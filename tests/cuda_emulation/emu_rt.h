@@ -1,9 +1,13 @@
 // A CPU stand-in for the CUDA runtime and warp primitives that the fused
-// attention kernels use, so that their sources compile with g++ and run on
-// the CPU in tests (tests/test_torch_fused_attention_emulated.py).
+// attention, top-k and decode-attention kernels use, so that their sources
+// compile with g++ and run on the CPU in tests
+// (tests/test_torch_fused_attention_emulated.py,
+// tests/test_torch_decode_kernels_emulated.py).
 //
 // Each CUDA thread is an OS thread; the blocks of a grid run one after
-// another. __syncthreads is a barrier of the block's threads. The warp
+// another, so a block that counts arrivals with atomics meets every other
+// block of the grid finished. __syncthreads is a barrier of the block's
+// threads; atomics are the compiler's, and __threadfence a full fence. The warp
 // collectives (shuffles, ldmatrix, mma.sync) post each lane's operands into
 // the warp's exchange buffer, meet at the warp's barrier, compute every
 // lane's result from all 32 posts by the PTX ISA's fragment layouts, and meet
@@ -11,6 +15,8 @@
 // need no waiting. Shared memory is one static buffer, filled with 0xff
 // bytes before each block, as uninitialised memory would be.
 #pragma once
+#include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
@@ -24,7 +30,8 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __shared__
+// a static __shared__ array is one object for all threads: the block that runs owns it
+#define __shared__ static
 #define __restrict__
 #define __align__(n)
 #define __launch_bounds__(...)
@@ -46,8 +53,17 @@ template <class T> cudaError_t cudaFuncSetAttribute(T, int, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 
 struct float2 { float x, y; };
-struct float4 { float x, y, z, w; };
+struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+using std::min;
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 
@@ -78,12 +94,22 @@ template <class T> inline T at(int l) {
 }  // namespace emu
 
 inline void __syncthreads() { emu::block_bar->arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { emu::warp().bar->arrive_and_wait(); }
 template <class T> inline T __shfl_xor_sync(unsigned, T v, int o) {
   emu::post(v);
   T r = emu::at<T>(emu::lane() ^ o);
   emu::done();
   return r;
 }
+template <class T> inline T __shfl_sync(unsigned, T v, int src) {
+  emu::post(v);
+  T r = emu::at<T>(src & 31);
+  emu::done();
+  return r;
+}
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+template <class T> inline T __ldcg(const T* p) { return *p; }
 inline size_t __cvta_generic_to_shared(const void*) { return 0; }
 
 struct __nv_bfloat16 { unsigned short x; };

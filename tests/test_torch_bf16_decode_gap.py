@@ -2,9 +2,9 @@
 the CPU at a small width (2+2 layers, d 128, bfloat16 compute, the same
 weights and seeded numpy inputs), on both decode routes:
 
-- the decode kernel: the port's plain version (its residual stream stays
-  fp32 through a step) against JAX's ``mega_decode_step`` in interpret mode
-  (which rounds the residual to bf16 after every add);
+- the decode kernel: the port's plain version against JAX's
+  ``mega_decode_step`` in interpret mode (both round the residual to bf16
+  after every add);
 - the standard cached decode: the port's (decode-attention plain versions,
   fp32 probabilities into p.v) against JAX's (probabilities cast to bf16
   before p.v, vidchapters_tpu/models/t5.py:396).
@@ -12,7 +12,8 @@ weights and seeded numpy inputs), on both decode routes:
 Both routes are fed the same encoder output and, step by step, the same
 tokens, so each step's logits differ only by where bf16 rounds. Greedy
 tokens from each package's ``make_generate_fn`` are compared as well; their
-agreement is what PERF.md records. The fp32 routes are token-identical
+agreement is what PERF.md records. One step of the decode kernel's plain
+version is also held to JAX's at a tighter bound (STEP_REL_TOL). The fp32 routes are token-identical
 (test_torch_standard_decode.py, test_torch_decode_megakernel.py).
 """
 
@@ -120,3 +121,46 @@ def test_bf16_greedy_token_agreement(models, monkeypatch, route):
     first = [int(np.argmax(np.r_[g != r, True])) for g, r in zip(got, ref)]
     print(f"[bf16 gap] {route}: greedy tokens equal {same:.4f} "
           f"({int((got == ref).sum())}/{got.size}); first differing step per video {first}")
+
+
+# One bf16 step of the decode kernel's plain version against JAX's
+# mega_decode_step (interpret mode) on the same bf16 inputs, with a residual
+# of ~16 (the input x scaled by 16) against sublayer outputs of ~0.1: bf16
+# keeps a value of 16 to 2^-4, so each add rounds away much of its update,
+# and the residual's rounding matters. Both now round the residual after
+# every add, and after every weight product and every norm. What is left is
+# the order of fp32 sums and the attention's own rounding (JAX rounds the
+# q.k products to bf16 before its head sums), measured at up to 1.6 bf16
+# ulps of the largest hidden element (6.4e-3 at idx 9). The bound is two
+# ulps of it, 2^-7: the fp32 residual the port kept before parted from JAX
+# by 8.4e-3 and 8.8e-3 at idx 0 and 15 on these inputs.
+STEP_REL_TOL = 2.0 ** -7
+
+
+@pytest.mark.parametrize("idx", [0, 9, 15])
+def test_bf16_plain_step_matches_jax_kernel(idx):
+    from tests.test_torch_decode_megakernel import G, H, _inputs, _jax, _torch
+    from vidchapters_tpu.ops import decode_megakernel as jdm
+    from vidchapters_tpu_torch.ops import decode_megakernel as dm
+
+    a = _inputs(idx)
+    a["x"] = a["x"] * 16.0
+    j, t = _jax(a), _torch(a)
+    bf = {k: (v if k in ("ln", "final_ln") else v.astype(jnp.bfloat16))
+          for k, v in j["stacked"].items()}
+    tbf = {k: (v if k in ("ln", "final_ln") else v.bfloat16()) for k, v in t["stacked"].items()}
+    cast_j = [j[n].astype(jnp.bfloat16) for n in ("x", "k", "v", "kx", "vx")]
+    cast_t = [t[n].bfloat16() for n in ("x", "k", "v", "kx", "vx")]
+    ref = jdm.mega_decode_step(bf, *cast_j, j["bias_row"], j["bias0"], j["mask"], idx, G, H,
+                               src=j["src"], interpret=True)
+    got = dm.mega_decode_step_plain(tbf, *cast_t, t["bias_row"], t["bias0"], t["mask"], idx,
+                                    G, H, src=t["src"])
+    hid_ref = np.asarray(ref[0].astype(jnp.float32))
+    hid = got[0].float().numpy()
+    gap = np.abs(hid - hid_ref).max() / np.abs(hid_ref).max()
+    print(f"[bf16 gap] one decode-kernel step, idx {idx}: hidden within {gap:.5f} "
+          f"of the largest element")
+    assert gap <= STEP_REL_TOL, f"hidden gap {gap:.5f} of the largest element"
+    for g, r in zip(got[1:3], ref[1:3]):  # k_new, v_new: layer 0's are exact
+        np.testing.assert_array_equal(g[:, 0].float().numpy(),
+                                      np.asarray(r[:, 0].astype(jnp.float32)))

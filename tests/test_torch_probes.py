@@ -27,6 +27,13 @@ def test_run_probes_reports_every_probe():
     out = pb.run_probes("cpu")
     assert list(out) == [p.name for p in pb.PROBES]
     assert all(r["ok"] and r["max_abs_err"] == 0.0 for r in out.values())
+    assert out["grid_cell_overhead"]["us_per_cell"] is None  # no device time on the CPU
+
+
+def test_run_probes_runs_on_the_card_unless_asked():
+    import inspect
+
+    assert inspect.signature(pb.run_probes).parameters["device"].default == "cuda"
 
 
 def test_block_sum_is_the_function_the_tpu_probe_computes():

@@ -35,3 +35,24 @@ def test_plain_matches_pallas_and_lax(k):
     for v, i in ((ref_v, ref_i), (pl_v, pl_i)):
         np.testing.assert_array_equal(got_i.numpy(), np.asarray(i))
         np.testing.assert_array_equal(got_v.numpy(), np.asarray(v))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k", [5, 8, 16])
+def test_plain_matches_pallas_on_thin_rows(dtype, k):
+    """Rows with -inf masks, rows at finfo.min, and rows with fewer than k
+    entries above finfo.min: both overwrite each pick with finfo.min, so
+    past the last such entry they pick the smallest index at finfo.min
+    again and again (lax.top_k does not; the port follows the TPU kernel)."""
+    from chip_smoke import topk_thin_rows
+    from vidchapters_tpu.ops.decoding import _topk_pallas
+    from vidchapters_tpu_torch.ops import decoding as dec
+
+    x = topk_thin_rows(4099, getattr(torch, dtype))
+    xj = jnp.asarray(x.float().numpy()).astype(getattr(jnp, dtype))
+    pl_v, pl_i = _topk_pallas(xj, k, interpret=True)
+    got_v, got_i = dec._topk_small(x, k)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(pl_i))
+    np.testing.assert_array_equal(got_v.float().numpy(), np.asarray(pl_v.astype(jnp.float32)))
+    assert got_i[0, :5].tolist() == [100, 3000, 7, 7, 7]
+    assert got_i[1, :5].tolist() == [50, 0, 0, 0, 0]

@@ -10,11 +10,9 @@
 //   example's encoder K/V under its mask -> output projection -> RMSNorm ->
 //   feed-forward (relu, or gated tanh-GELU with wi packed [d, 2*dff]).
 // A final RMSNorm ends the step. Every product accumulates in fp32 and is
-// rounded to the working type where the TPU kernel rounds it (after each
-// weight product and each norm). The residual stream stays fp32 for the
-// whole step, where the TPU kernel rounds it after each add: in bf16 that
-// keeps the kernel within a few bf16 ulps of its plain version over 12
-// layers (a rounding flip in a 12-layer bf16 residual grows past that).
+// rounded to the working type where the TPU kernel rounds it: after each
+// weight product, each norm and each residual add, so the residual stream
+// holds the working type through the step, as the TPU kernel's does.
 //
 // Beam search: with src, the previous step's beam permutation is applied
 // here. Rows < idx of the caches are copied from row src[r] of the input
@@ -383,7 +381,10 @@ __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT)
   }
   cluster.sync();
 
-  auto add_to_x = [&](int r, int o, float val) { xg[r * d + o] = ld_fresh(xg + r * d + o) + val; };
+  // the residual add, rounded through T as the TPU kernel's x + mm(...) rounds
+  auto add_to_x = [&](int r, int o, float val) {
+    xg[r * d + o] = vc::rnd<T>(ld_fresh(xg + r * d + o) + val);
+  };
 
   for (int layer = 0; layer < N; ++layer) {
     const float* ln = a.ln + (long)layer * 3 * d;

@@ -14,6 +14,7 @@ import every module, also where there is no CUDA and no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -126,6 +127,32 @@ class CudaKernel:
                 f"CUDA kernel {self.name}.{symbol} failed to launch: "
                 f"cudaError_t {rc}")
         self.launches += 1
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``device_index``."""
+    import torch
+
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+_COUNTERS: Dict[object, object] = {}
+
+
+def arrival_counters(device, n: int):
+    """``n`` int32 arrival counters on ``device`` that are 0, for kernels
+    whose last block to arrive merges the others' results and sets its
+    counter back to 0 (so no launch zeroes them, and a CUDA graph can replay
+    the launch). One buffer per device, zeroed once and grown as needed;
+    kernels on one stream may share it, since each leaves it 0 again.
+    Kernels on two streams at once would not: the decode loops run on one."""
+    import torch
+
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[device] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+    return buf
 
 
 def stream_ptr() -> int:

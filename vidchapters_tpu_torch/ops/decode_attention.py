@@ -16,21 +16,22 @@ takes it only under ``USE_FUSED_DECODE``, the port's standard decode always.
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import torch
 
-from vidchapters_tpu_torch.ops._build import I, P, CudaKernel, stream_ptr
+from vidchapters_tpu_torch.ops._build import (I, P, CudaKernel, arrival_counters, sm_count,
+                                              stream_ptr)
 
 NEG_INF = -1e9
 MAX_GROUP = 8    # beams per example the cross kernel takes
 MAX_HEAD_DIM = 128
-TILE_KEYS = 32   # keys per tile of the kernels (TK there)
+TILE_KEYS = 32   # keys per tile of the cross kernel (TK there)
 
 # one library, two entry points: a CudaKernel for each, so that each counts
 # its own launches
-SELF_KERNEL = CudaKernel("decode_attention", {"decode_self_attention": [P] * 7 + [I] * 6 + [P]})
+SELF_KERNEL = CudaKernel("decode_attention",
+                         {"decode_self_attention": [P] * 9 + [I] * 8 + [P]})
 CROSS_KERNEL = CudaKernel("decode_attention",
                           {"decode_cross_attention": [P] * 7 + [I] * 8 + [P]})
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -113,17 +114,37 @@ def decode_self_attention(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Ten
         _check(fn, name, t, (r, heads, length, d), q.dtype, vectors=True)
     bias_row = bias_row.contiguous()
     _check(fn, "bias_row", bias_row, (1, heads, 1, length), q.dtype)
+    splits, span = self_splits(r * heads, idx + 1, sm_count(q.device.index))
+    return _launch_self(q, k_new, v_new, k_cache, v_cache, bias_row, idx, splits, span)
+
+
+SELF_SPLIT_MIN = 64  # fewest keys a split of the self kernel takes
+
+
+def self_splits(units: int, n_keys: int, sm_count: int) -> Tuple[int, int]:
+    """``(splits, span)``: the self kernel's ``n_keys`` keys go to ``splits``
+    blocks of ``span`` keys per (row, head), enough blocks for two per SM
+    while each split keeps at least ``SELF_SPLIT_MIN`` keys."""
+    splits = max(1, min(-(-2 * sm_count // units), n_keys // SELF_SPLIT_MIN))
+    return splits, -(-n_keys // splits)
+
+
+def _launch_self(q, k_new, v_new, k_cache, v_cache, bias_row, idx: int, splits: int,
+                 span: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the self kernel on checked, contiguous inputs."""
+    r, heads, _, d = q.shape
     out = torch.empty_like(q)
+    part = arrived = None
+    if splits > 1:
+        part = torch.empty(r * heads * splits * (d + 2), dtype=torch.float32, device=q.device)
+        arrived = arrival_counters(q.device, r * heads)
     SELF_KERNEL.launch("decode_self_attention", q.data_ptr(), k_new.data_ptr(),
                        v_new.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                       bias_row.data_ptr(), out.data_ptr(), r, heads, length, d, idx,
+                       bias_row.data_ptr(), out.data_ptr(),
+                       *(0 if t is None else t.data_ptr() for t in (part, arrived)),
+                       r, heads, k_cache.shape[2], d, idx, splits, span,
                        _DTYPE_CODE[q.dtype], stream_ptr())
     return out, k_cache, v_cache
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def cross_splits(b0: int, heads: int, lk: int, sm_count: int) -> Tuple[int, int]:
@@ -157,7 +178,7 @@ def decode_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     mask = key_mask.to(torch.int32).contiguous()
     _check(fn, "key_mask", mask, (b0, lk), torch.int32)
     out = torch.empty_like(q)
-    splits, span = cross_splits(b0, heads, lk, _sm_count(q.device.index))
+    splits, span = cross_splits(b0, heads, lk, sm_count(q.device.index))
     # per split: g running maxima, g sums, g x d accumulators; a counter per
     # (example, head) tells the last split to merge them
     part = arrived = None

@@ -53,9 +53,10 @@ def mega_decode_step_plain(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
                            out_caches: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                            gated: bool = False):
     """The kernel's function in plain PyTorch (fp32 arithmetic, rounded
-    through x's dtype where the kernel rounds: after each weight product and
-    each norm; the residual stream stays fp32 through the step). Same
-    arguments and results as ``mega_decode_step``."""
+    through x's dtype where the kernel and the TPU kernel round: after each
+    weight product, each norm and each residual add, so the residual stream
+    holds x's dtype through the step). Same arguments and results as
+    ``mega_decode_step``."""
     cdt = x.dtype
     r = lambda t: t.to(cdt).float()  # noqa: E731 - rounding through the working type
     bsz, d = x.shape
@@ -89,7 +90,7 @@ def mega_decode_step_plain(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
         s = s + bias.t()[None]
         p = torch.softmax(s, dim=-1)
         ctx = r(torch.einsum("bhl,blhd->bhd", p, vals).reshape(bsz, inner))
-        xs = xs + r(ctx @ stacked["wo_self"][i].float())
+        xs = r(xs + r(ctx @ stacked["wo_self"][i].float()))
         # cross-attention: the beams of an example share its K/V
         h = _rms(xs, ln[1], eps, cdt)
         qc = r(h @ stacked["wq_cross"][i].float()).view(b0, group, heads, dkv)
@@ -99,7 +100,7 @@ def mega_decode_step_plain(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
         s = torch.where(valid, s, torch.full_like(s, NEG_INF))
         p = torch.softmax(s, dim=-1)
         ctx = r(torch.einsum("bghl,blhd->bghd", p, vx).reshape(bsz, inner))
-        xs = xs + r(ctx @ stacked["wo_cross"][i].float())
+        xs = r(xs + r(ctx @ stacked["wo_cross"][i].float()))
         # feed-forward
         h = _rms(xs, ln[2], eps, cdt)
         hh = r(h @ stacked["wi"][i].float())
@@ -108,7 +109,7 @@ def mega_decode_step_plain(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
             act = r(_gelu_tanh(hh[:, :dff]) * hh[:, dff:])
         else:
             act = torch.relu(hh)
-        xs = xs + r(act @ stacked["wo_ff"][i].float())
+        xs = r(xs + r(act @ stacked["wo_ff"][i].float()))
     hidden = _rms(xs, stacked["final_ln"][0].float(), eps, cdt).to(cdt)
     if src is None:
         return hidden, k_new, v_new

@@ -31,11 +31,12 @@ from typing import Any, Callable, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from vidchapters_tpu_torch.ops._build import I, P, CudaKernel, stream_ptr
+from vidchapters_tpu_torch.ops._build import (I, P, CudaKernel, arrival_counters, sm_count,
+                                              stream_ptr)
 
 NEG_INF = -1.0e7
 
-TOPK_KERNEL = CudaKernel("topk", {"topk": [P, P, P, I, I, I, I, P]})
+TOPK_KERNEL = CudaKernel("topk", {"topk": [P] * 6 + [I] * 5 + [P]})
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -113,8 +114,9 @@ def _topk_iterative(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor
 
 def _topk_small(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k of each row of ``x [B, N]`` (k <= 16): values and int32 indices,
-    largest first, ties to the smallest index. CUDA tensors launch the
-    top-k kernel; CPU tensors run ``_topk_iterative``."""
+    largest first, ties to the smallest index, as ``_topk_iterative`` gives
+    them. CUDA tensors launch the top-k kernel; CPU tensors run
+    ``_topk_iterative``."""
     if x.device.type == "cpu":
         return _topk_iterative(x, k)
     if x.dtype not in _DTYPE_CODE or x.dim() != 2:
@@ -123,11 +125,33 @@ def _topk_small(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     bsz, n = x.shape
     if not 1 <= k <= 16 or n < k:
         raise ValueError(f"_topk_small: k={k} needs 1 <= k <= 16 <= N={n}")
-    x = x.contiguous()
+    return _launch_topk(x.contiguous(), k, topk_splits(bsz, n, sm_count(x.device.index)))
+
+
+TOPK_SPLIT_MIN = 4096  # fewest entries a block of the top-k kernel takes
+TOPK_MAX_SPLITS = 256  # most blocks a row the kernel takes (MAXS there)
+
+
+def topk_splits(rows: int, n: int, sm_count: int) -> int:
+    """Blocks a row for the top-k kernel: about two blocks an SM in all,
+    each block at least ``TOPK_SPLIT_MIN`` entries."""
+    return max(1, min(TOPK_MAX_SPLITS, -(-2 * sm_count // rows), n // TOPK_SPLIT_MIN))
+
+
+def _launch_topk(x: torch.Tensor, k: int, splits: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the top-k kernel on contiguous ``x [B, N]`` with ``splits``
+    blocks a row (the caller has checked x, k and splits)."""
+    bsz, n = x.shape
     vals = torch.empty(bsz, k, dtype=x.dtype, device=x.device)
     idxs = torch.empty(bsz, k, dtype=torch.int32, device=x.device)
-    TOPK_KERNEL.launch("topk", x.data_ptr(), vals.data_ptr(), idxs.data_ptr(),
-                       bsz, n, k, _DTYPE_CODE[x.dtype], stream_ptr())
+    ws = (0, 0, 0)
+    if splits > 1:
+        count = arrival_counters(x.device, bsz)
+        ws_v = torch.empty(bsz * splits * k, dtype=torch.float32, device=x.device)
+        ws_i = torch.empty(bsz * splits * k, dtype=torch.int32, device=x.device)
+        ws = (ws_v.data_ptr(), ws_i.data_ptr(), count.data_ptr())
+    TOPK_KERNEL.launch("topk", x.data_ptr(), vals.data_ptr(), idxs.data_ptr(), *ws,
+                       bsz, n, k, splits, _DTYPE_CODE[x.dtype], stream_ptr())
     return vals, idxs
 
 

@@ -5,7 +5,7 @@ versions of the same outputs.
 Each wrapper launches its kernel for CUDA tensors and runs its plain version
 for CPU tensors; ``PROBES`` lists them with their inputs and known answers,
 and ``run_probes`` runs all seven and compares. ``p7`` is a timing probe:
-on the card ``run_probes`` reports its microseconds per grid cell.
+on the card ``run_probes`` also reports its microseconds per grid cell.
 
 One finding of the port: the TPU probe ``p5`` asserts 12 * 32 * 64 per row,
 but the function it computes (``c[0].sum(axis=(1, 2))[:, :1]`` of a
@@ -199,9 +199,12 @@ PROBES = (
 )
 
 
-def run_probes(device: str = "cpu") -> Dict[str, Dict]:
+def run_probes(device: str = "cuda") -> Dict[str, Dict]:
     """Every probe on ``device`` against its known answer and its plain
-    version: ``{name: {"ok", "max_abs_err", "plain_max_abs_err"}}``."""
+    version: ``{name: {"ok", "max_abs_err", "plain_max_abs_err"}}``. On the
+    card, ``grid_cell_overhead`` also carries ``us_per_cell``: p7's time per
+    cell of its (weights x row blocks) grid, by CUDA events over 20 launches
+    after a warm-up (None on the CPU, where no device time exists)."""
     out = {}
     for pr in PROBES:
         xs = pr.inputs(torch.device(device))
@@ -212,4 +215,22 @@ def run_probes(device: str = "cpu") -> Dict[str, Dict]:
         out[pr.name] = {"ok": err == 0.0 and tuple(got.shape) == tuple(want.shape),
                         "max_abs_err": err,
                         "plain_max_abs_err": (ref - want).abs().max().item()}
+        if pr.name == "grid_cell_overhead":
+            x, w = xs
+            cells = w.shape[0] * (x.shape[0] // w.shape[0])
+            out[pr.name]["us_per_cell"] = (
+                _device_ms(lambda: pr.fn(*xs), 20) * 1e3 / cells if x.is_cuda else None)
     return out
+
+
+def _device_ms(fn: Callable, iters: int) -> float:
+    """Per-call device time of ``fn`` in ms, by CUDA events over ``iters``
+    calls after one warm-up call."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
