@@ -14,6 +14,14 @@
    on random rows and on descending rows (after the first k elements none
    enters a thread's list, so the scan costs one compare an element).
 
+    python3 chip_kernel_parts.py --whisper-ab DIR
+
+3. The Whisper decode kernel of this tree against the one of another
+   checkout DIR (e.g. the parent commit, unpacked with git archive into a
+   git-ignored directory): device time by CUDA-graph replay at large-v2
+   width, bf16, int8 cross K/V, idx 111, at 8 x 1, 2 x 5 and 8 x 5 rows,
+   each tree timed in its own process, in turns DIR, this, this, DIR.
+
 Prints one JSON object; needs the card (exits 1 without one).
 """
 
@@ -24,19 +32,72 @@ import subprocess
 import sys
 
 
+WHISPER_FORMS = ((8, 1), (2, 5), (8, 5))
+
+
+def whisper_times(root: str) -> dict:
+    """Device ms of the Whisper decode kernel of the checkout at ``root``
+    (its own chip_smoke inputs and wrapper) at each of WHISPER_FORMS."""
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(root).resolve()))
+    import torch
+
+    import chip_smoke as cs
+    from vidchapters_tpu_torch.ops import whisper_megakernel as wm
+
+    assert Path(cs.__file__).resolve().parent == Path(root).resolve(), cs.__file__
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    out = {}
+    for b0, group in WHISPER_FORMS:
+        st, x, kc, vc, ((kx, ks), (vx, vs)), src = cs._whisper_step_inputs(
+            gen, b0, group, torch.bfloat16, True)
+        outs = (torch.empty_like(kc), torch.empty_like(vc)) if src is not None else None
+        out[f"{b0}x{group}"] = cs.time_ms_graph(
+            lambda: wm.whisper_mega_step(st, x, kc, vc, kx, vx, 111, cs.WHISPER_H,
+                                         cs.WHISPER_LENC, ks, vs, group, src, outs), 10, 3)
+        del st, x, kc, vc, kx, vx, outs
+        torch.cuda.empty_cache()
+    return out
+
+
+def whisper_ab(other: str) -> dict:
+    """whisper_times of ``other`` and of this tree, each in a process of its
+    own, in turns other, this, this, other."""
+    from pathlib import Path
+
+    here = str(Path(__file__).resolve().parent)
+    runs = []
+    for root in (other, here, here, other):
+        res = subprocess.run([sys.executable, __file__, "--whisper-times", root],
+                             capture_output=True, text=True, timeout=900)
+        if res.returncode != 0:
+            raise RuntimeError(f"whisper times of {root} failed: {res.stderr[-2000:]}")
+        runs.append({"tree": "other" if root == other else "this",
+                     **json.loads(res.stdout.strip().splitlines()[-1])})
+    return {"other": str(other), "runs": runs}
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("FAIL: CUDA is not available; this script measures on a GPU", flush=True)
         return 1
+    if len(sys.argv) == 3 and sys.argv[1] == "--whisper-times":
+        print(json.dumps(whisper_times(sys.argv[2])), flush=True)
+        return 0
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
+    if len(sys.argv) == 3 and sys.argv[1] == "--whisper-ab":
+        print(json.dumps({"card": card, "whisper_ab_ms": whisper_ab(sys.argv[2])}, indent=1),
+              flush=True)
+        return 0
     import chip_smoke as cs
     from vidchapters_tpu_torch.ops import decode_megakernel as dm
     from vidchapters_tpu_torch.ops import decoding as dec
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip()
     gen = cs.serving_checks_generator()
     torch.randn(8, 4 * 32200, generator=gen)  # check_topk's draw: the same inputs as the smoke
     stacked, x, kc, vc, kx, vx, bias_all, mask, src = cs.megakernel_inputs(gen)

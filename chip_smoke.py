@@ -1073,18 +1073,18 @@ WHISPER_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 
 def _whisper_step_inputs(gen, b0: int, group: int, dtype, quant: bool, n: int = WHISPER_N,
                          d: int = WHISPER_D, dff: int = WHISPER_DFF, length: int = WHISPER_L,
-                         lenc: int = WHISPER_LENC):
-    """Seeded inputs of one Whisper decode step on the card (by default at
-    large-v2 width): stacked weights ([N, out, in], LeCun-scaled), caches
-    and the cross K/V (int8 with its per-lane scales when ``quant``, padded
-    as ``make_whisper_mega_fns`` pads it: 1500 -> 1504 rows), a beam
-    permutation within each example."""
+                         lenc: int = WHISPER_LENC, device: str = "cuda"):
+    """Seeded inputs of one Whisper decode step on ``device`` (by default the
+    card, at large-v2 width): stacked weights ([N, out, in], LeCun-scaled),
+    caches and the cross K/V (int8 with its per-lane scales when ``quant``,
+    padded as ``make_whisper_mega_fns`` pads it: 1500 -> 1504 rows), a beam
+    permutation within each example. ``gen`` lies on ``device``."""
     import torch
 
     from vidchapters_tpu_torch.ops import whisper_megakernel as wm
 
     rows, lencp = b0 * group, wm._round_up(lenc, 32 if quant else 16)
-    rnd = lambda *s, std=1.0: torch.randn(*s, generator=gen, device="cuda") * std  # noqa: E731
+    rnd = lambda *s, std=1.0: torch.randn(*s, generator=gen, device=device) * std  # noqa: E731
     shapes = {"wqkv": (3 * d, d), "wo_self": (d, d), "wq_cross": (d, d), "wo_cross": (d, d),
               "wi": (dff, d), "wo_ff": (d, dff)}
     biases = dict(zip(shapes, ("bqkv", "bo_self", "bq_cross", "bo_cross", "bi", "bo_ff")))
@@ -1097,11 +1097,11 @@ def _whisper_step_inputs(gen, b0: int, group: int, dtype, quant: bool, n: int = 
     kc, vc = (rnd(rows, n, length, d).to(dtype) for _ in range(2))
     cross = []
     for _ in range(2):
-        a = torch.zeros(b0, n, lencp, d, device="cuda")
+        a = torch.zeros(b0, n, lencp, d, device=device)
         a[:, :, :lenc] = rnd(b0, n, lenc, d)
         cross.append(wm._quantize_lanes(a.to(dtype)) if quant else (a.to(dtype), None))
     src = torch.tensor([(r // group) * group + (r * 3 + 1) % group for r in range(rows)],
-                       dtype=torch.int32, device="cuda") if group > 1 else None
+                       dtype=torch.int32, device=device) if group > 1 else None
     return st, x, kc, vc, cross, src
 
 
@@ -1121,8 +1121,8 @@ def _whisper_step_bound(rows: int, b0: int, idx: int, quant: bool, beam: bool):
     return bound(nbytes, flops, H100_BF16_FLOPS)
 
 
-WHISPER_PHASES = ("set-up", "qkv", "self-attention", "self out", "cross q", "cross-attention",
-                  "cross out", "fc1", "fc2")
+WHISPER_PHASES = ("set-up", "qkv", "self-attention", "self out", "cross q", "cross scores",
+                  "cross p.v", "cross out", "fc1", "fc2")
 
 
 def _whisper_phases(call):
@@ -1133,17 +1133,73 @@ def _whisper_phases(call):
 
     import torch
 
+    from vidchapters_tpu_torch.ops.whisper_megakernel import PHASES
+
     runs = []
     for _ in range(5):
-        tl = torch.zeros(8 * WHISPER_N + 2, dtype=torch.int64, device="cuda")
+        tl = torch.zeros(PHASES * WHISPER_N + 2, dtype=torch.int64, device="cuda")
         call(tl)
         torch.cuda.synchronize()
         t = tl.cpu().tolist()
-        per = [(t[1] - t[0]) / 1e6] + [0.0] * 8
+        per = [(t[1] - t[0]) / 1e6] + [0.0] * PHASES
         for i in range(2, len(t)):
-            per[1 + (i - 2) % 8] += (t[i] - t[i - 1]) / 1e6
+            per[1 + (i - 2) % PHASES] += (t[i] - t[i - 1]) / 1e6
         runs.append(per)
     return {name: statistics.median(r[i] for r in runs) for i, name in enumerate(WHISPER_PHASES)}
+
+
+def _whisper_phase_bytes(rows: int, b0: int, idx: int, quant: bool, beam: bool):
+    """Bytes each phase of a large-v2 step must move, summed over the layers
+    (bf16 weights and K/V, int8 cross K/V when ``quant``): the products'
+    weights, the self-attention's live cache rows (read, and the beam's copy
+    written), the cross K and V rows."""
+    n, d, dff, lenc = WHISPER_N, WHISPER_D, WHISPER_DFF, WHISPER_LENC
+    kv = 1 if quant else 2
+    self_rows = 2 * rows * idx * d * 2 * (2 if beam else 1)
+    return {"qkv": n * 3 * d * d * 2, "self-attention": n * self_rows,
+            "self out": n * d * d * 2, "cross q": n * d * d * 2,
+            "cross scores": n * b0 * lenc * d * kv, "cross p.v": n * b0 * lenc * d * kv,
+            "cross out": n * d * d * 2, "fc1": n * d * dff * 2, "fc2": n * d * dff * 2}
+
+
+def _whisper_barrier_us(reps: int = 5) -> float:
+    """One grid barrier of the Whisper kernel's grid alone, in us: a launch
+    of a step's barriers (9 N + 1) and nothing else, by its own timeline;
+    the median of ``reps`` launches."""
+    import statistics
+
+    from vidchapters_tpu_torch.ops import whisper_megakernel as wm
+
+    n = wm.PHASES * WHISPER_N + 1
+    per = []
+    for _ in range(reps):
+        t = wm.barrier_step(n).cpu().tolist()
+        per.append((t[-1] - t[0]) / n / 1e3)
+    return statistics.median(per)
+
+
+def check_whisper_tensor_cores():
+    """The bf16 Whisper kernel runs its products on the tensor cores: the
+    SASS of both bf16 instantiations (int8 and bf16 cross K/V) holds HMMA /
+    HGMMA instructions, counted per function. Fails without cuobjdump."""
+    from vidchapters_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    check(tool.exists(), f"cuobjdump not found beside nvcc ({tool})")
+    sass = subprocess.run([str(tool), "-sass", str(_build._lib_path("whisper_megakernel"))],
+                          capture_output=True, text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump -sass whisper_megakernel failed: {sass.stderr[:500]}")
+    counts = {}
+    for section in sass.stdout.split("Function : ")[1:]:
+        fn = section.split("\n", 1)[0].strip()
+        if "whisper_mega_kernel" in fn:
+            counts[fn] = section.count("HMMA") + section.count("HGMMA")
+    bf16 = {fn: c for fn, c in counts.items() if "whisper_mega_kernelI13__nv_bfloat16" in fn}
+    say(f"[check] whisper tensor cores: HMMA/HGMMA per instantiation "
+        + ", ".join(f"{fn[:70]} {c}" for fn, c in sorted(counts.items())))
+    check(len(bf16) == 2 and all(c > 0 for c in bf16.values()),
+          f"the two bf16 Whisper kernels must hold HMMA: {counts}")
+    return counts
 
 
 def check_whisper_megakernel(gen):
@@ -1163,7 +1219,7 @@ def check_whisper_megakernel(gen):
 
     heads, lenc = WHISPER_H, WHISPER_LENC
     forms = ((8, 1), (2, 5), (8, 5))
-    errs = {}
+    errs, identical = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         tol = WHISPER_TOL[str(dtype).split(".")[-1]]
         for quant in (True, False):
@@ -1195,6 +1251,15 @@ def check_whisper_megakernel(gen):
                             check(torch.equal(c_got[:, :, :idx], c_ref[:, :, :idx]),
                                   f"whisper kernel {dtype} idx={idx}: permuted rows differ")
                     worst = max(worst, err / top)
+                    if dtype == torch.bfloat16 and b0 * group == 40 and idx == 100:
+                        # sums in a fixed order: a second call gives the same bits
+                        again = wm.whisper_mega_step(st, x, kc.clone(), vc.clone(), kx, vx, idx,
+                                                     heads, lenc, ks, vs, group, src)
+                        check(all(torch.equal(p, q) for p, q in zip(again[:3], got[:3])) and
+                              all(torch.equal(p[:, :, :idx + 1], q[:, :, :idx + 1])
+                                  for p, q in zip(again[3:], got[3:])),
+                              f"whisper kernel bf16 quant={quant} 8x5: two calls differ")
+                        identical["int8" if quant else "plain"] = True
                 errs[(str(dtype).split(".")[-1], "int8" if quant else "plain", f"{b0}x{group}")] = worst
                 say(f"[check] whisper kernel {dtype} cross {'int8' if quant else 'unquantized'} "
                     f"{b0}x{group} idx 0/100/223: max err {worst:.3e} of the largest hidden "
@@ -1217,10 +1282,16 @@ def check_whisper_megakernel(gen):
         t["phases_ms"] = _whisper_phases(
             lambda tl: wm.whisper_mega_step(st, x, kc, vc, kx, vx, idx, heads, lenc, ks, vs, group,
                                             src, outs, timeline=tl))
+        nbytes = _whisper_phase_bytes(b0 * group, b0, idx, True, group > 1)
+        t["phase_tb_s"] = {k: v / (t["phases_ms"][k] * 1e-3) / 1e12 for k, v in nbytes.items()}
         times[f"{b0}x{group}"] = t
         say(f"[time] whisper kernel {b0}x{group} bf16 int8 idx {idx}: {t}")
         del st, x, kc, vc, cross, outs
         torch.cuda.empty_cache()
+    barrier_us = _whisper_barrier_us()
+    say(f"[time] whisper kernel grid barrier alone: {barrier_us:.3f} us "
+        f"({WHISPER_N * 9 + 1} a step: {barrier_us * (WHISPER_N * 9 + 1) / 1e3:.4f} ms)")
+    hmma = check_whisper_tensor_cores()
     g1 = times["8x1"]
     return {"name": "whisper_megakernel", "route": "cuda",
             "source": "vidchapters_tpu_torch/csrc/whisper_megakernel.cu",
@@ -1233,6 +1304,9 @@ def check_whisper_megakernel(gen):
             "bound_by": g1["bound_by"], "library_ms": None, "library": "none (no single call)",
             "eager_ms": g1["eager_ms"], "beam_2x5": times["2x5"], "beam_8x5": times["8x5"],
             "tolerance": WHISPER_TOL,
+            "bit_identical_8x5_bf16": identical,
+            "barrier_us": barrier_us, "hmma_per_kernel": hmma,
+            "ptxas": _ptxas_lines("whisper_megakernel"),
             "timing": TIMING_GRAPH,
             "shape": "large-v2 decoder, 8 rows, L 224, 1500 frames int8, idx 111, bf16"}
 

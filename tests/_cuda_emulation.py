@@ -1,11 +1,13 @@
 """Build a CUDA source of ``vidchapters_tpu_torch/csrc`` for the CPU: g++
 against ``tests/cuda_emulation/emu_rt.h`` (a stand-in for the CUDA runtime
 and the warp primitives: one OS thread per CUDA thread, the blocks of a grid
-one after another). The sources are used as they are, except that in
-``tensor_core.cuh`` the bodies of the functions holding inline PTX are
-replaced by their emulation, and launches ``k<<<...>>>(...)`` are rewritten
-as calls. ``emulated_kernel`` binds the library to a ``CudaKernel`` as the
-card's build would, so the wrappers' own launch code drives it."""
+one after another, or all at once for a cooperative launch). The sources are
+used as they are, except that the bodies of the functions holding inline PTX
+(in ``tensor_core.cuh``, and in the kernel's own source where it has them)
+are replaced by their emulation, launches ``k<<<...>>>(...)`` are rewritten
+as calls, and the dynamic shared memory is the running block's own buffer.
+``emulated_kernel`` binds the library to a ``CudaKernel`` as the card's
+build would, so the wrappers' own launch code drives it."""
 
 from __future__ import annotations
 
@@ -27,11 +29,16 @@ PTX_BODIES = {
     "ldsm_x4_t": "emu::ldmatrix(r, p, true);",
     "mma": "emu::mma(c, a, b0, b1);",
 }
+# functions of a kernel's own source that hold inline PTX, where it has them
+KERNEL_PTX_BODIES = {
+    "prefetch_l2": "(void)p;",
+    "global_ns": "return emu::now_ns();",
+}
 
 
 def replace_body(src: str, name: str, body: str) -> str:
     m = re.search(r"__device__ __forceinline__ [^\n]*\b%s\([^)]*\) \{" % name, src)
-    assert m, f"{name} not found in tensor_core.cuh"
+    assert m, f"{name} not found"
     depth, i = 1, m.end()
     while depth:
         depth += {"{": 1, "}": -1}.get(src[i], 0)
@@ -52,11 +59,14 @@ def emulated_library(name: str, out: Path) -> Path:
     for stub in ("cuda_runtime.h", "cuda_bf16.h", "math_constants.h"):
         (out / stub).write_text('#include "emu_rt.h"\n')
     src = (CSRC / f"{name}.cu").read_text()
+    for fn, body in KERNEL_PTX_BODIES.items():
+        if re.search(r"__device__ __forceinline__ [^\n]*\b%s\(" % fn, src):
+            src = replace_body(src, fn, body)
     src = re.sub(r"(\w+(?:<[^;<>]*>)?)\s*<<<(.*?)>>>\s*\(", r"vc_bind(\1, \2)(", src,
                  flags=re.S)
-    # the block's dynamic shared memory is emu_rt.h's static buffer
+    # the block's dynamic shared memory is the running block's buffer
     src = re.sub(r"extern __shared__ (?:__align__\(16\) )?(\w+(?: \w+)?) (\w+)\[\];",
-                 r"\1* \2 = (\1*)::\2;", src)
+                 r"\1* \2 = (\1*)emu::dyn_smem();", src)
     (out / f"{name}.cpp").write_text(src)
     res = subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-pthread",
                           "-I", str(out), "-I", str(EMU), "-o", str(lib),

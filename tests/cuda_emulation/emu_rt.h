@@ -1,25 +1,34 @@
 // A CPU stand-in for the CUDA runtime and warp primitives that the fused
-// attention, top-k and decode-attention kernels use, so that their sources
-// compile with g++ and run on the CPU in tests
+// attention, top-k, decode-attention and Whisper decode kernels use, so that
+// their sources compile with g++ and run on the CPU in tests
 // (tests/test_torch_fused_attention_emulated.py,
-// tests/test_torch_decode_kernels_emulated.py).
+// tests/test_torch_decode_kernels_emulated.py,
+// tests/test_torch_whisper_megakernel_emulated.py).
 //
-// Each CUDA thread is an OS thread; the blocks of a grid run one after
-// another, so a block that counts arrivals with atomics meets every other
-// block of the grid finished. __syncthreads is a barrier of the block's
-// threads; atomics are the compiler's, and __threadfence a full fence. The warp
-// collectives (shuffles, ldmatrix, mma.sync) post each lane's operands into
-// the warp's exchange buffer, meet at the warp's barrier, compute every
-// lane's result from all 32 posts by the PTX ISA's fragment layouts, and meet
-// again before the buffer is reused. cp.async copies at once; its groups
-// need no waiting. Shared memory is one static buffer, filled with 0xff
-// bytes before each block, as uninitialised memory would be.
+// Each CUDA thread is an OS thread. The blocks of a grid launched with <<<>>>
+// run one after another, so a block that counts arrivals with atomics meets
+// every other block of the grid finished. A cooperative launch
+// (cudaLaunchKernelEx with cudaLaunchAttributeCooperative) runs all its
+// blocks at once, as a grid barrier needs; the SM count it reads is
+// $EMU_SM_COUNT (default 2). Each block has its own blockIdx, warps, block
+// barrier and dynamic shared memory; a static __shared__ array is one object
+// for the whole grid, so a cooperative kernel keeps its shared memory
+// dynamic. __syncthreads is a barrier of the block's threads; atomics are the
+// compiler's, and __threadfence a full fence. The warp collectives (shuffles,
+// ldmatrix, mma.sync) post each lane's operands into the warp's exchange
+// buffer, meet at the warp's barrier, compute every lane's result from all
+// 32 posts by the PTX ISA's fragment layouts, and meet again before the
+// buffer is reused. cp.async copies at once; its groups need no waiting.
+// Dynamic shared memory is filled with 0xff bytes before each block, as
+// uninitialised memory would be.
 #pragma once
 #include <algorithm>
 #include <atomic>
 #include <barrier>
+#include <chrono>
 #include <cmath>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <memory>
 #include <thread>
@@ -30,6 +39,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 // a static __shared__ array is one object for all threads: the block that runs owns it
 #define __shared__ static
 #define __restrict__
@@ -43,17 +53,47 @@ struct dim3 {
 };
 struct uint3 { unsigned x, y, z; };
 inline thread_local uint3 threadIdx;
-inline uint3 blockIdx;
+inline thread_local uint3 blockIdx;
 inline dim3 blockDim, gridDim;
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9,
+       cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+enum cudaLaunchAttributeID { cudaLaunchAttributeCooperative = 2 };
+struct cudaLaunchAttributeValue { int cooperative; };
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  cudaLaunchAttributeValue val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
 template <class T> cudaError_t cudaFuncSetAttribute(T, int, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return 0;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  const char* s = std::getenv("EMU_SM_COUNT");
+  *v = s != nullptr ? std::atoi(s) : 2;
+  return 0;
+}
+template <class K>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t) {
+  *n = 1;
+  return 0;
+}
 
 struct float2 { float x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
+struct uint2 { unsigned x, y; };
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
@@ -63,23 +103,39 @@ inline float __uint_as_float(unsigned u) {
   std::memcpy(&f, &u, 4);
   return f;
 }
+// byte n of the result is byte (s >> 4n) & 7 of the 8 bytes {y, x}, x first
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const uint64_t v = ((uint64_t)y << 32) | x;
+  unsigned r = 0;
+  for (int n = 0; n < 4; ++n) r |= (unsigned)((v >> (8 * ((s >> (4 * n)) & 7))) & 0xff) << (8 * n);
+  return r;
+}
+inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
+using std::max;
 using std::min;
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 
-// the dynamic shared memory of the block that runs (227 KB, the H100's most)
-alignas(16) inline unsigned char smem_raw[232448];
-alignas(16) inline float smem[232448 / 4];
-
 namespace emu {
+constexpr size_t SMEM_BYTES = 232448;  // a block's dynamic shared memory, the H100's most
 struct Warp {
   std::unique_ptr<std::barrier<>> bar;
   alignas(16) unsigned char buf[32][128];
 };
-inline std::vector<Warp> warps;
-inline std::unique_ptr<std::barrier<>> block_bar;
+struct Block {
+  std::vector<Warp> warps;
+  std::unique_ptr<std::barrier<>> bar;
+  std::unique_ptr<unsigned char[]> smem;  // operator new[]: 16-byte aligned
+};
+inline thread_local Block* block;
 inline int lane() { return threadIdx.x & 31; }
-inline Warp& warp() { return warps[threadIdx.x >> 5]; }
+inline Warp& warp() { return block->warps[threadIdx.x >> 5]; }
+inline unsigned char* dyn_smem() { return block->smem.get(); }
+inline unsigned long long now_ns() {
+  return (unsigned long long)std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
 template <class T> inline void post(const T& v) {
   static_assert(sizeof(T) <= 128, "post");
   std::memcpy(warp().buf[lane()], &v, sizeof(T));
@@ -93,7 +149,7 @@ template <class T> inline T at(int l) {
 }
 }  // namespace emu
 
-inline void __syncthreads() { emu::block_bar->arrive_and_wait(); }
+inline void __syncthreads() { emu::block->bar->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { emu::warp().bar->arrive_and_wait(); }
 template <class T> inline T __shfl_xor_sync(unsigned, T v, int o) {
   emu::post(v);
@@ -109,7 +165,15 @@ template <class T> inline T __shfl_sync(unsigned, T v, int src) {
 }
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline unsigned atomicExch(unsigned* p, unsigned v) {
+  return __atomic_exchange_n(p, v, __ATOMIC_SEQ_CST);
+}
+inline void __nanosleep(unsigned) { std::this_thread::yield(); }
 template <class T> inline T __ldcg(const T* p) { return *p; }
+template <class T> inline T __ldg(const T* p) { return *p; }
 inline size_t __cvta_generic_to_shared(const void*) { return 0; }
 
 struct __nv_bfloat16 { unsigned short x; };
@@ -185,27 +249,42 @@ inline void mma(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
     c[e] = s;
   }
 }
-template <class F> void run_grid(dim3 g, dim3 b, F f) {
+inline std::unique_ptr<Block> new_block(int nt) {
+  auto b = std::make_unique<Block>();
+  b->warps = std::vector<Warp>((nt + 31) / 32);
+  for (auto& w : b->warps) w.bar = std::make_unique<std::barrier<>>(32);
+  b->bar = std::make_unique<std::barrier<>>(nt);
+  b->smem.reset(new unsigned char[SMEM_BYTES]);
+  std::memset(b->smem.get(), 0xff, SMEM_BYTES);
+  return b;
+}
+// The blocks of grid g one after another, or all at once when `together`.
+template <class F> void run_grid(dim3 g, dim3 b, F f, bool together = false) {
   gridDim = g;
   blockDim = b;
   const int nt = b.x * b.y * b.z;
+  std::vector<uint3> ids;
   for (unsigned z = 0; z < g.z; ++z)
     for (unsigned y = 0; y < g.y; ++y)
-      for (unsigned x = 0; x < g.x; ++x) {
-        blockIdx = {x, y, z};
-        warps = std::vector<Warp>((nt + 31) / 32);
-        for (auto& w : warps) w.bar = std::make_unique<std::barrier<>>(32);
-        block_bar = std::make_unique<std::barrier<>>(nt);
-        std::memset(smem_raw, 0xff, sizeof(smem_raw));
-        std::memset(smem, 0xff, sizeof(smem));
-        std::vector<std::thread> threads;
-        for (int i = 0; i < nt; ++i)
-          threads.emplace_back([&, i] {
-            threadIdx = {(unsigned)i, 0, 0};
-            f();
-          });
-        for (auto& th : threads) th.join();
-      }
+      for (unsigned x = 0; x < g.x; ++x) ids.push_back({x, y, z});
+  const size_t wave = together ? ids.size() : 1;
+  for (size_t i0 = 0; i0 < ids.size(); i0 += wave) {
+    std::vector<std::unique_ptr<Block>> blocks;
+    std::vector<std::thread> threads;
+    for (size_t i = i0; i < i0 + wave; ++i) {
+      blocks.push_back(new_block(nt));
+      Block* blk = blocks.back().get();
+      const uint3 id = ids[i];
+      for (int t = 0; t < nt; ++t)
+        threads.emplace_back([&f, blk, id, t] {
+          block = blk;
+          blockIdx = id;
+          threadIdx = {(unsigned)t, 0, 0};
+          f();
+        });
+    }
+    for (auto& th : threads) th.join();
+  }
 }
 }  // namespace emu
 
@@ -213,4 +292,14 @@ template <class F> void run_grid(dim3 g, dim3 b, F f) {
 // vc_bind(kern, grid, block, smem, stream)(args)
 template <class K> auto vc_bind(K kern, dim3 g, dim3 b, size_t = 0, void* = nullptr) {
   return [=](auto... args) { emu::run_grid(g, b, [=]() { kern(args...); }); };
+}
+
+template <class... P, class... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kern)(P...), A... args) {
+  bool coop = false;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    coop = coop || (cfg->attrs[i].id == cudaLaunchAttributeCooperative &&
+                    cfg->attrs[i].val.cooperative != 0);
+  emu::run_grid(cfg->gridDim, cfg->blockDim, [&]() { kern(args...); }, coop);
+  return 0;
 }

@@ -276,19 +276,20 @@ def test_deformable_attention_launches_or_raises():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant", [False, True])
-@pytest.mark.parametrize("group", [1, 5])
+@pytest.mark.parametrize("b0,group", [(3, 1), (2, 5), (10, 5)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_whisper_megakernel_matches_plain(dtype, group, quant):
+def test_whisper_megakernel_matches_plain(dtype, b0, group, quant):
     """The Whisper decode kernel at 2 layers, d 256, 4 heads, d_ff 512, L 16
-    and 40 encoder frames: hidden and k/v new within 1e-4 of the plain
-    version's largest element in fp32 (bf16: 5e-2 of it), row idx the new
-    k/v, the permuted rows exact, one launch per call."""
+    and 40 encoder frames, greedy at 3 rows and beam at 2 x 5 and 10 x 5 (50
+    rows: more than the 48 of one product pass): hidden and k/v new within
+    1e-4 of the plain version's largest element in fp32 (bf16: 5e-2 of it),
+    row idx the new k/v, the permuted rows exact, one launch per call, and a
+    second call bit-identical to the first."""
     require_cuda()
     from chip_smoke import WHISPER_TOL, _whisper_step_inputs
     from vidchapters_tpu_torch.ops import whisper_megakernel as wm
 
     g = torch.Generator(device="cuda").manual_seed(1)
-    b0 = 3 if group == 1 else 2
     st, x, kc, vc, ((kx, ks), (vx, vs)), src = _whisper_step_inputs(
         g, b0, group, dtype, quant, n=2, d=256, dff=512, length=16, lenc=40)
     for idx in (0, 7, 15):
@@ -309,6 +310,12 @@ def test_whisper_megakernel_matches_plain(dtype, group, quant):
         if src is not None:
             assert torch.equal(got[3][:, :, :idx], ref[3][:, :, :idx])
             assert torch.equal(got[4][:, :, :idx], ref[4][:, :, :idx])
+        again = wm.whisper_mega_step(st, x, kc.clone(), vc.clone(), kx, vx, idx, 4, 40, ks, vs,
+                                     group, src)
+        assert all(torch.equal(a, b) for a, b in zip(again[:3], got[:3]))
+        if src is not None:  # rows past idx of the new caches are never written
+            assert all(torch.equal(a[:, :, :idx + 1], b[:, :, :idx + 1])
+                       for a, b in zip(again[3:], got[3:]))
 
 
 @pytest.mark.cuda

@@ -32,7 +32,11 @@ NEG_INF = -1e9
 MAX_GROUP = 8  # beams per example the kernel takes
 
 KERNEL = CudaKernel("whisper_megakernel", {
-    "whisper_mega_step": [P] * 30 + [I] * 13 + [P]})
+    "whisper_mega_step": [P] * 30 + [I] * 13 + [P],
+    "whisper_mega_workspace": [I] * 11,
+    "whisper_mega_barriers": [P, P, I, P]})
+PHASES = 9  # grid barriers a layer: q|k|v, self-attention, self out, cross q,
+#             cross scores, cross p.v, cross out, fc1, fc2
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _WEIGHTS = ("wqkv", "wo_self", "wq_cross", "wo_cross", "wi", "wo_ff")
@@ -174,10 +178,10 @@ def whisper_mega_step(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
     new k/v; the kernel writes their rows up to ``cache_index`` only. Then
     the result also carries those two buffers.
 
-    ``timeline`` (CUDA only; an int64 tensor of ``8 N + 2`` slots) receives
+    ``timeline`` (CUDA only; an int64 tensor of ``9 N + 2`` slots) receives
     the device clock in ns at the kernel's start, after its set-up, and at
-    the end of each of a layer's 8 phases (q|k|v, self-attention, its
-    output, cross q, cross-attention, its output, fc1, fc2).
+    the end of each of a layer's 9 phases (q|k|v, self-attention, its
+    output, cross q, cross scores, cross p.v, its output, fc1, fc2).
     """
     if x.device.type == "cpu":
         return whisper_mega_step_plain(stacked, x, k_cache, v_cache, k_cross, v_cross,
@@ -224,12 +228,6 @@ def whisper_mega_step(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
     for wn, bn in zip(_WEIGHTS, _BIASES):
         _check(wn, stacked[wn], (n_layers, outs[wn], ins[wn]), cdt)
         _check(bn, stacked[bn], (n_layers, 1, outs[wn]), torch.float32)
-    hidden = torch.empty(bsz, d, dtype=cdt, device=x.device)
-    k_new = torch.empty(bsz, n_layers, inner, dtype=cdt, device=x.device)
-    v_new = torch.empty_like(k_new)
-    # residual, q, context and FF hidden rows; then the grid barrier's state
-    ws = torch.empty(bsz * (d + 2 * inner + dff), dtype=torch.float32, device=x.device)
-    barrier = torch.zeros(2, dtype=torch.int32, device=x.device)
     if src is not None:
         _check("src", src, (bsz,), torch.int32)
         if out_caches is None:
@@ -242,7 +240,38 @@ def whisper_mega_step(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
     else:
         k_att, v_att = k_cache, v_cache
     if timeline is not None:
-        _check("timeline", timeline, (8 * n_layers + 2,), torch.int64)
+        _check("timeline", timeline, (PHASES * n_layers + 2,), torch.int64)
+    hidden, k_new, v_new = _launch_step(stacked, x, k_cache, v_cache, k_att, v_att, k_cross,
+                                        v_cross, idx, heads, lenc, k_cross_scale,
+                                        v_cross_scale, group, src, timeline)
+    if src is None:
+        return hidden, k_new, v_new
+    return hidden, k_new, v_new, k_att, v_att
+
+
+def _launch_step(stacked, x, k_cache, v_cache, k_att, v_att, k_cross, v_cross, idx: int,
+                 heads: int, lenc: int, k_cross_scale, v_cross_scale, group: int, src,
+                 timeline) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Allocate the outputs and the kernel's scratch on x's device and launch
+    (shapes already checked). Returns (hidden, k_new, v_new)."""
+    cdt = x.dtype
+    bsz, d = x.shape
+    _, n_layers, length, inner = k_cache.shape
+    lencp = k_cross.shape[2]
+    dff = stacked["wi"].shape[1]
+    quant = k_cross_scale is not None
+    hidden = torch.empty(bsz, d, dtype=cdt, device=x.device)
+    k_new = torch.empty(bsz, n_layers, inner, dtype=cdt, device=x.device)
+    v_new = torch.empty_like(k_new)
+    # the kernel's scratch (residual, q, context, FF rows, partial sums,
+    # scores) and its grid barrier and arrival counters, as it sizes them
+    sizes = [KERNEL._load().whisper_mega_workspace(bsz, length, lencp, lenc, d, inner, heads,
+                                                   dff, group, _DTYPE_CODE[cdt], which)
+             for which in (0, 1)]
+    if min(sizes) < 0:
+        raise ValueError(f"whisper_mega_step: no workspace for {bsz} rows at d {d}, d_ff {dff}")
+    ws = torch.empty(sizes[0], dtype=torch.float32, device=x.device)
+    barrier = torch.zeros(sizes[1], dtype=torch.int32, device=x.device)
     KERNEL.launch(
         "whisper_mega_step", x.data_ptr(), stacked["ln_scale"].data_ptr(),
         stacked["ln_bias"].data_ptr(),
@@ -253,11 +282,22 @@ def whisper_mega_step(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
         k_cross_scale.data_ptr() if quant else 0, v_cross_scale.data_ptr() if quant else 0,
         0 if src is None else src.data_ptr(), hidden.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), ws.data_ptr(), barrier.data_ptr(),
-        0 if timeline is None else timeline.data_ptr(), bsz, n_layers, length, lencp, lenc, d, inner, heads, dff, group, idx,
-        _DTYPE_CODE[cdt], int(quant), stream_ptr())
-    if src is None:
-        return hidden, k_new, v_new
-    return hidden, k_new, v_new, k_att, v_att
+        0 if timeline is None else timeline.data_ptr(), bsz, n_layers, length, lencp, lenc, d,
+        inner, heads, dff, group, idx, _DTYPE_CODE[cdt], int(quant), stream_ptr())
+    return hidden, k_new, v_new
+
+
+def barrier_step(n_barriers: int) -> torch.Tensor:
+    """The kernel's grid barriers alone: ``n_barriers`` of them on the same
+    cooperative grid, nothing else (CUDA only). Returns the device clock in
+    ns at the start and after each barrier (``n_barriers + 1`` int64)."""
+    bar = torch.zeros(1, dtype=torch.int32, device="cuda")
+    timeline = torch.zeros(n_barriers + 1, dtype=torch.int64, device="cuda")
+    rc = KERNEL._load().whisper_mega_barriers(bar.data_ptr(), timeline.data_ptr(),
+                                              n_barriers, stream_ptr())
+    if rc != 0:
+        raise RuntimeError(f"whisper_mega_barriers failed to launch: cudaError_t {rc}")
+    return timeline
 
 
 # ---------------------------------------------------------------------------
