@@ -22,6 +22,14 @@
    width, bf16, int8 cross K/V, idx 111, at 8 x 1, 2 x 5 and 8 x 5 rows,
    each tree timed in its own process, in turns DIR, this, this, DIR.
 
+    python3 chip_kernel_parts.py --t5-ab DIR
+
+4. The T5 decode kernel of this tree against the one of another checkout
+   DIR, the same way: device time by CUDA-graph replay at chip_smoke's
+   full-width inputs (T5-base decoder, 12 layers, bf16, idx 128), at 8 x 4
+   (serving), 8 x 1 (greedy) and 2 x 4 rows, each tree timed in its own
+   process, in turns DIR, this, this, DIR.
+
 Prints one JSON object; needs the card (exits 1 without one).
 """
 
@@ -61,18 +69,60 @@ def whisper_times(root: str) -> dict:
     return out
 
 
-def whisper_ab(other: str) -> dict:
-    """whisper_times of ``other`` and of this tree, each in a process of its
-    own, in turns other, this, this, other."""
+T5_FORMS = ((8, 4), (8, 1), (2, 4))
+
+
+def t5_times(root: str) -> dict:
+    """Device ms of the T5 decode kernel of the checkout at ``root`` (its
+    own chip_smoke inputs and wrapper; the kernel's weight layout where its
+    wrapper has one) at each of T5_FORMS, bf16, idx 128: the first g beams
+    of the first b0 examples of the 8 x 4 inputs, with their permutation
+    (one beam: greedy, none)."""
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(root).resolve()))
+    import torch
+
+    import chip_smoke as cs
+    from vidchapters_tpu_torch.ops import decode_megakernel as dm
+
+    assert Path(cs.__file__).resolve().parent == Path(root).resolve(), cs.__file__
+    gen = cs.serving_checks_generator()
+    torch.randn(8, 4 * 32200, generator=gen)  # check_topk's draw: the same inputs as the smoke
+    stacked, x, kc, vc, kx, vx, bias_all, mask, src = cs.megakernel_inputs(gen)
+    full, heads, dt, idx = cs.MEGA_SHAPE["g"], cs.MEGA_SHAPE["heads"], torch.bfloat16, 128
+    st = {k: (v.cuda() if k in ("ln", "final_ln") else v.to("cuda", dt))
+          for k, v in stacked.items()}
+    if hasattr(dm, "with_kernel_layout"):
+        st = dm.with_kernel_layout(st)
+    br, b0b = bias_all[idx].cuda(), bias_all[0, :1].cuda().contiguous()
+    out = {}
+    for b0, g in T5_FORMS:
+        rows = [e * full + j for e in range(b0) for j in range(g)]
+        xx, kk, vv = (t[rows].to("cuda", dt) for t in (x, kc, vc))
+        kxx, vxx, m = kx[:b0].to("cuda", dt), vx[:b0].to("cuda", dt), mask[:b0].cuda()
+        s = src[rows].cuda() if g > 1 else None
+        outs = (torch.empty_like(kk), torch.empty_like(vv)) if s is not None else None
+        out[f"{b0}x{g}"] = cs.time_ms_graph(
+            lambda: dm.mega_decode_step(st, xx, kk, vv, kxx, vxx, br, b0b, m, idx, g, heads,
+                                        src=s, out_caches=outs), 10, 3)
+        del xx, kk, vv, kxx, vxx, outs
+        torch.cuda.empty_cache()
+    return out
+
+
+def ab(other: str, what: str) -> dict:
+    """``what`` ("whisper" or "t5") times of ``other`` and of this tree,
+    each in a process of its own, in turns other, this, this, other."""
     from pathlib import Path
 
     here = str(Path(__file__).resolve().parent)
     runs = []
     for root in (other, here, here, other):
-        res = subprocess.run([sys.executable, __file__, "--whisper-times", root],
+        res = subprocess.run([sys.executable, __file__, f"--{what}-times", root],
                              capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
-            raise RuntimeError(f"whisper times of {root} failed: {res.stderr[-2000:]}")
+            raise RuntimeError(f"{what} times of {root} failed: {res.stderr[-2000:]}")
         runs.append({"tree": "other" if root == other else "this",
                      **json.loads(res.stdout.strip().splitlines()[-1])})
     return {"other": str(other), "runs": runs}
@@ -84,13 +134,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: CUDA is not available; this script measures on a GPU", flush=True)
         return 1
-    if len(sys.argv) == 3 and sys.argv[1] == "--whisper-times":
-        print(json.dumps(whisper_times(sys.argv[2])), flush=True)
+    if len(sys.argv) == 3 and sys.argv[1] in ("--whisper-times", "--t5-times"):
+        fn = whisper_times if sys.argv[1] == "--whisper-times" else t5_times
+        print(json.dumps(fn(sys.argv[2])), flush=True)
         return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
-    if len(sys.argv) == 3 and sys.argv[1] == "--whisper-ab":
-        print(json.dumps({"card": card, "whisper_ab_ms": whisper_ab(sys.argv[2])}, indent=1),
+    if len(sys.argv) == 3 and sys.argv[1] in ("--whisper-ab", "--t5-ab"):
+        what = sys.argv[1][2:-3]
+        print(json.dumps({"card": card, f"{what}_ab_ms": ab(sys.argv[2], what)}, indent=1),
               flush=True)
         return 0
     import chip_smoke as cs
@@ -106,6 +158,8 @@ def main() -> int:
     def on(dev):
         st = {k: (v.to(dev) if k in ("ln", "final_ln") else v.to(dev, dt))
               for k, v in stacked.items()}
+        if dev == "cuda":
+            st = dm.with_kernel_layout(st)
         return st, [t.to(dev, dt) for t in (x, kc, vc, kx, vx)], mask.to(dev), src.to(dev)
 
     card_in, cpu_in = on("cuda"), on("cpu")

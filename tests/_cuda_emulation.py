@@ -13,7 +13,6 @@ from __future__ import annotations
 
 import ctypes
 import re
-import shutil
 import subprocess
 from pathlib import Path
 
@@ -29,7 +28,8 @@ PTX_BODIES = {
     "ldsm_x4_t": "emu::ldmatrix(r, p, true);",
     "mma": "emu::mma(c, a, b0, b1);",
 }
-# functions of a kernel's own source that hold inline PTX, where it has them
+# functions of a kernel's own source or of a shared header (other than
+# tensor_core.cuh) that hold inline PTX, where they have them
 KERNEL_PTX_BODIES = {
     "prefetch_l2": "(void)p;",
     "global_ns": "return emu::now_ns();",
@@ -46,6 +46,14 @@ def replace_body(src: str, name: str, body: str) -> str:
     return src[:m.end()] + "\n  " + body + "\n}" + src[i:]
 
 
+def _kernel_ptx(src: str) -> str:
+    """``src`` with the bodies of its KERNEL_PTX_BODIES functions emulated."""
+    for fn, body in KERNEL_PTX_BODIES.items():
+        if re.search(r"__device__ __forceinline__ [^\n]*\b%s\(" % fn, src):
+            src = replace_body(src, fn, body)
+    return src
+
+
 def emulated_library(name: str, out: Path) -> Path:
     """``csrc/<name>.cu`` built for the CPU into ``out`` (once)."""
     lib = out / f"lib{name}.so"
@@ -55,13 +63,12 @@ def emulated_library(name: str, out: Path) -> Path:
     for fn, body in PTX_BODIES.items():
         header = replace_body(header, fn, body)
     (out / "tensor_core.cuh").write_text('#include "emu_rt.h"\n' + header)
-    shutil.copy(CSRC / "common.cuh", out / "common.cuh")
+    for other in CSRC.glob("*.cuh"):
+        if other.name != "tensor_core.cuh":
+            (out / other.name).write_text(_kernel_ptx(other.read_text()))
     for stub in ("cuda_runtime.h", "cuda_bf16.h", "math_constants.h"):
         (out / stub).write_text('#include "emu_rt.h"\n')
-    src = (CSRC / f"{name}.cu").read_text()
-    for fn, body in KERNEL_PTX_BODIES.items():
-        if re.search(r"__device__ __forceinline__ [^\n]*\b%s\(" % fn, src):
-            src = replace_body(src, fn, body)
+    src = _kernel_ptx((CSRC / f"{name}.cu").read_text())
     src = re.sub(r"(\w+(?:<[^;<>]*>)?)\s*<<<(.*?)>>>\s*\(", r"vc_bind(\1, \2)(", src,
                  flags=re.S)
     # the block's dynamic shared memory is the running block's buffer

@@ -1,9 +1,7 @@
 // A CPU stand-in for the CUDA runtime and warp primitives that the fused
-// attention, top-k, decode-attention and Whisper decode kernels use, so that
-// their sources compile with g++ and run on the CPU in tests
-// (tests/test_torch_fused_attention_emulated.py,
-// tests/test_torch_decode_kernels_emulated.py,
-// tests/test_torch_whisper_megakernel_emulated.py).
+// attention, top-k, decode-attention, Whisper and T5 decode kernels use, so
+// that their sources compile with g++ and run on the CPU in tests
+// (tests/test_torch_*_emulated.py).
 //
 // Each CUDA thread is an OS thread. The blocks of a grid launched with <<<>>>
 // run one after another, so a block that counts arrivals with atomics meets
@@ -94,8 +92,10 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, K, int, size_t
 struct float2 { float x, y; };
 struct alignas(16) float4 { float x, y, z, w; };
 struct uint2 { unsigned x, y; };
+struct int2 { int x, y; };
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
+inline int2 make_int2(int a, int b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) { return {a, b, c, d}; }
 inline float __uint_as_float(unsigned u) {

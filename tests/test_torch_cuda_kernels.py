@@ -82,7 +82,8 @@ def test_decode_megakernel_matches_plain(dtype, idx, gated):
           "wqkv": w(n, d, 3 * d), "wo_self": w(n, d, d), "wq_cross": w(n, d, d),
           "wo_cross": w(n, d, d), "wi": w(n, d, 2 * dff if gated else dff),
           "wo_ff": w(n, dff, d), "final_ln": 1.0 + 0.1 * torch.randn(1, d, generator=g)}
-    st = {k: (v.cuda() if k in ("ln", "final_ln") else v.to("cuda", dtype)) for k, v in st.items()}
+    st = dm.with_kernel_layout(
+        {k: (v.cuda() if k in ("ln", "final_ln") else v.to("cuda", dtype)) for k, v in st.items()})
     rows = b0 * grp
     x, kc, vc = (torch.randn(*s, generator=g).to("cuda", dtype)
                  for s in ((rows, d), (rows, n, length, d), (rows, n, length, d)))
@@ -110,6 +111,52 @@ def test_decode_megakernel_matches_plain(dtype, idx, gated):
     assert torch.equal(kc2[:, :, idx], k_new)
     ref_hid = dm.mega_decode_step_plain(st, x, kc.clone(), vc.clone(), *args[3:], gated=gated)[0]
     assert within(hid, ref_hid, decode_kernel_tol(ref_hid, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["greedy", "beam", "gated", "long", "passes"])
+def test_decode_megakernel_forms_match_plain(dtype, form):
+    """The emulated test's forms on the card (chip_smoke.MEGA_TEST_FORMS):
+    greedy in place, beam ping-pong, gated, 1500 encoder keys split over
+    blocks, 56 rows in two product passes; masks that end inside a tile,
+    hold a hole, or leave no key; a second launch bit-identical; the
+    counters left at 0."""
+    require_cuda()
+    from chip_smoke import (MEGA_TEST_FORMS, MEGA_TEST_L, decode_kernel_tol, mega_step_inputs,
+                            within)
+    from vidchapters_tpu_torch.ops import _build
+    from vidchapters_tpu_torch.ops import decode_megakernel as dm
+
+    b0, group, heads, dff, lenc, _, gated, indices = MEGA_TEST_FORMS[form]
+    gen = torch.Generator().manual_seed(b0 * 10 + group + lenc)
+    st, *ts, src = mega_step_inputs(gen, b0, group, heads, dff, lenc, gated, dtype)
+    st = {k: ({kk: vv.cuda() for kk, vv in v.items()} if k == "kernel" else v.cuda())
+          for k, v in st.items()}
+    x, kc, vc, kx, vx, bias_row, bias0, mask = (t.cuda() for t in ts)
+    src = None if src is None else src.cuda()
+    for idx in list(indices) + [0, MEGA_TEST_L - 1]:
+        args = (kx, vx, bias_row, bias0, mask, idx, group, heads)
+        k_in, v_in = kc.clone(), vc.clone()
+        got = dm.mega_decode_step(st, x, k_in, v_in, *args, src=src, gated=gated)
+        ref = dm.mega_decode_step_plain(st, x, kc.clone(), vc.clone(), *args, src=src,
+                                        gated=gated)
+        again = dm.mega_decode_step(st, x, kc.clone(), vc.clone(), *args, src=src, gated=gated)
+        torch.cuda.synchronize()
+        for a, r in zip(got[:3], ref[:3]):
+            assert within(a, r, decode_kernel_tol(r, dtype))
+        for a, b in zip(got[:3], again[:3]):
+            assert torch.equal(a, b)
+        caches = got[3:] if src is not None else (k_in, v_in)
+        for c_got, new in zip(caches, got[1:3]):
+            assert torch.equal(c_got[:, :, idx], new)
+        if src is not None:
+            for a, r in zip(got[3:], ref[3:]):
+                assert torch.equal(a[:, :, :idx], r[:, :, :idx])
+        else:
+            keep = [i for i in range(MEGA_TEST_L) if i != idx]
+            assert torch.equal(k_in[:, :, keep], kc[:, :, keep])
+    assert not _build.arrival_counters(x.device, 1).any()  # the kernel left them at 0
 
 
 def _attention_case(dtype, bias: bool, lq: int = 304, lk: int = 384):
@@ -362,6 +409,26 @@ def test_probes_match_known_answers():
     assert probes.KERNEL.launches == before + len(probes.PROBES) + 1 + 20
     assert all(r["ok"] for r in out.values()), out
     assert out["grid_cell_overhead"]["us_per_cell"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_i,n_b,d", [(12, 8, 768), (3, 5, 198)])
+def test_grid_cells_probe_matches_known_answer_and_plain(n_i, n_b, d):
+    """p7 at the probe's (12 x 8) grid of [8, 768] . [768, 768] and at a
+    smaller odd one: ones give d exactly; random inputs equal the plain
+    version to fp32 rounding (the sums are taken in another order)."""
+    require_cuda()
+    from vidchapters_tpu_torch.ops import probes
+
+    ones = probes.grid_cells(torch.ones(n_i * n_b, 8, d, device="cuda"),
+                             torch.ones(n_i, d, d, device="cuda"))
+    assert torch.equal(ones.cpu(), torch.full((n_i * n_b, 8, d), float(d)))
+    g = _gen()
+    x = torch.randn(n_i * n_b, 8, d, generator=g)
+    w = torch.randn(n_i, d, d, generator=g) * d ** -0.5
+    ref = probes.grid_cells_plain(x, w)  # on the CPU
+    got = probes.grid_cells(x.cuda(), w.cuda()).cpu()
+    assert (got - ref).abs().max().item() <= 1e-5
 
 
 def _bf16_grad_tol(ref) -> float:

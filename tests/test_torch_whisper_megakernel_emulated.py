@@ -17,7 +17,9 @@ tensor-core products) at d_ff 2304 on 6 SMs, where fc2's k is split over 2
 blocks and merged by the last to arrive; and one example x 5 beams over
 1500 frames on 4 SMs, where each (example, head)'s keys are split over 2
 blocks and merged likewise; and 10 x 5 beams (50 rows), above the 48 rows
-of one product pass, so every product runs in two passes. Timing and nvcc's own code are the card's to show
+of one product pass, so every product runs in two passes. The beam form's
+cases are in test_torch_whisper_megakernel_beam_emulated.py (the two files
+take about the same time). Timing and nvcc's own code are the card's to show
 (test_torch_cuda_kernels.py, chip_smoke.py). Skipped where there is no g++.
 """
 
@@ -67,14 +69,18 @@ def _launch(st, x, kc, vc, cross, src, idx, group, lenc):
 
 
 @pytest.mark.parametrize("dtype,quant,form", [
-    (torch.float32, True, "greedy"), (torch.float32, True, "beam"),
-    (torch.float32, False, "greedy"), (torch.float32, False, "beam"),
-    (torch.bfloat16, True, "greedy"), (torch.bfloat16, True, "beam"),
-    (torch.bfloat16, False, "greedy"), (torch.bfloat16, False, "beam"),
+    (torch.float32, True, "greedy"), (torch.float32, False, "greedy"),
+    (torch.bfloat16, True, "greedy"), (torch.bfloat16, False, "greedy"),
     (torch.bfloat16, True, "long"), (torch.float32, False, "long"),
     (torch.bfloat16, True, "passes"),
 ])
 def test_whisper_kernel_matches_plain(kernel, monkeypatch, dtype, quant, form):
+    check_form(kernel, monkeypatch, dtype, quant, form)
+
+
+def check_form(kernel, monkeypatch, dtype, quant, form):
+    """One form against the plain version at cache indices 0 and 7, and a
+    second launch bit-identical."""
     b0, group, dff, lenc, sms = FORMS[form]
     monkeypatch.setenv("EMU_SM_COUNT", str(sms))
     gen = torch.Generator().manual_seed(b0 * 10 + group + 2 * quant)

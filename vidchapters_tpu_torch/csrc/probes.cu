@@ -15,9 +15,12 @@
 //   probe_block_sum     p5: c [G, R, P, Q, S] bf16; out [R] = sum over P and Q
 //                           of c[G-1][r][p][q][0] (the last cell's block wins)
 //   probe_lane_slice    p6: out [R, 64] = x[:, 64:128]
-//   probe_grid_cells    p7: one block per cell of a (12 x 8) grid, each one
-//                           [8, 768] . [768, 768] float32 product with the
-//                           weight of its row of cells (timed per cell)
+//   probe_grid_cells    p7: a (12 x 8) grid of cells, each one [8, 768] .
+//                           [768, 768] float32 product with the weight of its
+//                           row of cells (timed per cell); the 8 cells of a
+//                           row share their weight, so a block takes 64 rows
+//                           (all 8 cells) x 32 columns of one weight, and
+//                           every weight element is read once
 //
 // Every probe is bound by launch latency at these shapes (a few KB to a few
 // MB); what each checks is that the build and the launch work and that the
@@ -91,21 +94,91 @@ __global__ void lane_slice(const float* x, float* out, int R, int C) {
   out[i] = x[(long)(i / 64) * C + 64 + i % 64];
 }
 
-// Cell (i, b): out[i * NB + b] = x[i * NB + b] [8, D] . w[i] [D, D]; threads
-// take output columns, the 8 rows are held in registers.
-__global__ void grid_cells(const float* x, const float* w, float* out, int NB, int D) {
-  const int cell = blockIdx.x, i = cell / NB;
-  const float* xc = x + (long)cell * 8 * D;
+// p7: cells (i, b) of weight i are rows [i R, (i + 1) R) of x viewed [NI R,
+// D], R = 8 NB: out = x_i [R, D] . w[i] [D, D] in float32 on the CUDA cores.
+// A block takes a G7R x G7C tile of one weight's output (grid: column tiles,
+// row tiles, weights) and walks k in chunks of G7K: x's rows staged k-major
+// (so a thread reads its 4 rows as one float4) and w's columns row-major in
+// shared memory, zeros past the ends; the next chunk's loads are issued into
+// registers before the current chunk's products. A thread holds a 4 x 4
+// register tile and adds its products in k order with fmaf. VEC: D a
+// multiple of 4, every load 16 bytes.
+constexpr int G7R = 32, G7C = 32, G7K = 32, G7T = 64;
+constexpr int G7XL = G7R * G7K / 4 / G7T;  // 16-byte loads of x a thread makes a chunk
+constexpr int G7WL = G7K * G7C / 4 / G7T;  // and of w
+
+template <bool VEC>
+__device__ __forceinline__ float4 load4(const float* p, int col, int D) {
+  if (VEC) return col < D ? __ldg(reinterpret_cast<const float4*>(p)) : make_float4(0.f, 0.f, 0.f, 0.f);
+  return make_float4(col < D ? __ldg(p) : 0.f, col + 1 < D ? __ldg(p + 1) : 0.f,
+                     col + 2 < D ? __ldg(p + 2) : 0.f, col + 3 < D ? __ldg(p + 3) : 0.f);
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(G7T) grid_cells(const float* x, const float* w, float* out,
+                                                  int R, int D) {
+  __shared__ __align__(16) float xs[G7K][G7R + 4];  // [k][row]; 4 floats of padding
+  __shared__ __align__(16) float ws[G7K][G7C];      // [k][column]
+  const int c0 = blockIdx.x * G7C, r0 = blockIdx.y * G7R, i = blockIdx.z;
+  const int tid = threadIdx.x, ty = tid / (G7C / 4), tx = tid % (G7C / 4);
+  const float* xi = x + (long)i * R * D;
   const float* wi = w + (long)i * D * D;
-  for (int o = threadIdx.x; o < D; o += blockDim.x) {
-    float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int k = 0; k < D; ++k) {
-      const float wv = __ldg(wi + (long)k * D + o);
+  float4 xr[G7XL], wr[G7WL];
+  auto fetch = [&](int k0) {
 #pragma unroll
-      for (int r = 0; r < 8; ++r) acc[r] = fmaf(__ldg(xc + r * D + k), wv, acc[r]);
+    for (int l = 0; l < G7XL; ++l) {
+      const int e = tid + l * G7T, r = e / (G7K / 4), k = k0 + 4 * (e % (G7K / 4));
+      xr[l] = r0 + r < R ? load4<VEC>(xi + (long)(r0 + r) * D + k, k, D)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
     }
 #pragma unroll
-    for (int r = 0; r < 8; ++r) out[((long)cell * 8 + r) * D + o] = acc[r];
+    for (int l = 0; l < G7WL; ++l) {
+      const int e = tid + l * G7T, k = k0 + e / (G7C / 4), c = c0 + 4 * (e % (G7C / 4));
+      wr[l] = k < D ? load4<VEC>(wi + (long)k * D + c, c, D) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  float acc[4][4] = {};
+  fetch(0);
+  for (int k0 = 0; k0 < D; k0 += G7K) {
+#pragma unroll
+    for (int l = 0; l < G7XL; ++l) {
+      const int e = tid + l * G7T, r = e / (G7K / 4), k = 4 * (e % (G7K / 4));
+      xs[k][r] = xr[l].x;
+      xs[k + 1][r] = xr[l].y;
+      xs[k + 2][r] = xr[l].z;
+      xs[k + 3][r] = xr[l].w;
+    }
+#pragma unroll
+    for (int l = 0; l < G7WL; ++l) {
+      const int e = tid + l * G7T;
+      *reinterpret_cast<float4*>(&ws[e / (G7C / 4)][4 * (e % (G7C / 4))]) = wr[l];
+    }
+    __syncthreads();
+    if (k0 + G7K < D) fetch(k0 + G7K);
+#pragma unroll 8
+    for (int k = 0; k < G7K; ++k) {
+      const float4 a = *reinterpret_cast<const float4*>(&xs[k][ty * 4]);
+      const float4 b = *reinterpret_cast<const float4*>(&ws[k][tx * 4]);
+      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[p][q] = fmaf(av[p], bv[q], acc[p][q]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int r = r0 + ty * 4 + p, c = c0 + tx * 4;
+    if (r >= R) continue;
+    float* o = out + ((long)i * R + r) * D + c;
+    if (VEC && c < D) {
+      *reinterpret_cast<float4*>(o) = make_float4(acc[p][0], acc[p][1], acc[p][2], acc[p][3]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (c + q < D) o[q] = acc[p][q];
+    }
   }
 }
 
@@ -157,7 +230,13 @@ extern "C" int probe_lane_slice(const void* x, void* out, int R, int C, void* st
 
 extern "C" int probe_grid_cells(const void* x, const void* w, void* out, int NI, int NB, int D,
                                 void* stream) {
-  grid_cells<<<NI * NB, 256, 0, (cudaStream_t)stream>>>((const float*)x, (const float*)w,
-                                                       (float*)out, NB, D);
+  const int R = 8 * NB;
+  const dim3 grid(blocks(D, G7C), blocks(R, G7R), NI);
+  if (D % 4 == 0)
+    grid_cells<true><<<grid, G7T, 0, (cudaStream_t)stream>>>((const float*)x, (const float*)w,
+                                                           (float*)out, R, D);
+  else
+    grid_cells<false><<<grid, G7T, 0, (cudaStream_t)stream>>>((const float*)x, (const float*)w,
+                                                            (float*)out, R, D);
   return (int)cudaGetLastError();
 }

@@ -2,10 +2,11 @@
 
 ``mega_decode_step`` launches ``csrc/decode_megakernel.cu`` for CUDA tensors
 and runs ``mega_decode_step_plain`` (the same function in plain PyTorch)
-for CPU tensors. The host side stacks the decoder weights into the
-layer-major layout the kernel streams, precomputes the relative-position
-bias table and the cross-attention K/V, and wires it all into ``DecodeFns``
-for ``ops/decoding.py``. Counterpart of
+for CPU tensors. The host side stacks the decoder weights layer-major (the
+JAX package's ``[N, in, out]``, which the plain version takes, plus once the
+kernel's ``[N, out, in]`` copy, ``with_kernel_layout``), precomputes the
+relative-position bias table and the cross-attention K/V, and wires it all
+into ``DecodeFns`` for ``ops/decoding.py``. Counterpart of
 ``vidchapters_tpu/ops/decode_megakernel.py``; its prefix-skip over cache
 chunks and int8 cross K/V are not carried over (neither changes results).
 
@@ -20,14 +21,18 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from vidchapters_tpu_torch.ops._build import F, I, P, CudaKernel, stream_ptr
+from vidchapters_tpu_torch.ops._build import (F, I, P, CudaKernel, arrival_counters,
+                                              stream_ptr)
 
 NEG_INF = -1e9
 MAX_GROUP = 8  # beams per example the kernel takes
-KEY_PARTS = 16  # most key partitions of one (row, head) in the kernel (PMAX there)
+PHASES = 8  # grid barriers a layer: q|k|v, self-attention, self out, cross q,
+            # cross-attention, cross out, wi, wo_ff
 
 KERNEL = CudaKernel("decode_megakernel", {
-    "mega_decode_step": [P] * 23 + [I] * 11 + [F, I, P]})
+    "mega_decode_step": [P] * 25 + [I] * 11 + [F, I, P],
+    "mega_decode_workspace": [I] * 11,
+    "mega_decode_barriers": [P, P, I, P]})
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _WEIGHTS = ("wqkv", "wo_self", "wq_cross", "wo_cross", "wi", "wo_ff")
@@ -120,6 +125,25 @@ def mega_decode_step_plain(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
     return hidden, k_new, v_new, k_att, v_att
 
 
+def with_kernel_layout(stacked: Dict[str, torch.Tensor]) -> Dict:
+    """``stacked`` and, under ``"kernel"``, its six weights in the kernel's
+    layout: each ``[N, in, out]`` transposed to ``[N, out, in]`` (the rows
+    of a weight are the tensor cores' A operand); a gated ``wi`` ``[N, d,
+    2 dff]`` (gate | linear) becomes ``[N, 2 dff, d]`` with the halves
+    interleaved 8 columns at a time (rows 16 j .. 16 j + 7 are gate columns
+    8 j .. 8 j + 7, the next 8 rows the same linear columns). Made once per
+    set of weights, on their device, before the steps that launch the
+    kernel."""
+    out = {name: stacked[name].transpose(1, 2).contiguous() for name in _WEIGHTS}
+    n, width, d = out["wi"].shape
+    if width == 2 * stacked["wo_ff"].shape[1]:  # gated
+        dff = width // 2
+        gate, lin = out["wi"][:, :dff], out["wi"][:, dff:]
+        out["wi"] = torch.cat([gate.reshape(n, dff // 8, 8, d), lin.reshape(n, dff // 8, 8, d)],
+                              dim=2).reshape(n, width, d).contiguous()
+    return {**stacked, "kernel": out}
+
+
 def _check(name: str, t: torch.Tensor, shape, dtype) -> None:
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"mega_decode_step: {name} must be {tuple(shape)}, "
@@ -138,7 +162,7 @@ def mega_decode_step(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
                      heads: int, eps: float = 1e-6,
                      src: Optional[torch.Tensor] = None,
                      out_caches: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                     gated: bool = False):
+                     gated: bool = False, timeline: Optional[torch.Tensor] = None):
     """One decoder step over all layers.
 
     Returns ``(hidden [B, d] after the final norm, k_new [B, N, inner],
@@ -148,6 +172,11 @@ def mega_decode_step(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
     into a second pair of buffers, ``out_caches`` or new ones, whose row
     ``cache_index`` holds the new k/v; the kernel writes their rows up to
     ``cache_index`` only. Then the result also carries those two buffers.
+
+    On CUDA, ``stacked`` must carry the kernel's weight layout
+    (``with_kernel_layout``). ``timeline`` (CUDA only; an int64 tensor of
+    ``8 N + 3`` slots) receives the device clock in ns at the start, after
+    the set-up and after each phase, and at the end.
     """
     if x.device.type == "cpu":
         return mega_decode_step_plain(stacked, x, k_cache, v_cache, k_cross,
@@ -162,8 +191,8 @@ def mega_decode_step(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
     b0, _, lenc, _ = k_cross.shape
     dff = stacked["wo_ff"].shape[1]
     idx = int(cache_index)
-    if d % 4 or inner % 4 or dff % 4:
-        raise ValueError("mega_decode_step: d, inner and d_ff must be multiples of 4")
+    if d % 8 or inner % 8 or dff % 8:
+        raise ValueError("mega_decode_step: d, inner and d_ff must be multiples of 8")
     if inner % heads or (inner // heads) % 32 or inner // heads > 128:
         raise ValueError(f"mega_decode_step: {heads} heads of {inner} lanes: the head "
                          f"width must be 32, 64, 96 or 128")
@@ -182,18 +211,17 @@ def mega_decode_step(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
     wshapes = {"wqkv": (d, 3 * inner), "wo_self": (inner, d),
                "wq_cross": (d, inner), "wo_cross": (inner, d),
                "wi": (d, 2 * dff if gated else dff), "wo_ff": (dff, d)}
+    if "kernel" not in stacked:
+        raise ValueError("mega_decode_step: the weights need the kernel layout on the card: "
+                         "pass with_kernel_layout(stacked), made once")
     for name in _WEIGHTS:
-        _check(name, stacked[name], (n_layers,) + wshapes[name], cdt)
+        _check(f"kernel {name}", stacked["kernel"][name],
+               (n_layers,) + wshapes[name][::-1], cdt)
     _check("bias_row", bias_row, (length, heads), torch.float32)
     _check("bias0", bias0, (1, heads), torch.float32)
     _check("enc_mask", enc_mask, (b0, lenc), torch.int32)
-    hidden = torch.empty(bsz, d, dtype=cdt, device=x.device)
-    k_new = torch.empty(bsz, n_layers, inner, dtype=cdt, device=x.device)
-    v_new = torch.empty_like(k_new)
-    # per-row residual, q, attention context, FF hidden and partial softmax
-    # states, shared by the blocks that work on one example
-    ws = torch.empty(bsz, d + 2 * inner + dff + KEY_PARTS * heads * (2 + inner // heads),
-                     dtype=torch.float32, device=x.device)
+    if timeline is not None:
+        _check("timeline", timeline, (PHASES * n_layers + 3,), torch.int64)
     if src is not None:
         _check("src", src, (bsz,), torch.int32)
         if out_caches is None:
@@ -205,19 +233,63 @@ def mega_decode_step(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
             raise ValueError("mega_decode_step: out_caches must not alias the caches")
     else:
         k_att, v_att = k_cache, v_cache
+    hidden, k_new, v_new = _launch_step(stacked, x, k_cache, v_cache, k_att, v_att, k_cross,
+                                        v_cross, bias_row, bias0, enc_mask, idx, group, heads,
+                                        eps, src, gated, timeline)
+    if src is None:
+        return hidden, k_new, v_new
+    return hidden, k_new, v_new, k_att, v_att
+
+
+def _launch_step(stacked, x, k_cache, v_cache, k_att, v_att, k_cross, v_cross, bias_row,
+                 bias0, enc_mask, idx: int, group: int, heads: int, eps: float, src,
+                 gated: bool, timeline) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Allocate the outputs and the kernel's scratch on x's device and launch
+    (shapes already checked). Returns (hidden, k_new, v_new)."""
+    cdt = x.dtype
+    bsz, d = x.shape
+    _, n_layers, length, inner = k_cache.shape
+    lenc = k_cross.shape[2]
+    dff = stacked["wo_ff"].shape[1]
+    hidden = torch.empty(bsz, d, dtype=cdt, device=x.device)
+    k_new = torch.empty(bsz, n_layers, inner, dtype=cdt, device=x.device)
+    v_new = torch.empty_like(k_new)
+    # the kernel's scratch (residual, q, context, FF rows, partial sums and
+    # softmax states) and its grid barrier and merge counters, as it sizes
+    # them; the counters are at 0 and the kernel leaves them at 0
+    sizes = [KERNEL._load().mega_decode_workspace(bsz, length, lenc, d, inner, heads, dff,
+                                                  int(gated), group, _DTYPE_CODE[cdt], which)
+             for which in (0, 1)]
+    if min(sizes) < 0:
+        raise ValueError(f"mega_decode_step: no workspace for {bsz} rows at d {d}, d_ff {dff}")
+    ws = torch.empty(sizes[0], dtype=torch.float32, device=x.device)
+    counters = arrival_counters(x.device, sizes[1])
+    kw = stacked["kernel"]
     KERNEL.launch(
         "mega_decode_step", x.data_ptr(), stacked["ln"].data_ptr(),
-        *(stacked[n].data_ptr() for n in _WEIGHTS),
+        *(kw[n].data_ptr() for n in _WEIGHTS),
         stacked["final_ln"].data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         k_att.data_ptr(), v_att.data_ptr(), k_cross.data_ptr(),
         v_cross.data_ptr(), bias_row.data_ptr(), bias0.data_ptr(),
         enc_mask.data_ptr(), 0 if src is None else src.data_ptr(),
         hidden.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), ws.data_ptr(),
+        counters.data_ptr(), 0 if timeline is None else timeline.data_ptr(),
         bsz, n_layers, length, lenc, d, inner, heads, dff, int(gated), group,
         idx, float(eps), _DTYPE_CODE[cdt], stream_ptr())
-    if src is None:
-        return hidden, k_new, v_new
-    return hidden, k_new, v_new, k_att, v_att
+    return hidden, k_new, v_new
+
+
+def barrier_step(n_barriers: int) -> torch.Tensor:
+    """The kernel's grid barriers alone: ``n_barriers`` of them on the same
+    cooperative grid, nothing else (CUDA only). Returns the device clock in
+    ns at the start and after each barrier (``n_barriers + 1`` int64)."""
+    bar = torch.zeros(1, dtype=torch.int32, device="cuda")
+    timeline = torch.zeros(n_barriers + 1, dtype=torch.int64, device="cuda")
+    rc = KERNEL._load().mega_decode_barriers(bar.data_ptr(), timeline.data_ptr(),
+                                             n_barriers, stream_ptr())
+    if rc != 0:
+        raise RuntimeError(f"mega_decode_barriers failed to launch: cudaError_t {rc}")
+    return timeline
 
 
 # ---------------------------------------------------------------------------
@@ -226,9 +298,9 @@ def mega_decode_step(stacked: Dict[str, torch.Tensor], x: torch.Tensor,
 
 
 def stack_decoder_weights(t5, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-    """Layer-major decoder weights in the ``[in, out]`` layout the kernel
-    streams (packed q|k|v for self-attention, wi_0|wi_1 when gated), from
-    the port's ``T5ForConditionalGeneration``."""
+    """Layer-major decoder weights in the JAX package's ``[in, out]`` layout
+    (packed q|k|v for self-attention, wi_0|wi_1 when gated), from the port's
+    ``T5ForConditionalGeneration``; ``with_kernel_layout`` adds the kernel's."""
     blocks = t5.decoder.blocks
     tw = lambda lin: lin.weight.detach().t()  # noqa: E731 - nn.Linear [out, in] -> [in, out]
 
@@ -290,6 +362,8 @@ def make_mega_decode_fns(t5, max_length: int, num_beams: int = 1):
     group = max(1, num_beams)
     heads, inner, n = cfg.num_heads, cfg.num_heads * cfg.d_kv, cfg.num_decoder_layers
     stacked = stack_decoder_weights(t5, cdt)
+    if stacked["wqkv"].device.type == "cuda":
+        stacked = with_kernel_layout(stacked)
     bias_all = precompute_bias_table(t5, max_length)      # [L, L, H]
     bias0 = bias_all[0, :1, :].contiguous()               # distance-0 bias [1, H]
     emb = t5.shared.weight.detach()
