@@ -30,6 +30,16 @@
    (serving), 8 x 1 (greedy) and 2 x 4 rows, each tree timed in its own
    process, in turns DIR, this, this, DIR.
 
+    python3 chip_kernel_parts.py --cross-ab DIR
+
+5. The decode cross-attention kernel (row 6) and probe p2 of this tree
+   against those of another checkout DIR, the same way: device time by
+   CUDA-graph replay at chip_smoke's shape (q [32 or 8,12,1,64] over k/v
+   [8,12,1152,64] bf16, 1100 - 90 e live keys of example e; the live ends
+   found once where the wrapper takes them), also with the L2 cache flushed
+   by a 64 MB read before each call, and at p2's [8,12,1,64] .
+   [8,12,32,64] f32.
+
 Prints one JSON object; needs the card (exits 1 without one).
 """
 
@@ -111,8 +121,48 @@ def t5_times(root: str) -> dict:
     return out
 
 
+def cross_times(root: str) -> dict:
+    """Device ms of the decode cross-attention kernel of the checkout at
+    ``root`` at 8 x 4 and 8 x 1 beams, and of its probe p2."""
+    import inspect
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(root).resolve()))
+    import torch
+
+    import chip_smoke as cs
+    from vidchapters_tpu_torch.ops import decode_attention as da
+    from vidchapters_tpu_torch.ops import probes as pb
+
+    assert Path(cs.__file__).resolve().parent == Path(root).resolve(), cs.__file__
+    gen = torch.Generator().manual_seed(2)
+    b0, h, lk, d = 8, 12, 1152, 64
+    k, v = (torch.randn(b0, h, lk, d, generator=gen).to("cuda", torch.bfloat16)
+            for _ in range(2))
+    q4 = torch.randn(b0 * 4, h, 1, d, generator=gen).to("cuda", torch.bfloat16)
+    mask = torch.ones(b0, lk, dtype=torch.int32)
+    for e in range(b0):
+        mask[e, 1100 - 90 * e:] = 0
+    mask = mask.cuda()
+    extra = ()
+    if "live_ends" in inspect.signature(da.decode_cross_attention).parameters:
+        extra = (da.cross_live_ends(mask),)
+    junk = torch.zeros(16 << 20, dtype=torch.float32, device="cuda")  # 64 MB: flushes L2
+    out = {}
+    for g in (4, 1):
+        q = q4[:b0 * g]
+        fn = lambda: da.decode_cross_attention(q, k, v, mask, *extra)  # noqa: E731
+        out[f"cross_8x{g}"] = cs.time_ms_graph(fn)
+        out[f"cross_8x{g}_cold_l2"] = (cs.time_ms_graph(lambda: (junk.sum(), fn()), 10)
+                                       - cs.time_ms_graph(junk.sum, 10))
+    pq = torch.randn(8, 12, 1, 64, generator=gen).cuda()
+    pc = torch.randn(8, 12, 32, 64, generator=gen).cuda()
+    out["p2"] = cs.time_ms_graph(lambda: pb.dot_2batch(pq, pc))
+    return out
+
+
 def ab(other: str, what: str) -> dict:
-    """``what`` ("whisper" or "t5") times of ``other`` and of this tree,
+    """``what`` ("whisper", "t5" or "cross") times of ``other`` and of this tree,
     each in a process of its own, in turns other, this, this, other."""
     from pathlib import Path
 
@@ -134,13 +184,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: CUDA is not available; this script measures on a GPU", flush=True)
         return 1
-    if len(sys.argv) == 3 and sys.argv[1] in ("--whisper-times", "--t5-times"):
-        fn = whisper_times if sys.argv[1] == "--whisper-times" else t5_times
-        print(json.dumps(fn(sys.argv[2])), flush=True)
+    times = {"--whisper-times": whisper_times, "--t5-times": t5_times,
+             "--cross-times": cross_times}
+    if len(sys.argv) == 3 and sys.argv[1] in times:
+        print(json.dumps(times[sys.argv[1]](sys.argv[2])), flush=True)
         return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
-    if len(sys.argv) == 3 and sys.argv[1] in ("--whisper-ab", "--t5-ab"):
+    if len(sys.argv) == 3 and sys.argv[1] in ("--whisper-ab", "--t5-ab", "--cross-ab"):
         what = sys.argv[1][2:-3]
         print(json.dumps({"card": card, f"{what}_ab_ms": ab(sys.argv[2], what)}, indent=1),
               flush=True)

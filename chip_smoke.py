@@ -26,7 +26,9 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    2 x 4, cache indices 0/1/127/128/255 (two bf16 calls bit-identical, its
    timeline per phase, the grid barrier alone, HMMA in the bf16 SASS); the decode self-attention at 32 and 8 rows x 12 heads,
    L=256, cache indices 0/127/255 (caches bit for bit), the decode
-   cross-attention at 8 examples x 4 and x 1 beams over 1152 padded keys,
+   cross-attention at 8 examples x 4 and x 1 beams over 1152 padded keys
+   (and with an example of no unmasked key, holes, 8 beams, D 128, 32
+   examples),
    PDVC's deformable attention forward and backward at the encoder's
    188 and the decoder's 100 queries over value [1, 188, 8, 64] (locations
    past both borders and on pixel centres), the Whisper decode kernel at
@@ -162,6 +164,19 @@ def time_ms_graph(fn, iters: int = 20, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (iters * reps)
+
+
+def time_ms_graph_cold(fn, iters: int = 10, reps: int = 5) -> float:
+    """Device time per call of ``fn`` in ms with the L2 cache cold: ``iters``
+    pairs of (a 64 MB read, ``fn``) in one CUDA graph, less the reads alone,
+    each replayed ``reps`` times. For a kernel whose inputs fit the 50 MB L2,
+    which ``time_ms_graph`` then reads from L2, while its real caller finds
+    them cold (a decode step's layers cycle through more K/V than L2 holds)."""
+    import torch
+
+    junk = torch.zeros(16 << 20, dtype=torch.float32, device="cuda")
+    both = time_ms_graph(lambda: (junk.sum(), fn()), iters, reps)
+    return both - time_ms_graph(junk.sum, iters, reps)
 
 
 def within(got, ref, atol: float) -> bool:
@@ -1099,63 +1114,97 @@ def check_decode_self_attention(gen):
 def check_decode_cross_attention(gen):
     """The decode cross-attention kernel against its plain version at 8
     examples x 4 beams (beam search) and x 1 (nucleus), Lk 1152 with each
-    example's padded tail masked, fp32 and bf16. Timed at 4 beams, by
-    CUDA-graph replay (device time) and eagerly; the yardstick is SDPA
-    (scale 1) over K/V expanded across the beams, with the mask as a float
-    mask."""
+    example's padded tail masked, fp32 and bf16; then at five edge forms: an
+    example with no unmasked key (the mean of V), holes inside the live
+    keys, 8 beams, D 128, and 32 examples. Timed at 4 and 1 beams with the
+    live ends found once (as the decode does), by CUDA-graph replay (device
+    time; also with the L2 cache flushed before each call) and eagerly; the
+    yardstick is SDPA (scale 1) over K/V expanded across the beams, with the
+    mask as a float mask."""
     import torch
 
     from vidchapters_tpu_torch.ops import decode_attention as da
+    from vidchapters_tpu_torch.ops._build import sm_count
 
     b0, h, lk, d = DEC_ROWS // 4, DEC_HEADS, DEC_LENC, DEC_DKV
     k, v = (torch.randn(b0, h, lk, d, generator=gen) for _ in range(2))
-    q4 = torch.randn(b0 * 4, h, 1, d, generator=gen)
+    q8 = torch.randn(b0 * 8, h, 1, d, generator=gen)
     mask = torch.ones(b0, lk, dtype=torch.int32)
     for e in range(b0):  # 100 frames + per-example ASR length, then the pad
         mask[e, 100 + 1000 - 90 * e:] = 0
-    mask = mask.cuda()
+    no_key, holes = mask.clone(), mask.clone()
+    no_key[3] = 0
+    holes[0, 5:40] = holes[2, 500:700] = holes[5, 0:1] = holes[7, 469] = 0
+    k128, v128 = (torch.randn(b0, h, lk, 128, generator=gen) for _ in range(2))
+    q128 = torch.randn(b0 * 4, h, 1, 128, generator=gen)
+    q32 = torch.randn(32 * 4, h, 1, d, generator=gen)
+    # (label, q, k, v, mask); b32: 32 examples (serving's largest batch), one
+    # chunk an (example, head), more tiles a warp than its ring holds
+    forms = [("g4", q8[:b0 * 4], k, v, mask), ("g1", q8[:b0], k, v, mask),
+             ("no_key", q8[:b0 * 4], k, v, no_key), ("holes", q8[:b0 * 4], k, v, holes),
+             ("g8", q8, k, v, holes), ("d128", q128, k128, v128, mask),
+             ("b32", q32, k.repeat(4, 1, 1, 1), v.repeat(4, 1, 1, 1), holes.repeat(4, 1))]
     errs = {}
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
         worst = 0.0
-        for group in (4, 1):
-            qq = q4[:b0 * group].to("cuda", dtype)
-            kk, vv = k.to("cuda", dtype), v.to("cuda", dtype)
-            got = da.decode_cross_attention(qq, kk, vv, mask)
-            ref = da.decode_cross_attention_plain(qq, kk, vv, mask)
+        for label, qq, kk, vv, mm in forms:
+            qq, kk, vv = (t.to("cuda", dtype) for t in (qq, kk, vv))
+            mm = mm.cuda()
+            got = da.decode_cross_attention(qq, kk, vv, mm)
+            ref = da.decode_cross_attention_plain(qq, kk, vv, mm)
             torch.cuda.synchronize()
             err = (got.float() - ref.float()).abs().max().item()
-            check(within(got, ref, tol), f"decode_cross_attention {dtype} g={group}: err {err}")
+            check(within(got, ref, tol),
+                  f"decode_cross_attention {dtype} {label}: err {err}")
             worst = max(worst, err)
         say(f"[check] decode_cross_attention {b0} examples x 4 / x 1 beams, Lk {lk} padded, "
-            f"{dtype}: max_abs_err {worst:.3e} (tol {tol}"
-            f"{', or 2 bf16 ulps' if dtype == torch.bfloat16 else ''})")
+            f"and {', '.join(f[0] for f in forms[2:])}, {dtype}: max_abs_err {worst:.3e} "
+            f"(tol {tol}{', or 2 bf16 ulps' if dtype == torch.bfloat16 else ''})")
         errs[dtype] = worst
-    qq, kk, vv = (t.to("cuda", torch.bfloat16) for t in (q4, k, v))
-    kernel = lambda: da.decode_cross_attention(qq, kk, vv, mask)  # noqa: E731
-    plain = lambda: da.decode_cross_attention_plain(qq, kk, vv, mask)  # noqa: E731
-    ke, ve = (t.repeat_interleave(4, dim=0) for t in (kk, vv))
-    fmask = ((mask.repeat_interleave(4, dim=0)[:, None, None, :] - 1) * 1e9).to(torch.bfloat16)
-    library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-        qq, ke, ve, attn_mask=fmask, scale=1.0)
-    ms, ms_eager = time_ms_graph(kernel), time_ms(kernel, 50)
-    plain_ms, plain_eager = time_ms_graph(plain), time_ms(plain, 20)
-    lib_ms, lib_eager = time_ms_graph(library), time_ms(library, 50)
-    rows = b0 * 4
-    # masked keys do not change the output: count the K/V rows of the
-    # unmasked keys (bf16), q and out, and the int32 mask read once
-    live = int(mask.sum().item())
-    nbytes = 2 * (2 * h * live * d + 2 * rows * h * d) + 4 * b0 * lk
-    bms, by = bound(nbytes, 4 * 4 * h * live * d, H100_BF16_FLOPS)
+    mask = mask.cuda()
+    live_ends = da.cross_live_ends(mask)  # once per decode call, as T5Stack.decode_step
+    live = int(live_ends.sum().item())
+
+    def timed(group):
+        qq, kk, vv = (t.to("cuda", torch.bfloat16) for t in (q8[:b0 * group], k, v))
+        kernel = lambda: da.decode_cross_attention(qq, kk, vv, mask, live_ends)  # noqa: E731
+        plain = lambda: da.decode_cross_attention_plain(qq, kk, vv, mask)  # noqa: E731
+        ke, ve = (t.repeat_interleave(group, dim=0) for t in (kk, vv))
+        fmask = ((mask.repeat_interleave(group, dim=0)[:, None, None, :] - 1) * 1e9
+                 ).to(torch.bfloat16)
+        library = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+            qq, ke, ve, attn_mask=fmask, scale=1.0)
+        rows = b0 * group
+        # masked keys past each example's last live key do not change the
+        # output: count the K/V rows of its live keys (bf16), q and out, and
+        # the int32 live ends and mask entries of those keys, each read once
+        nbytes = 2 * (2 * h * live * d + 2 * rows * h * d) + 4 * (live + b0)
+        bms, by = bound(nbytes, 4 * group * h * live * d, H100_BF16_FLOPS)
+        return {"beams": group, "ms": time_ms_graph(kernel), "plain_ms": time_ms_graph(plain),
+                "library_ms": time_ms_graph(library), "bound_ms": bms, "bound_by": by,
+                "cold_l2_ms": {"kernel": time_ms_graph_cold(kernel),
+                               "library": time_ms_graph_cold(library)},
+                "eager_ms": {"kernel": time_ms(kernel, 50), "plain": time_ms(plain, 20),
+                             "library": time_ms(library, 50)}}
+
+    g4, g1 = timed(4), timed(1)
+    for f in (g4, g1):
+        say(f"[check] decode_cross_attention {b0} x {f['beams']} beams ({live} live keys): "
+            f"{f['ms']:.4f} ms, SDPA {f['library_ms']:.4f} ms, bound {f['bound_ms']:.4f} ms; "
+            f"L2 cold {f['cold_l2_ms']['kernel']:.4f} ms, SDPA {f['cold_l2_ms']['library']:.4f}")
     torch.cuda.synchronize()
     return {"name": "decode_cross_attention", "route": "cuda",
             "source": "vidchapters_tpu_torch/csrc/decode_attention.cu",
             "replaces": "vidchapters_tpu/ops/decode_attention.py:117",
             "max_abs_err": errs[torch.bfloat16], "max_abs_err_fp32": errs[torch.float32],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-            "library_ms": lib_ms, "timing": TIMING_GRAPH,
-            "eager_ms": {"kernel": ms_eager, "plain": plain_eager, "library": lib_eager},
+            "ms": g4["ms"], "plain_ms": g4["plain_ms"], "bound_ms": g4["bound_ms"],
+            "bound_by": g4["bound_by"], "library_ms": g4["library_ms"], "timing": TIMING_GRAPH,
+            "eager_ms": g4["eager_ms"], "cold_l2_ms": g4["cold_l2_ms"], "beams_1": g1,
+            "live_keys": live,
+            "blocks": da.cross_blocks(b0, h, sm_count(0)),
             "library": "SDPA (scale 1) over K/V expanded across beams",
-            "shape": f"q [{rows},{h},1,{d}] over k/v [{b0},{h},{lk},{d}] bf16, g 4"}
+            "shape": f"q [{b0 * 4},{h},1,{d}] over k/v [{b0},{h},{lk},{d}] bf16, g 4, "
+                     f"{live} live keys"}
 
 
 PDVC_LEVELS = (100, 50, 25, 13)  # 100 frames through three stride-2 convs
@@ -1525,8 +1574,10 @@ def check_whisper_megakernel(gen):
 
 def check_probes():
     """The seven feature probes (csrc/probes.cu) against their known answers
-    and their plain versions, exactly; each timed by CUDA-graph replay. The
-    grid-cell probe's time per cell of its (12 x 8) grid is run_probes'."""
+    and their plain versions, exactly, and p2 on seeded random inputs within
+    1e-5 of its plain version's largest output; each timed by CUDA-graph
+    replay. The grid-cell probe's time per cell of its (12 x 8) grid is
+    run_probes'."""
     import torch
 
     from vidchapters_tpu_torch.ops import probes as pb
@@ -1541,6 +1592,11 @@ def check_probes():
     results = pb.run_probes()
     bad = {name: r for name, r in results.items() if not r["ok"] or r["plain_max_abs_err"]}
     check(not bad, f"probes differ from their known answers or plain versions: {bad}")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, c = (torch.randn(8, 12, m, 64, generator=gen, device="cuda") for m in (1, 32))
+    ref = pb.dot_2batch_plain(q, c)
+    p2_rel = ((pb.dot_2batch(q, c) - ref).abs().max() / ref.abs().max()).item()
+    check(p2_rel <= 1e-5, f"probe p2 on random inputs: {p2_rel:.3e} of the largest output")
     rows = []
     for pr in pb.PROBES:
         xs = pr.inputs(torch.device("cuda"))
@@ -1559,9 +1615,12 @@ def check_probes():
                "timing": TIMING_GRAPH}
         if pr.name == "grid_cell_overhead":
             row["us_per_cell"] = results[pr.name]["us_per_cell"]
+        if pr.name == "dot_general_2batch":
+            row["random_rel_err"] = p2_rel
         rows.append(row)
     say("[check] probes p1-p7: every output equals its known answer and its plain version "
-        f"(p5: 12 x 32 per row); p7 {rows[-1]['us_per_cell']:.3f} us per cell")
+        f"(p5: 12 x 32 per row); p2 on random inputs {p2_rel:.3e} of the largest output; "
+        f"p7 {rows[-1]['us_per_cell']:.3f} us per cell")
     return rows
 
 

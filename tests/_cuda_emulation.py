@@ -22,6 +22,7 @@ EMU = Path(__file__).resolve().parent / "cuda_emulation"
 # tensor_core.cuh's functions that hold inline PTX, and their emulation
 PTX_BODIES = {
     "cp_async16": "std::memset(dst, 0, 16); if (bytes) std::memcpy(dst, src, bytes);",
+    "cp_async4": "std::memset(dst, 0, 4); if (bytes) std::memcpy(dst, src, bytes);",
     "cp_async_commit": "",
     "cp_async_wait": "",
     "ldsm_x4": "emu::ldmatrix(r, p, false);",

@@ -243,26 +243,40 @@ def test_decode_self_attention_matches_plain(dtype, tol, idx, r):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("group", [1, 3, 4])
+@pytest.mark.parametrize("group", [1, 3, 4, 8])
 @pytest.mark.parametrize("lk", [1100, 100])  # keys split across blocks, and not
-def test_decode_cross_attention_matches_plain(dtype, tol, group, lk):
+@pytest.mark.parametrize("form", ["tail_hole", "no_key", "holes", "d128", "d40", "b32"])
+def test_decode_cross_attention_matches_plain(dtype, tol, group, lk, form):
+    """Over live keys only: a padded tail and a hole (tail_hole), an example
+    with no unmasked key (the mean of V), holes inside the live keys, D 128,
+    D 40 (bf16 on the CUDA-core route), 32 examples x 12 heads (one chunk an
+    (example, head): more tiles a warp than the tensor-core route's ring
+    holds); the live ends found by the wrapper and given by the caller alike."""
     require_cuda()
     from vidchapters_tpu_torch.ops import decode_attention as da
 
     g = _gen()
-    b0, h, d = 2, 3, 64
+    b0, h, d = (32, 12, 64) if form == "b32" else (3, 3, {"d128": 128, "d40": 40}.get(form, 64))
     q = torch.randn(b0 * group, h, 1, d, generator=g).to("cuda", dtype)
     k, v = (torch.randn(b0, h, lk, d, generator=g).to("cuda", dtype) for _ in range(2))
     mask = torch.ones(b0, lk, dtype=torch.int32)
     mask[0, lk * 2 // 3:] = 0
     mask[1, 5:9] = 0
+    mask[2, lk // 3:] = 0
+    if form == "no_key":
+        mask[1] = 0
+    elif form == "holes":
+        mask[0, 1:lk // 4] = 0
+        mask[2, lk // 3 - 2] = 0
     mask = mask.cuda()
     before = da.CROSS_KERNEL.launches
     got = da.decode_cross_attention(q, k, v, mask)
+    again = da.decode_cross_attention(q, k, v, mask, da.cross_live_ends(mask))
     ref = da.decode_cross_attention_plain(q, k, v, mask)
     torch.cuda.synchronize()
-    assert da.CROSS_KERNEL.launches == before + 1
+    assert da.CROSS_KERNEL.launches == before + 2
     assert (got.float() - ref.float()).abs().max().item() <= tol
+    assert torch.equal(got, again)  # the counters are back at 0
 
 
 def _deformable_case(lq: int, m: int, d: int, shapes=(100, 50, 25, 13), p: int = 4):
@@ -429,6 +443,25 @@ def test_grid_cells_probe_matches_known_answer_and_plain(n_i, n_b, d):
     ref = probes.grid_cells_plain(x, w)  # on the CPU
     got = probes.grid_cells(x.cuda(), w.cuda()).cpu()
     assert (got - ref).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a,b,m,d", [(8, 12, 32, 64), (2, 3, 37, 40), (1, 3, 70, 128)])
+def test_dot_2batch_probe_matches_known_answer_and_plain(a, b, m, d):
+    """p2 at the probe's shape and at ragged ones: ones give d exactly;
+    random inputs equal the plain version within 1e-5 of its largest output
+    (the sums are taken in another order)."""
+    require_cuda()
+    from vidchapters_tpu_torch.ops import probes
+
+    ones = probes.dot_2batch(torch.ones(a, b, 1, d, device="cuda"),
+                             torch.ones(a, b, m, d, device="cuda"))
+    assert torch.equal(ones.cpu(), torch.full((a, b, 1, m), float(d)))
+    g = _gen()
+    q, c = torch.randn(a, b, 1, d, generator=g), torch.randn(a, b, m, d, generator=g)
+    ref = probes.dot_2batch_plain(q, c)  # on the CPU
+    got = probes.dot_2batch(q.cuda(), c.cuda()).cpu()
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 
 def _bf16_grad_tol(ref) -> float:

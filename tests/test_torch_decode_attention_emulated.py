@@ -10,7 +10,11 @@ the card. The wrappers' own launch code drives them.
 Held against the plain versions: the decode self-attention within the
 card's bounds with the caches bit for bit (idx 0 / 127 / 255, 8 and 32 rows,
 D 64 and 128, fp32 and bf16, one key split and several); the
-cross-attention at one shape. The top-k has its own file
+cross-attention over live keys only, on its CUDA-core route (fp32, bf16 at
+D 24) and its tensor-core route (bf16 at D 64 and 128), at groups of 1-8
+beams, examples of different live lengths, holes in the live range, an
+example with no unmasked key, one chunk and several per (example, head),
+more tiles a warp than its ring of stages, a second launch bit-identical. The top-k has its own file
 (test_torch_topk_emulated.py). Timing and nvcc's own code are the card's to
 show (test_torch_cuda_kernels.py, chip_smoke.py). Skipped where there is no
 g++.
@@ -81,22 +85,52 @@ def test_decode_self_attention_matches_plain(kernels, r, d, idx, dtype, splits):
         assert torch.equal(again, out)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_cross_attention_unchanged(kernels, dtype):
-    g = torch.Generator().manual_seed(5)
-    b0, grp, h, lk, d = 2, 4, 2, 300, 64
-    q = torch.randn(b0 * grp, h, 1, d, generator=g).to(dtype)
+LK = 300
+# per example: (one past its last unmasked key, holes inside that range);
+# an end of 0 masks every key of the example
+RAGGED = ((300, ()), (200, ()), (90, ()))
+HOLES = ((300, (5, 6, 7, 150)), (250, tuple(range(60, 130))), (37, (0, 36)))
+NO_KEY = ((0, ()), (180, (3, 100)), (300, ()))
+# 520 keys in one chunk: a warp of the tensor-core route takes 5 tiles of 16,
+# more than its ring holds
+LONG = ((520, (7, 300)), (410, ()), (0, ()))
+
+
+def _cross_inputs(b0, group, h, d, dtype, examples, seed):
+    g = torch.Generator().manual_seed(seed)
+    lk = max(LK, max(end for end, _ in examples))
+    q = torch.randn(b0 * group, h, 1, d, generator=g).to(dtype)
     k, v = (torch.randn(b0, h, lk, d, generator=g).to(dtype) for _ in range(2))
     mask = torch.ones(b0, lk, dtype=torch.int32)
-    mask[0, 200:] = 0
-    out = torch.empty_like(q)
-    splits, span = 3, 128
-    part = torch.empty(b0 * h * splits * grp * (d + 2))
-    arrived = torch.zeros(b0 * h, dtype=torch.int32)
-    kernels["CROSS_KERNEL"].launch(
-        "decode_cross_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), part.data_ptr(), arrived.data_ptr(), b0, grp, h, lk, d, splits, span,
-        da._DTYPE_CODE[dtype], 0)
+    for e, (end, holes) in enumerate(examples[:b0]):
+        mask[e, end:] = 0
+        mask[e, list(holes)] = 0
+    return q, k, v, mask
+
+
+@pytest.mark.parametrize("group,d,dtype,examples,b0,blocks", [
+    (4, 64, torch.bfloat16, RAGGED, 3, 24),   # beam 4: several chunks an example
+    (4, 64, torch.float32, HOLES, 3, 24),
+    (4, 64, torch.bfloat16, NO_KEY, 3, 24),   # an example with no unmasked key
+    (1, 64, torch.bfloat16, HOLES, 3, 30),    # nucleus / greedy
+    (1, 128, torch.float32, NO_KEY, 2, 12),
+    (8, 64, torch.bfloat16, HOLES, 2, 16),    # g 8
+    (8, 128, torch.float32, RAGGED, 3, 6),    # one chunk per (example, head)
+    (3, 128, torch.bfloat16, NO_KEY, 3, 6),
+    (2, 24, torch.float32, RAGGED, 2, 10),    # D 24: 3 lanes of a 4-lane group in bf16
+    (3, 24, torch.bfloat16, HOLES, 3, 18),
+    (4, 64, torch.bfloat16, LONG, 3, 6),      # the tensor-core route's tile ring
+    (2, 128, torch.bfloat16, LONG, 2, 4),
+])
+def test_decode_cross_attention_matches_plain(kernels, group, d, dtype, examples, b0, blocks):
+    h = 2
+    q, k, v, mask = _cross_inputs(b0, group, h, d, dtype, examples, seed=group + d)
+    live = da.cross_live_ends(mask)
+    out = da._launch_cross(q, k, v, mask, live, blocks)
     ref = da.decode_cross_attention_plain(q, k, v, mask)
+    assert kernels["CROSS_KERNEL"].launches == 1
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     assert (out.float() - ref.float()).abs().max().item() <= tol
+    # the counters are back at 0: a second launch gives the same, bit for bit
+    again = da._launch_cross(q, k, v, mask, live, blocks)
+    assert torch.equal(again, out)

@@ -6,7 +6,9 @@
 // 74, 94, 111, 126 and 143), one-shot probes of Mosaic lowerings.
 //
 //   probe_split_merge   p1: x [R, C] viewed [R, C/64, 64], doubled, merged back
-//   probe_dot_2batch    p2: q [A, B, 1, D] . c [A, B, M, D] over D -> [A, B, 1, M]
+//   probe_dot_2batch    p2: q [A, B, 1, D] . c [A, B, M, D] over D -> [A, B, 1, M],
+//                           a lane group per row of c, 16-byte loads issued
+//                           together, partial dots summed by shuffles
 //   probe_dot_1batch    p3: a [A, R, D] . b [A, D, M] -> [A, R, M]
 //   probe_scratch       p4: a sequential (I x NB) grid walked by one block, whose
 //                           shared scratch [NB][E] indexed by the cell's b
@@ -37,14 +39,47 @@ __global__ void split_merge(const float* x, float* out, int R, int C) {
   out[(long)r * C + h * 64 + dd] = 2.f * x[(long)r * C + h * 64 + dd];
 }
 
-__global__ void dot_2batch(const float* q, const float* c, float* out, int A, int B, int M,
-                           int D) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= A * B * M) return;
-  const int ab = i / M, m = i % M;
-  float s = 0.f;
-  for (int dd = 0; dd < D; ++dd) s = fmaf(q[(long)ab * D + dd], c[((long)ab * M + m) * D + dd], s);
-  out[i] = s;
+// p2: a row of c is G lanes of 4 floats (16-byte loads, 16 lanes at D 64),
+// a group of GP lanes, a power of two; each lane holds its 4 elements of q
+// in registers, and a group's partial dots are summed by shuffles. A warp
+// takes P2_U loads of 32 / GP rows, all issued before any is used, so a
+// block of P2_WARPS warps covers 32 rows of one (a, b) at D 64, and the
+// whole of c (786 KB at the probe's shape) is in flight at once.
+constexpr int P2_WARPS = 4;
+constexpr int P2_U = 4;
+
+__global__ void __launch_bounds__(P2_WARPS * 32) dot_2batch(const float* __restrict__ q,
+                                                             const float* __restrict__ c,
+                                                             float* __restrict__ out, int M,
+                                                             int D) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int G = D / 4;
+  int GP = 1;
+  while (GP < G) GP <<= 1;
+  const int per_load = 32 / GP, slot = lane / GP, col = lane % GP;
+  const bool on = col < G;
+  const int rows = P2_WARPS * P2_U * per_load, tiles = (M + rows - 1) / rows;
+  const int ab = blockIdx.x / tiles;
+  const int m0 = (blockIdx.x % tiles) * rows + warp * P2_U * per_load + slot;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 qv = on ? *reinterpret_cast<const float4*>(q + (long)ab * D + col * 4) : zero;
+  float4 cv[P2_U];
+#pragma unroll
+  for (int u = 0; u < P2_U; ++u) {
+    const int m = m0 + u * per_load;
+    cv[u] = on && m < M ? *reinterpret_cast<const float4*>(c + ((long)ab * M + m) * D + col * 4)
+                        : zero;
+  }
+#pragma unroll
+  for (int u = 0; u < P2_U; ++u) {
+    float s = qv.x * cv[u].x;
+    s = fmaf(qv.y, cv[u].y, s);
+    s = fmaf(qv.z, cv[u].z, s);
+    s = fmaf(qv.w, cv[u].w, s);
+    for (int o = GP >> 1; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    const int m = m0 + u * per_load;
+    if (col == 0 && m < M) out[(long)ab * M + m] = s;
+  }
 }
 
 __global__ void dot_1batch(const float* a, const float* b, float* out, int A, int R, int M,
@@ -193,10 +228,16 @@ extern "C" int probe_split_merge(const void* x, void* out, int R, int C, void* s
   return (int)cudaGetLastError();
 }
 
+// q [A, B, 1, D], c [A, B, M, D] float32, 16-byte aligned; D a multiple of 4, at
+// most 128.
 extern "C" int probe_dot_2batch(const void* q, const void* c, void* out, int A, int B, int M,
                                 int D, void* stream) {
-  dot_2batch<<<blocks((long)A * B * M, 256), 256, 0, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)c, (float*)out, A, B, M, D);
+  if (A <= 0 || B <= 0 || M <= 0 || D < 4 || D > 128 || D % 4) return (int)cudaErrorInvalidValue;
+  int GP = 1;
+  while (GP < D / 4) GP <<= 1;
+  const int rows = P2_WARPS * P2_U * (32 / GP);
+  dot_2batch<<<A * B * ((M + rows - 1) / rows), P2_WARPS * 32, 0, (cudaStream_t)stream>>>(
+      (const float*)q, (const float*)c, (float*)out, M, D);
   return (int)cudaGetLastError();
 }
 

@@ -25,7 +25,9 @@ beam search unless ``USE_MEGA_DECODE`` is False. The standard route is
 ``init_cache`` / ``decode_step`` here, layer by layer (unrolled layers
 only; ``scan_layers`` is not ported). Its cache tree keeps the JAX keys:
 ``block_{i}`` -> ``self`` (per-beam K/V rows, written at the step's index)
-/ ``cross`` (per-example K/V of the encoder states, shared by the beams).
+/ ``cross`` (per-example K/V of the encoder states, shared by the beams);
+after the first step, a top-level ``cross`` holds each example's live
+encoder keys (``cross_live_ends``), which every layer's cross kernel takes.
 Each layer's two attentions go through ``ops/decode_attention``: on CUDA
 tensors its two kernels always run, on CPU tensors their plain versions.
 The JAX package reaches those kernels only under ``USE_FUSED_DECODE``,
@@ -43,6 +45,7 @@ from torch import nn
 
 from vidchapters_tpu_torch.config import T5Config
 from vidchapters_tpu_torch.ops.decode_attention import (
+    cross_live_ends,
     decode_cross_attention,
     decode_self_attention,
 )
@@ -245,13 +248,14 @@ class T5Attention(nn.Module):
                                           bias_row, cache_index)
         return self._merge(out), {"k": k, "v": v}
 
-    def decode_cross(self, hidden: torch.Tensor, cache: dict,
-                     key_mask: torch.Tensor) -> torch.Tensor:
+    def decode_cross(self, hidden: torch.Tensor, cache: dict, key_mask: torch.Tensor,
+                     live_ends: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Cross-attention of one decode step over the precomputed K/V, which
         hold one row per example: the ``hidden.shape[0] // k.shape[0]`` beams
-        of an example share it."""
+        of an example share it. ``live_ends``: ``cross_live_ends(key_mask)``."""
         q = self._split(_linear(hidden, self.q, _dtype(self.cfg)))
-        return self._merge(decode_cross_attention(q, cache["k"], cache["v"], key_mask))
+        return self._merge(decode_cross_attention(q, cache["k"], cache["v"], key_mask,
+                                                  live_ends))
 
     def precompute_kv(self, kv: torch.Tensor) -> dict:
         dt = _dtype(self.cfg)
@@ -308,13 +312,14 @@ class T5Block(nn.Module):
         return x + _apply_dropout(h, dropout_rate, rng)
 
     def decode(self, x: torch.Tensor, self_bias: torch.Tensor, cache: dict,
-               cache_index: int, cross_key_mask: torch.Tensor):
+               cache_index: int, cross_key_mask: torch.Tensor,
+               cross_live: Optional[torch.Tensor] = None):
         """One decode step of a decoder block: ``(x, {"self", "cross"})``."""
         normed = self.self_attn_norm(x)
         h, self_kv = self.self_attn.decode_self(normed, cache["self"], cache_index, self_bias)
         x = x + h
         x = x + self.cross_attn.decode_cross(self.cross_attn_norm(x), cache["cross"],
-                                             cross_key_mask)
+                                             cross_key_mask, cross_live)
         x = x + self.ff(self.ff_norm(x))
         return x, {"self": self_kv, "cross": cache["cross"]}
 
@@ -387,10 +392,13 @@ class T5Stack(nn.Module):
         ``decode_bias_table``."""
         x = token_embeds.to(_dtype(self.cfg))
         self_bias = bias_table[cache_index][None, :, None, :]        # [1, H, 1, L]
-        new_cache = {}
+        # each example's live encoder keys, found at the first step and kept
+        # in the cache under "cross", which the beam reorder passes by
+        cross = cache.get("cross") or {"live": cross_live_ends(enc_mask)}
+        new_cache = {"cross": cross}
         for i, blk in enumerate(self.blocks):
             x, new_cache[f"block_{i}"] = blk.decode(x, self_bias, cache[f"block_{i}"],
-                                                    cache_index, enc_mask)
+                                                    cache_index, enc_mask, cross["live"])
         return self.final_norm(x), new_cache
 
 

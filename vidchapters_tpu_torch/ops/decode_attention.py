@@ -11,12 +11,14 @@ takes it only under ``USE_FUSED_DECODE``, the port's standard decode always.
   attend over the cache with the pre-masked bias row (``NEG_INF`` past the
   index); scores, softmax and p.v in fp32, output in q's dtype.
 - cross: ``g = q.shape[0] // k.shape[0]`` beams per example share that
-  example's K/V; masked keys score ``NEG_INF``; fp32 softmax and p.v.
+  example's K/V; masked keys score ``NEG_INF``; fp32 softmax and p.v. The
+  kernel reads each example's live keys only (``cross_live_ends``), which a
+  caller finds once per decode call and passes to every launch.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,14 +28,13 @@ from vidchapters_tpu_torch.ops._build import (I, P, CudaKernel, arrival_counters
 NEG_INF = -1e9
 MAX_GROUP = 8    # beams per example the cross kernel takes
 MAX_HEAD_DIM = 128
-TILE_KEYS = 32   # keys per tile of the cross kernel (TK there)
 
 # one library, two entry points: a CudaKernel for each, so that each counts
 # its own launches
 SELF_KERNEL = CudaKernel("decode_attention",
                          {"decode_self_attention": [P] * 9 + [I] * 8 + [P]})
 CROSS_KERNEL = CudaKernel("decode_attention",
-                          {"decode_cross_attention": [P] * 7 + [I] * 8 + [P]})
+                          {"decode_cross_attention": [P] * 8 + [I] * 7 + [P]})
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -147,20 +148,32 @@ def _launch_self(q, k_new, v_new, k_cache, v_cache, bias_row, idx: int, splits: 
     return out, k_cache, v_cache
 
 
-def cross_splits(b0: int, heads: int, lk: int, sm_count: int) -> Tuple[int, int]:
-    """``(splits, span)``: the cross kernel's keys go to ``splits`` blocks of
-    ``span`` keys per (example, head), enough blocks for two per SM while
-    each split keeps at least 4 tiles."""
-    tiles = -(-lk // TILE_KEYS)
-    splits = max(1, min(tiles // 4, -(-2 * sm_count // (b0 * heads))))
-    return splits, -(-tiles // splits) * TILE_KEYS
+def cross_live_ends(key_mask: torch.Tensor) -> torch.Tensor:
+    """``[B0]`` int32: each example's live keys for the cross kernel, up to
+    and including its last unmasked key, or all ``Lk`` keys where none is
+    unmasked (every key then scores ``NEG_INF`` alike, and the output is the
+    mean of V over all of them). A masked key past the end adds exactly 0
+    once one key is live, so the kernel reads no K/V row beyond it."""
+    lk = key_mask.shape[1]
+    pos = torch.arange(1, lk + 1, dtype=torch.int32, device=key_mask.device)
+    ends = ((key_mask > 0) * pos).amax(dim=1)
+    return torch.where(ends > 0, ends, lk).to(torch.int32)
+
+
+def cross_blocks(b0: int, heads: int, sm_count: int) -> int:
+    """The cross kernel's grid: two blocks per SM, and one per (example,
+    head) at least. The kernel sizes its chunks of live keys to it."""
+    return max(2 * sm_count, b0 * heads)
 
 
 def decode_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           key_mask: torch.Tensor) -> torch.Tensor:
+                           key_mask: torch.Tensor,
+                           live_ends: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One cross-attention decode step: q ``[B0*g, H, 1, D]`` (beam-major
     within each example) over per-example k / v ``[B0, H, Lk, D]`` under
-    key_mask ``[B0, Lk]``. Returns ``[B0*g, H, 1, D]`` in q's dtype."""
+    key_mask ``[B0, Lk]``. Returns ``[B0*g, H, 1, D]`` in q's dtype.
+    ``live_ends``: ``cross_live_ends(key_mask)``, which the kernel takes;
+    derived here when not given."""
     if q.device.type == "cpu":
         return decode_cross_attention_plain(q, k, v, key_mask)
     fn = "decode_cross_attention"
@@ -170,24 +183,29 @@ def decode_cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if rows % b0 or not 1 <= rows // b0 <= MAX_GROUP:
         raise ValueError(f"{fn}: {rows} query rows is not {b0} examples x a group of "
                          f"1..{MAX_GROUP} beams")
-    g = rows // b0
     q = q.contiguous()
     _check(fn, "q", q, (rows, heads, 1, d), q.dtype)
     for name, t in (("k", k), ("v", v)):
         _check(fn, name, t, (b0, heads, lk, d), q.dtype, vectors=True)
     mask = key_mask.to(torch.int32).contiguous()
     _check(fn, "key_mask", mask, (b0, lk), torch.int32)
+    live = cross_live_ends(mask) if live_ends is None else live_ends.contiguous()
+    _check(fn, "live_ends", live, (b0,), torch.int32)
+    return _launch_cross(q, k, v, mask, live, cross_blocks(b0, heads, sm_count(q.device.index)))
+
+
+def _launch_cross(q, k, v, mask, live, blocks: int) -> torch.Tensor:
+    """Launch the cross kernel on checked, contiguous inputs over a grid of
+    ``blocks``."""
+    b0, heads, lk, d = k.shape
+    g = q.shape[0] // b0
     out = torch.empty_like(q)
-    splits, span = cross_splits(b0, heads, lk, sm_count(q.device.index))
-    # per split: g running maxima, g sums, g x d accumulators; a counter per
-    # (example, head) tells the last split to merge them
-    part = arrived = None
-    if splits > 1:
-        part = torch.empty(b0 * heads * splits * g * (d + 2), dtype=torch.float32,
-                           device=q.device)
-        arrived = torch.zeros(b0 * heads, dtype=torch.int32, device=q.device)
+    # per item: g running maxima, g sums, g x d accumulators; a counter per
+    # (example, head) tells the last chunk to merge them
+    part = torch.empty(blocks * g * (d + 2), dtype=torch.float32, device=q.device)
+    arrived = arrival_counters(q.device, b0 * heads)
     CROSS_KERNEL.launch("decode_cross_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                        mask.data_ptr(), out.data_ptr(),
-                        *(0 if t is None else t.data_ptr() for t in (part, arrived)),
-                        b0, g, heads, lk, d, splits, span, _DTYPE_CODE[q.dtype], stream_ptr())
+                        mask.data_ptr(), live.data_ptr(), out.data_ptr(), part.data_ptr(),
+                        arrived.data_ptr(), b0, g, heads, lk, d, blocks, _DTYPE_CODE[q.dtype],
+                        stream_ptr())
     return out

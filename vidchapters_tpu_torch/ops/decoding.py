@@ -69,8 +69,8 @@ def make_decode_fns(model, max_length: int) -> DecodeFns:
 def reorder_beam_cache(cache, flat_src: torch.Tensor):
     """Permute a decode cache's per-beam rows to follow the surviving beams:
     a row gather of every tensor whose leading dimension is the beam-flat
-    row count, except under any ``cross`` key (per-example K/V, which the
-    beams share)."""
+    row count, except under any ``cross`` key (per-example K/V and live
+    encoder keys, which the beams share)."""
     rows = flat_src.shape[0]
     src = flat_src.long()
 

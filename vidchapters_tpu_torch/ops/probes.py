@@ -65,7 +65,17 @@ def dot_2batch_plain(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 def dot_2batch(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     if not _cuda(q, c):
         return dot_2batch_plain(q, c)
+    return _launch_dot_2batch(q, c)
+
+
+def _launch_dot_2batch(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Launch p2's kernel on contiguous inputs of one device."""
     a, b, m, d = c.shape
+    if (tuple(q.shape) != (a, b, 1, d) or d % 4 or not 4 <= d <= 128
+            or q.dtype != torch.float32 or c.dtype != torch.float32
+            or q.data_ptr() % 16 or c.data_ptr() % 16):
+        raise ValueError("dot_2batch takes float32 q [A, B, 1, D] and c [A, B, M, D] on "
+                         "16-byte boundaries, D a multiple of 4 in [4, 128]")
     out = torch.empty(a, b, 1, m, dtype=torch.float32, device=q.device)
     KERNEL.launch("probe_dot_2batch", q.data_ptr(), c.data_ptr(), out.data_ptr(), a, b, m, d,
                   stream_ptr())
