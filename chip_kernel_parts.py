@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where two of the port's decode-path numbers come from, on one GPU.
+"""Where the port's kernel-part numbers and A/B comparisons come from, on one GPU.
 
     python3 chip_kernel_parts.py
 
@@ -39,6 +39,24 @@
    found once where the wrapper takes them), also with the L2 cache flushed
    by a 64 MB read before each call, and at p2's [8,12,1,64] .
    [8,12,32,64] f32.
+
+    python3 chip_kernel_parts.py --deform-ab DIR
+
+6. The deformable attention's forward and backward (rows 7 and 7b) and
+   probe p3 of this tree against those of another checkout DIR, the same
+   way: device time by CUDA-graph replay at chip_smoke's PDVC shapes (value
+   [1,188,8,64], 4 levels x 4 points, the encoder's 188 and the decoder's
+   100 queries, f32; the backward with whatever zeroing of dvalue its
+   wrapper does) and at p3's [12,8,64] . [12,64,32] f32 on random inputs.
+
+    python3 chip_kernel_parts.py --pdvc-ab DIR
+
+7. PDVC end to end for this tree and the checkout DIR: chip_smoke's phase
+   6 (pdvc_main at configs/chapters_pdvc.json, with its launch counts and
+   fp32 checks) run by each tree in its own process, in turns DIR, this,
+   this, DIR; for each, train ms/step after the first step and the
+   profiled train step's device ms by kernel group (the deformable
+   attention's among them).
 
 Prints one JSON object; needs the card (exits 1 without one).
 """
@@ -161,9 +179,61 @@ def cross_times(root: str) -> dict:
     return out
 
 
+def deform_times(root: str) -> dict:
+    """Device ms of the deformable attention's forward and backward of the
+    checkout at ``root`` at PDVC's shapes (Lq 188 and 100), and of its
+    probe p3."""
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(root).resolve()))
+    import torch
+
+    import chip_smoke as cs
+    from vidchapters_tpu_torch.ops import deformable_attention as da
+    from vidchapters_tpu_torch.ops import probes as pb
+
+    assert Path(cs.__file__).resolve().parent == Path(root).resolve(), cs.__file__
+    gen = torch.Generator().manual_seed(3)
+    out = {}
+    for lq in (cs.PDVC_ENC_LQ, cs.PDVC_DEC_LQ):
+        value, loc, attn, grad = cs._deformable_inputs(gen, lq)
+        out[f"fwd_lq{lq}"] = cs.time_ms_graph(
+            lambda: da.deformable_attention_1d(value, cs.PDVC_LEVELS, loc, attn))
+        out[f"bwd_lq{lq}"] = cs.time_ms_graph(
+            lambda: da.deformable_attention_1d_bwd(value, cs.PDVC_LEVELS, loc, attn, grad))
+    g = torch.Generator(device="cuda").manual_seed(5)
+    a, b = torch.randn(12, 8, 64, generator=g, device="cuda"), torch.randn(
+        12, 64, 32, generator=g, device="cuda")
+    out["p3"] = cs.time_ms_graph(lambda: pb.dot_1batch(a, b))
+    out["p3_bmm"] = cs.time_ms_graph(lambda: torch.bmm(a, b))
+    return out
+
+
+def pdvc_times(root: str) -> dict:
+    """chip_smoke's phase 6 of the checkout at ``root``: train ms/step after
+    the first, and the profiled train step's device ms by kernel group."""
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(root).resolve()))
+    import torch
+
+    import chip_smoke as cs
+
+    assert Path(cs.__file__).resolve().parent == Path(root).resolve(), cs.__file__
+    torch.backends.cuda.matmul.allow_tf32 = False  # as chip_smoke.main sets them
+    torch.backends.cudnn.allow_tf32 = False
+    summary, launches = cs.phase_pdvc("")
+    prof = summary["profile"]["train_step"]
+    return {"train_step_ms_mean_after_first": summary["train_step_ms_mean_after_first"],
+            "train_step_device_ms_by_group": prof["by_group_ms"],
+            "train_step_device_busy_ms": prof["device_busy_ms"],
+            "train_step_profiled_wall_ms": prof["wall_ms"], "launches": launches}
+
+
 def ab(other: str, what: str) -> dict:
-    """``what`` ("whisper", "t5" or "cross") times of ``other`` and of this tree,
-    each in a process of its own, in turns other, this, this, other."""
+    """``what`` ("whisper", "t5", "cross", "deform" or "pdvc") times of
+    ``other`` and of this tree, each in a process of its own, in turns
+    other, this, this, other."""
     from pathlib import Path
 
     here = str(Path(__file__).resolve().parent)
@@ -185,13 +255,15 @@ def main() -> int:
         print("FAIL: CUDA is not available; this script measures on a GPU", flush=True)
         return 1
     times = {"--whisper-times": whisper_times, "--t5-times": t5_times,
-             "--cross-times": cross_times}
+             "--cross-times": cross_times, "--deform-times": deform_times,
+             "--pdvc-times": pdvc_times}
     if len(sys.argv) == 3 and sys.argv[1] in times:
         print(json.dumps(times[sys.argv[1]](sys.argv[2])), flush=True)
         return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
-    if len(sys.argv) == 3 and sys.argv[1] in ("--whisper-ab", "--t5-ab", "--cross-ab"):
+    if len(sys.argv) == 3 and sys.argv[1] in ("--whisper-ab", "--t5-ab", "--cross-ab",
+                                              "--deform-ab", "--pdvc-ab"):
         what = sys.argv[1][2:-3]
         print(json.dumps({"card": card, f"{what}_ab_ms": ab(sys.argv[2], what)}, indent=1),
               flush=True)

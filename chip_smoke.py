@@ -31,10 +31,11 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    examples),
    PDVC's deformable attention forward and backward at the encoder's
    188 and the decoder's 100 queries over value [1, 188, 8, 64] (locations
-   past both borders and on pixel centres), the Whisper decode kernel at
+   past both borders and on pixel centres; two backward runs bit-identical;
+   both parts timed at both query counts), the Whisper decode kernel at
    large-v2 width (fp32 and bf16, cross K/V int8 and unquantized, greedy 8
    rows and beam 2 x 5 and 8 x 5, cache indices 0/100/223), and the seven feature
-   probes against their known answers.
+   probes against their known answers (p2 and p3 also on random inputs).
    Each kernel's time (CUDA events), its plain version's time, the one-call
    library yardstick where one exists, and its bound; the fused attention
    also in its serving form (no dropout, no lse) and its two cross forms,
@@ -1258,21 +1259,25 @@ def check_deformable_attention(gen):
     plain versions at PDVC's shapes: the encoder's 188 queries and the
     decoder's 100 over value [1, 188, 8, 64], 4 levels x 4 points, float32.
     Forward within 1e-5; dloc and dattn within 1e-4 of their largest
-    element; dvalue (fp32 atomics, any order) within 1e-5 of its norm.
-    Timed at the encoder's shape by CUDA-graph replay; the yardstick is the
-    reference's grid_sample fallback (no single PyTorch call computes this
-    function), forward and, through autograd, backward."""
+    element; dvalue within 1e-5 of its norm, and bit-identical on a second
+    launch (the cluster route sums it in shared memory, in a fixed order).
+    Each part timed at both query counts by CUDA-graph replay (the row's
+    ``ms`` at the encoder's 188, ``lq100`` at the decoder's); the yardstick
+    is the reference's grid_sample fallback (no single PyTorch call computes
+    this function), forward and, through autograd, backward."""
     import torch
 
     from vidchapters_tpu_torch.ops import deformable_attention as da
 
     shapes = PDVC_LEVELS
     errs = {"fwd": 0.0, "dvalue": 0.0, "dloc": 0.0, "dattn": 0.0, "bwd_max_abs": 0.0}
+    inputs = {}
     for lq in (PDVC_ENC_LQ, PDVC_DEC_LQ):
-        value, loc, attn, grad = _deformable_inputs(gen, lq)
+        value, loc, attn, grad = inputs[lq] = _deformable_inputs(gen, lq)
         out = da.deformable_attention_1d(value, shapes, loc, attn)
         ref = da.deformable_attention_1d_plain(value, shapes, loc, attn)
         got = da.deformable_attention_1d_bwd(value, shapes, loc, attn, grad)
+        again = da.deformable_attention_1d_bwd(value, shapes, loc, attn, grad)
         want = da.deformable_attention_1d_bwd_plain(value, shapes, loc, attn, grad)
         torch.cuda.synchronize()
         err = {"fwd": (out - ref).abs().max().item(),
@@ -1280,56 +1285,75 @@ def check_deformable_attention(gen):
                "dloc": ((got[1] - want[1]).abs().max() / want[1].abs().max()).item(),
                "dattn": ((got[2] - want[2]).abs().max() / want[2].abs().max()).item(),
                "bwd_max_abs": max((a - b).abs().max().item() for a, b in zip(got, want))}
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
         say(f"[check] deformable_attention Lq {lq} over value [1,188,8,64] f32: fwd max_abs_err "
             f"{err['fwd']:.3e} (tol 1e-5); dvalue {err['dvalue']:.3e} of its norm (tol 1e-5), "
-            f"dloc {err['dloc']:.3e} and dattn {err['dattn']:.3e} of their max (tol 1e-4)")
+            f"dloc {err['dloc']:.3e} and dattn {err['dattn']:.3e} of their max (tol 1e-4); "
+            f"a second backward bit-identical: {same}")
         check(err["fwd"] <= 1e-5, f"deformable forward Lq {lq}: err {err['fwd']}")
         check(err["dvalue"] <= 1e-5, f"deformable dvalue Lq {lq}: {err['dvalue']}")
         check(err["dloc"] <= 1e-4 and err["dattn"] <= 1e-4,
               f"deformable dloc / dattn Lq {lq}: {err['dloc']} / {err['dattn']}")
+        check(same, f"deformable backward Lq {lq}: two launches differ")
         errs = {k: max(v, err[k]) for k, v in errs.items()}
-    value, loc, attn, grad = _deformable_inputs(gen, PDVC_ENC_LQ)
+    value, loc, attn, _ = inputs[PDVC_ENC_LQ]
     lib_out = _grid_sample_fallback(value, loc, attn)
     check((lib_out - da.deformable_attention_1d_plain(value, shapes, loc, attn)).abs().max()
           .item() <= 1e-4, "the grid_sample fallback does not compute the same function")
-    leaves = [t.detach().requires_grad_(True) for t in (value, loc, attn)]
 
-    def library_bwd():
-        with torch.enable_grad():
-            return torch.autograd.grad(_grid_sample_fallback(*leaves), leaves, grad)
+    def times(lq):
+        """{part: (ms, plain ms, library ms, bound ms, bound by, eager ms)} at Lq."""
+        value, loc, attn, grad = inputs[lq]
+        leaves = [t.detach().requires_grad_(True) for t in (value, loc, attn)]
 
-    timed = {
-        "fwd": (lambda: da.deformable_attention_1d(value, shapes, loc, attn),
-                lambda: da.deformable_attention_1d_plain(value, shapes, loc, attn),
-                lambda: _grid_sample_fallback(value, loc, attn)),
-        "bwd": (lambda: da.deformable_attention_1d_bwd(value, shapes, loc, attn, grad),
-                lambda: da.deformable_attention_1d_bwd_plain(value, shapes, loc, attn, grad),
-                library_bwd)}
-    # bytes: each input read once, each output written once (fp32); operations:
-    # 2 multiplies and 2 adds per channel and sample forward, 4 more backward
-    # (two dot products) and 4 for the two dvalue updates
-    lq, m, d = PDVC_ENC_LQ, PDVC_HEADS, PDVC_DHEAD
-    samples = lq * m * len(shapes) * PDVC_POINTS
-    v_bytes, s_bytes, o_bytes = 4 * sum(shapes) * m * d, 4 * samples, 4 * lq * m * d
-    work = {"fwd": (v_bytes + 2 * s_bytes + o_bytes, 4 * samples * d),
-            "bwd": (2 * v_bytes + 4 * s_bytes + o_bytes, 12 * samples * d)}
+        def library_bwd():
+            with torch.enable_grad():
+                return torch.autograd.grad(_grid_sample_fallback(*leaves), leaves, grad)
+
+        timed = {
+            "fwd": (lambda: da.deformable_attention_1d(value, shapes, loc, attn),
+                    lambda: da.deformable_attention_1d_plain(value, shapes, loc, attn),
+                    lambda: _grid_sample_fallback(value, loc, attn)),
+            "bwd": (lambda: da.deformable_attention_1d_bwd(value, shapes, loc, attn, grad),
+                    lambda: da.deformable_attention_1d_bwd_plain(value, shapes, loc, attn, grad),
+                    library_bwd)}
+        # bytes: each input read once, each output written once (fp32); operations:
+        # 2 multiplies and 2 adds per channel and sample forward, 4 more backward
+        # (two dot products) and 4 for the two dvalue updates
+        m, d = PDVC_HEADS, PDVC_DHEAD
+        samples = lq * m * len(shapes) * PDVC_POINTS
+        v_bytes, s_bytes, o_bytes = 4 * sum(shapes) * m * d, 4 * samples, 4 * lq * m * d
+        work = {"fwd": (v_bytes + 2 * s_bytes + o_bytes, 4 * samples * d),
+                "bwd": (2 * v_bytes + 4 * s_bytes + o_bytes, 12 * samples * d)}
+        res = {}
+        for part, (kernel, plain, library) in timed.items():
+            bms, by = bound(*work[part], H100_FP32_FLOPS)
+            res[part] = {"ms": time_ms_graph(kernel), "plain_ms": time_ms_graph(plain),
+                         "library_ms": time_ms_graph(library), "bound_ms": bms, "bound_by": by,
+                         "eager_ms": {"kernel": time_ms(kernel, 50), "plain": time_ms(plain, 20),
+                                      "library": time_ms(library, 20)}}
+        return res
+
+    by_lq = {lq: times(lq) for lq in (PDVC_ENC_LQ, PDVC_DEC_LQ)}
     rows = []
-    for part, (kernel, plain, library) in timed.items():
-        ms, eager = time_ms_graph(kernel), time_ms(kernel, 50)
-        bms, by = bound(*work[part], H100_FP32_FLOPS)
+    for part in ("fwd", "bwd"):
+        enc, dec = by_lq[PDVC_ENC_LQ][part], by_lq[PDVC_DEC_LQ][part]
         rows.append({
             "name": f"deformable_attention_{part}", "route": "cuda",
             "source": "vidchapters_tpu_torch/csrc/deformable_attention.cu",
             "replaces": ("vidchapters_tpu/ops/deformable_attention.py:217" if part == "fwd" else
                          "vidchapters_tpu/ops/deformable_attention.py:266 (custom VJP of :217)"),
             "max_abs_err": errs["fwd"] if part == "fwd" else errs["bwd_max_abs"],
-            "errors": errs, "ms": ms, "plain_ms": time_ms_graph(plain), "bound_ms": bms,
-            "bound_by": by, "library_ms": time_ms_graph(library), "timing": TIMING_GRAPH,
-            "eager_ms": {"kernel": eager, "plain": time_ms(plain, 20),
-                         "library": time_ms(library, 20)},
+            "errors": errs, **{k: enc[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "library_ms", "eager_ms")},
+            f"lq{PDVC_DEC_LQ}": dec, "timing": TIMING_GRAPH,
             "library": "reference fallback, 5+ calls: 4 x grid_sample(bilinear, border) + "
                        "weighted sum" + (" (forward + autograd backward)" if part == "bwd" else ""),
-            "shape": f"value [1,188,8,64], loc/attn [1,{lq},8,4,4] f32, levels {shapes}"})
+            "shape": f"value [1,188,8,64], loc/attn [1,{PDVC_ENC_LQ},8,4,4] f32 (lq{PDVC_DEC_LQ}: "
+                     f"[1,{PDVC_DEC_LQ},8,4,4]), levels {shapes}"})
+        say(f"[time] deformable_attention_{part}: Lq {PDVC_ENC_LQ} {enc['ms']:.6f} ms, Lq "
+            f"{PDVC_DEC_LQ} {dec['ms']:.6f} ms (bounds {enc['bound_ms']:.6f}, "
+            f"{dec['bound_ms']:.6f})")
     torch.cuda.synchronize()
     return rows
 
@@ -1574,8 +1598,8 @@ def check_whisper_megakernel(gen):
 
 def check_probes():
     """The seven feature probes (csrc/probes.cu) against their known answers
-    and their plain versions, exactly, and p2 on seeded random inputs within
-    1e-5 of its plain version's largest output; each timed by CUDA-graph
+    and their plain versions, exactly, and p2 and p3 on seeded random inputs
+    within 1e-5 of their plain versions' largest output; each timed by CUDA-graph
     replay. The grid-cell probe's time per cell of its (12 x 8) grid is
     run_probes'."""
     import torch
@@ -1597,6 +1621,11 @@ def check_probes():
     ref = pb.dot_2batch_plain(q, c)
     p2_rel = ((pb.dot_2batch(q, c) - ref).abs().max() / ref.abs().max()).item()
     check(p2_rel <= 1e-5, f"probe p2 on random inputs: {p2_rel:.3e} of the largest output")
+    a3, b3 = torch.randn(12, 8, 64, generator=gen, device="cuda"), torch.randn(
+        12, 64, 32, generator=gen, device="cuda")
+    ref = pb.dot_1batch_plain(a3, b3)
+    p3_rel = ((pb.dot_1batch(a3, b3) - ref).abs().max() / ref.abs().max()).item()
+    check(p3_rel <= 1e-5, f"probe p3 on random inputs: {p3_rel:.3e} of the largest output")
     rows = []
     for pr in pb.PROBES:
         xs = pr.inputs(torch.device("cuda"))
@@ -1617,9 +1646,12 @@ def check_probes():
             row["us_per_cell"] = results[pr.name]["us_per_cell"]
         if pr.name == "dot_general_2batch":
             row["random_rel_err"] = p2_rel
+        if pr.name == "dot_general_1batch_3d":
+            row["random_rel_err"] = p3_rel
         rows.append(row)
     say("[check] probes p1-p7: every output equals its known answer and its plain version "
-        f"(p5: 12 x 32 per row); p2 on random inputs {p2_rel:.3e} of the largest output; "
+        f"(p5: 12 x 32 per row); p2 and p3 on random inputs {p2_rel:.3e} and {p3_rel:.3e} of "
+        f"the largest output; "
         f"p7 {rows[-1]['us_per_cell']:.3f} us per cell")
     return rows
 

@@ -34,6 +34,8 @@ PTX_BODIES = {
 KERNEL_PTX_BODIES = {
     "prefetch_l2": "(void)p;",
     "global_ns": "return emu::now_ns();",
+    "cluster_arrive": "emu::cluster_arrive();",
+    "cluster_wait": "emu::cluster_wait();",
 }
 
 
@@ -67,7 +69,7 @@ def emulated_library(name: str, out: Path) -> Path:
     for other in CSRC.glob("*.cuh"):
         if other.name != "tensor_core.cuh":
             (out / other.name).write_text(_kernel_ptx(other.read_text()))
-    for stub in ("cuda_runtime.h", "cuda_bf16.h", "math_constants.h"):
+    for stub in ("cuda_runtime.h", "cuda_bf16.h", "math_constants.h", "cooperative_groups.h"):
         (out / stub).write_text('#include "emu_rt.h"\n')
     src = _kernel_ptx((CSRC / f"{name}.cu").read_text())
     src = re.sub(r"(\w+(?:<[^;<>]*>)?)\s*<<<(.*?)>>>\s*\(", r"vc_bind(\1, \2)(", src,

@@ -1,19 +1,24 @@
 // A CPU stand-in for the CUDA runtime and warp primitives that the fused
-// attention, top-k, decode-attention, Whisper and T5 decode kernels use, so
-// that their sources compile with g++ and run on the CPU in tests
-// (tests/test_torch_*_emulated.py).
+// attention, top-k, decode-attention, Whisper and T5 decode, probe and
+// deformable-attention kernels use, so that their sources compile with g++
+// and run on the CPU in tests (tests/test_torch_*_emulated.py).
 //
 // Each CUDA thread is an OS thread. The blocks of a grid launched with <<<>>>
 // run one after another, so a block that counts arrivals with atomics meets
 // every other block of the grid finished. A cooperative launch
 // (cudaLaunchKernelEx with cudaLaunchAttributeCooperative) runs all its
 // blocks at once, as a grid barrier needs; the SM count it reads is
-// $EMU_SM_COUNT (default 2). Each block has its own blockIdx, warps, block
+// $EMU_SM_COUNT (default 2). A launch with a cluster dimension (x only) runs
+// the blocks of one cluster at once, one cluster after another, and
+// cooperative_groups::this_cluster() gives its barrier, the block's rank and
+// map_shared_rank into another block's dynamic shared memory. Each block has
+// its own blockIdx, warps, block
 // barrier and dynamic shared memory; a static __shared__ array is one object
 // for the whole grid, so a cooperative kernel keeps its shared memory
 // dynamic. __syncthreads is a barrier of the block's threads; atomics are the
-// compiler's, and __threadfence a full fence. The warp collectives (shuffles,
-// ldmatrix, mma.sync) post each lane's operands into the warp's exchange
+// compiler's (float ones through std::atomic_ref), and __threadfence a full
+// fence. The warp collectives (shuffles, votes, ldmatrix, mma.sync) post each
+// lane's operands into the warp's exchange
 // buffer, meet at the warp's barrier, compute every lane's result from all
 // 32 posts by the PTX ISA's fragment layouts, and meet again before the
 // buffer is reused. cp.async copies at once; its groups need no waiting.
@@ -29,7 +34,9 @@
 #include <cstdlib>
 #include <cstring>
 #include <memory>
+#include <optional>
 #include <thread>
+#include <type_traits>
 #include <vector>
 #include <stddef.h>
 
@@ -59,8 +66,12 @@ typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9,
        cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
-enum cudaLaunchAttributeID { cudaLaunchAttributeCooperative = 2 };
-struct cudaLaunchAttributeValue { int cooperative; };
+enum cudaLaunchAttributeID { cudaLaunchAttributeCooperative = 2,
+                             cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttributeValue {
+  int cooperative;
+  struct { unsigned x, y, z; } clusterDim;
+};
 struct cudaLaunchAttribute {
   cudaLaunchAttributeID id;
   cudaLaunchAttributeValue val;
@@ -74,6 +85,10 @@ struct cudaLaunchConfig_t {
 };
 template <class T> cudaError_t cudaFuncSetAttribute(T, int, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t = nullptr) {
+  std::memset(p, v, n);
+  return 0;
+}
 inline cudaError_t cudaGetDevice(int* dev) {
   *dev = 0;
   return 0;
@@ -114,6 +129,8 @@ inline float rsqrtf(float x) { return 1.f / std::sqrt(x); }
 using std::max;
 using std::min;
 inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline float __fsub_rn(float a, float b) { return a - b; }
 
 namespace emu {
@@ -122,10 +139,17 @@ struct Warp {
   std::unique_ptr<std::barrier<>> bar;
   alignas(16) unsigned char buf[32][128];
 };
+struct Cluster;
 struct Block {
   std::vector<Warp> warps;
   std::unique_ptr<std::barrier<>> bar;
   std::unique_ptr<unsigned char[]> smem;  // operator new[]: 16-byte aligned
+  Cluster* cluster = nullptr;             // the blocks launched with it, if any
+  unsigned rank = 0;                      // its rank in the cluster
+};
+struct Cluster {
+  std::vector<Block*> blocks;
+  std::unique_ptr<std::barrier<>> bar;  // every thread of every block
 };
 inline thread_local Block* block;
 inline int lane() { return threadIdx.x & 31; }
@@ -163,10 +187,29 @@ template <class T> inline T __shfl_sync(unsigned, T v, int src) {
   emu::done();
   return r;
 }
+inline unsigned __ballot_sync(unsigned, int pred) {
+  emu::post(pred != 0);
+  unsigned r = 0;
+  for (int l = 0; l < 32; ++l) r |= (unsigned)emu::at<bool>(l) << l;
+  emu::done();
+  return r;
+}
+inline int __any_sync(unsigned m, int pred) { return __ballot_sync(m, pred) != 0; }
+inline unsigned __match_any_sync(unsigned, int v) {
+  emu::post(v);
+  unsigned r = 0;
+  for (int l = 0; l < 32; ++l) r |= (unsigned)(emu::at<int>(l) == v) << l;
+  emu::done();
+  return r;
+}
 inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+inline float atomicAdd(float* p, float v) { return std::atomic_ref<float>(*p).fetch_add(v); }
 inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
 inline unsigned atomicAdd(unsigned* p, unsigned v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
+}
+inline unsigned atomicOr(unsigned* p, unsigned v) {
+  return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);
 }
 inline unsigned atomicExch(unsigned* p, unsigned v) {
   return __atomic_exchange_n(p, v, __ATOMIC_SEQ_CST);
@@ -258,8 +301,10 @@ inline std::unique_ptr<Block> new_block(int nt) {
   std::memset(b->smem.get(), 0xff, SMEM_BYTES);
   return b;
 }
-// The blocks of grid g one after another, or all at once when `together`.
-template <class F> void run_grid(dim3 g, dim3 b, F f, bool together = false) {
+// The blocks of grid g one after another, all at once when `together`, or
+// `cluster` consecutive blocks along x at once (gridDim.x a multiple of it).
+template <class F> void run_grid(dim3 g, dim3 b, F f, bool together = false,
+                                 unsigned cluster = 1) {
   gridDim = g;
   blockDim = b;
   const int nt = b.x * b.y * b.z;
@@ -267,13 +312,23 @@ template <class F> void run_grid(dim3 g, dim3 b, F f, bool together = false) {
   for (unsigned z = 0; z < g.z; ++z)
     for (unsigned y = 0; y < g.y; ++y)
       for (unsigned x = 0; x < g.x; ++x) ids.push_back({x, y, z});
-  const size_t wave = together ? ids.size() : 1;
+  if (cluster > 1 && g.x % cluster != 0) std::abort();
+  const size_t wave = together ? ids.size() : cluster;
   for (size_t i0 = 0; i0 < ids.size(); i0 += wave) {
     std::vector<std::unique_ptr<Block>> blocks;
     std::vector<std::thread> threads;
+    Cluster cl;
+    cl.bar = std::make_unique<std::barrier<>>(nt * (std::ptrdiff_t)wave);
     for (size_t i = i0; i < i0 + wave; ++i) {
       blocks.push_back(new_block(nt));
-      Block* blk = blocks.back().get();
+      if (cluster > 1) {
+        blocks.back()->cluster = &cl;
+        blocks.back()->rank = (unsigned)(i - i0);
+        cl.blocks.push_back(blocks.back().get());
+      }
+    }
+    for (size_t i = i0; i < i0 + wave; ++i) {
+      Block* blk = blocks[i - i0].get();
       const uint3 id = ids[i];
       for (int t = 0; t < nt; ++t)
         threads.emplace_back([&f, blk, id, t] {
@@ -297,9 +352,51 @@ template <class K> auto vc_bind(K kern, dim3 g, dim3 b, size_t = 0, void* = null
 template <class... P, class... A>
 cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kern)(P...), A... args) {
   bool coop = false;
-  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+  unsigned cluster = 1;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i) {
     coop = coop || (cfg->attrs[i].id == cudaLaunchAttributeCooperative &&
                     cfg->attrs[i].val.cooperative != 0);
-  emu::run_grid(cfg->gridDim, cfg->blockDim, [&]() { kern(args...); }, coop);
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension) {
+      if (cfg->attrs[i].val.clusterDim.y != 1 || cfg->attrs[i].val.clusterDim.z != 1)
+        std::abort();
+      cluster = cfg->attrs[i].val.clusterDim.x;
+    }
+  }
+  emu::run_grid(cfg->gridDim, cfg->blockDim, [&]() { kern(args...); }, coop, cluster);
   return 0;
 }
+
+namespace emu {
+inline thread_local std::optional<std::barrier<>::arrival_token> cluster_token;
+// barrier.cluster.arrive / wait: the two halves of the cluster's barrier
+inline void cluster_arrive() {
+  if (block->cluster != nullptr) cluster_token = block->cluster->bar->arrive();
+  else __syncthreads();
+}
+inline void cluster_wait() {
+  if (block->cluster != nullptr) block->cluster->bar->wait(std::move(*cluster_token));
+}
+}  // namespace emu
+
+namespace cooperative_groups {
+// The cluster of the running block (the block alone when it was launched
+// without one).
+struct cluster_group {
+  void sync() const {
+    if (emu::block->cluster != nullptr) emu::block->cluster->bar->arrive_and_wait();
+    else __syncthreads();
+  }
+  unsigned block_rank() const { return emu::block->rank; }
+  unsigned num_blocks() const {
+    return emu::block->cluster != nullptr ? (unsigned)emu::block->cluster->blocks.size() : 1;
+  }
+  // p, an address in this block's dynamic shared memory, in block r's
+  template <class T> T* map_shared_rank(T* p, unsigned r) const {
+    if (emu::block->cluster == nullptr) return p;
+    const auto off = reinterpret_cast<unsigned char*>(const_cast<std::remove_cv_t<T>*>(p)) -
+                     emu::block->smem.get();
+    return reinterpret_cast<T*>(emu::block->cluster->blocks[r]->smem.get() + off);
+  }
+};
+inline cluster_group this_cluster() { return {}; }
+}  // namespace cooperative_groups

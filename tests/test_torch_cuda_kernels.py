@@ -310,9 +310,43 @@ def test_deformable_attention_matches_plain(lq, m, d):
     assert (da.FWD_KERNEL.launches, da.BWD_KERNEL.launches) == (before[0] + 1, before[1] + 1)
     assert (out - ref_out).abs().max().item() <= 1e-5
     dv, dloc, dattn = got
-    assert ((dv - ref[0]).norm() / ref[0].norm()).item() <= 1e-5  # atomics: any order
+    assert ((dv - ref[0]).norm() / ref[0].norm()).item() <= 1e-5  # sums in another order
     for a, r in ((dloc, ref[1]), (dattn, ref[2])):
         assert (a - r).abs().max().item() <= 1e-4 * r.abs().max().item()
+    # the cluster route: dvalue summed in shared memory in a fixed order
+    again = da.deformable_attention_1d_bwd(value, shapes, loc, attn, grad)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lq,m,d,shapes,p", [
+    (12, 3, 24, (7, 1, 3), 4),        # 8 lanes a row, a level of length 1
+    (9, 2, 128, (16,), 1),            # 32 lanes a row, one point
+    (5, 2, 8, (6, 4, 2, 1), 9),       # 36 samples: more than a warp's lanes
+    (20, 2, 64, (700, 300), 2),       # a slice past shared memory: the global route
+])
+def test_deformable_attention_forms_match_plain(lq, m, d, shapes, p):
+    """The forms of tests/test_torch_deformable_attention_emulated.py on the
+    card, with the same tolerances; the global route (fp32 atomics into a
+    dvalue its launch zeroes) only within them, the cluster route also
+    bit-identical on a second launch."""
+    require_cuda()
+    from vidchapters_tpu_torch.ops import deformable_attention as da
+
+    (value, loc, attn, grad), shapes = _deformable_case(lq, m, d, shapes, p)
+    out = da.deformable_attention_1d(value, shapes, loc, attn)
+    got = da.deformable_attention_1d_bwd(value, shapes, loc, attn, grad)
+    again = da.deformable_attention_1d_bwd(value, shapes, loc, attn, grad)
+    ref_out = da.deformable_attention_1d_plain(value, shapes, loc, attn)
+    ref = da.deformable_attention_1d_bwd_plain(value, shapes, loc, attn, grad)
+    torch.cuda.synchronize()
+    assert (out - ref_out).abs().max().item() <= 1e-5
+    for g in (got, again):
+        assert ((g[0] - ref[0]).norm() / ref[0].norm()).item() <= 1e-5
+        for a, r in zip(g[1:], ref[1:]):
+            assert (a - r).abs().max().item() <= 1e-4 * r.abs().max().item()
+    if sum(shapes) < 700:
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.cuda
@@ -461,6 +495,24 @@ def test_dot_2batch_probe_matches_known_answer_and_plain(a, b, m, d):
     q, c = torch.randn(a, b, 1, d, generator=g), torch.randn(a, b, m, d, generator=g)
     ref = probes.dot_2batch_plain(q, c)  # on the CPU
     got = probes.dot_2batch(q.cuda(), c.cuda()).cpu()
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a,r,m,d", [(12, 8, 32, 64), (2, 3, 37, 40), (1, 2, 70, 130)])
+def test_dot_1batch_probe_matches_known_answer_and_plain(a, r, m, d):
+    """p3 at the probe's shape and at ragged ones: ones give d exactly;
+    random inputs equal the plain version within 1e-5 of its largest output
+    (the sums are taken in another order)."""
+    require_cuda()
+    from vidchapters_tpu_torch.ops import probes
+
+    ones = probes.dot_1batch(torch.ones(a, r, d, device="cuda"), torch.ones(a, d, m, device="cuda"))
+    assert torch.equal(ones.cpu(), torch.full((a, r, m), float(d)))
+    g = _gen()
+    x, y = torch.randn(a, r, d, generator=g), torch.randn(a, d, m, generator=g)
+    ref = probes.dot_1batch_plain(x, y)  # on the CPU
+    got = probes.dot_1batch(x.cuda(), y.cuda()).cpu()
     assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
 
 

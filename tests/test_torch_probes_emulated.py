@@ -59,3 +59,20 @@ def test_dot_2batch_refuses_what_the_kernel_does_not_take(kernel):
     with pytest.raises(ValueError, match="multiple of 4"):
         pb._launch_dot_2batch(torch.ones(1, 1, 1, 6), torch.ones(1, 1, 3, 6))
     assert kernel.launches == 0
+
+
+@pytest.mark.parametrize("a,r,m,d", [
+    (12, 8, 32, 64),   # the probe's shape: a block per (a, row)
+    (2, 3, 37, 40),    # columns past one block's 32, D not a multiple of 8 warps' 8
+    (3, 5, 9, 7),      # fewer columns than lanes, fewer elements of D than warps
+    (1, 2, 70, 130),   # three column tiles, a warp's slice of D in three passes
+])
+def test_dot_1batch_matches_plain(kernel, a, r, m, d):
+    g = torch.Generator().manual_seed(a * 1000 + m * 10 + d)
+    x, y = torch.randn(a, r, d, generator=g), torch.randn(a, d, m, generator=g)
+    got = pb._launch_dot_1batch(x, y)
+    ref = pb.dot_1batch_plain(x, y)
+    assert kernel.launches == 1 and got.shape == ref.shape == (a, r, m)
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    ones = pb._launch_dot_1batch(torch.ones(a, r, d), torch.ones(a, d, m))
+    assert torch.equal(ones, torch.full((a, r, m), float(d)))

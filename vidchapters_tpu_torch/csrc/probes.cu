@@ -9,7 +9,9 @@
 //   probe_dot_2batch    p2: q [A, B, 1, D] . c [A, B, M, D] over D -> [A, B, 1, M],
 //                           a lane group per row of c, 16-byte loads issued
 //                           together, partial dots summed by shuffles
-//   probe_dot_1batch    p3: a [A, R, D] . b [A, D, M] -> [A, R, M]
+//   probe_dot_1batch    p3: a [A, R, D] . b [A, D, M] -> [A, R, M], a block per
+//                           (a, row, 32 columns), D split over its warps, every
+//                           load issued before any is used
 //   probe_scratch       p4: a sequential (I x NB) grid walked by one block, whose
 //                           shared scratch [NB][E] indexed by the cell's b
 //                           persists across cells: xs[b] = x[b] at i = 0, then
@@ -82,15 +84,46 @@ __global__ void __launch_bounds__(P2_WARPS * 32) dot_2batch(const float* __restr
   }
 }
 
-__global__ void dot_1batch(const float* a, const float* b, float* out, int A, int R, int M,
-                           int D) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= A * R * M) return;
-  const int ai = i / (R * M), r = (i / M) % R, m = i % M;
+// p3: a block per (a, r, 32-column tile) of the output; warp k of P3_WARPS
+// takes the k-th slice of D (P3_UNROLL elements a pass), lane j column j of
+// the tile. A lane issues its slice's loads of b (one row of b a load,
+// coalesced across the warp) and of a (the same address for every lane)
+// before any product, so each block waits on one round trip; the warps'
+// partial dots are summed in warp order through shared memory.
+constexpr int P3_WARPS = 8;
+constexpr int P3_UNROLL = 8;
+
+__global__ void __launch_bounds__(P3_WARPS * 32) dot_1batch(const float* __restrict__ a,
+                                                             const float* __restrict__ b,
+                                                             float* __restrict__ out, int R,
+                                                             int M, int D) {
+  __shared__ float part[P3_WARPS][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tiles = (M + 31) / 32;
+  const int ar = blockIdx.x / tiles, ai = ar / R;  // ar = ai * R + r
+  const int m = (blockIdx.x % tiles) * 32 + lane;
+  const int per = (D + P3_WARPS - 1) / P3_WARPS, d0 = warp * per, d1 = min(D, d0 + per);
+  const float* arow = a + (long)ar * D;
+  const float* bcol = b + (long)ai * D * M + m;
   float s = 0.f;
-  for (int dd = 0; dd < D; ++dd)
-    s = fmaf(a[((long)ai * R + r) * D + dd], b[((long)ai * D + dd) * M + m], s);
-  out[i] = s;
+  for (int k0 = d0; k0 < d1; k0 += P3_UNROLL) {
+    float av[P3_UNROLL], bv[P3_UNROLL];
+#pragma unroll
+    for (int u = 0; u < P3_UNROLL; ++u) {
+      const int k = k0 + u;
+      av[u] = k < d1 ? __ldg(arow + k) : 0.f;
+      bv[u] = k < d1 && m < M ? __ldg(bcol + (long)k * M) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < P3_UNROLL; ++u) s = fmaf(av[u], bv[u], s);
+  }
+  part[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && m < M) {
+    float t = part[0][lane];
+    for (int w = 1; w < P3_WARPS; ++w) t += part[w][lane];
+    out[(long)ar * M + m] = t;
+  }
 }
 
 __global__ void scratch(const float* x, float* out, int I, int NB, int E) {
@@ -241,10 +274,12 @@ extern "C" int probe_dot_2batch(const void* q, const void* c, void* out, int A, 
   return (int)cudaGetLastError();
 }
 
+// a [A, R, D], b [A, D, M] float32.
 extern "C" int probe_dot_1batch(const void* a, const void* b, void* out, int A, int R, int M,
                                 int D, void* stream) {
-  dot_1batch<<<blocks((long)A * R * M, 256), 256, 0, (cudaStream_t)stream>>>(
-      (const float*)a, (const float*)b, (float*)out, A, R, M, D);
+  if (A <= 0 || R <= 0 || M <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  dot_1batch<<<A * R * ((M + 31) / 32), P3_WARPS * 32, 0, (cudaStream_t)stream>>>(
+      (const float*)a, (const float*)b, (float*)out, R, M, D);
   return (int)cudaGetLastError();
 }
 

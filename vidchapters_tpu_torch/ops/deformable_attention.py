@@ -8,8 +8,11 @@ height 1), and the samples are summed with the attention weights.
 
 - ``deformable_attention_1d``: the attention, differentiable in value,
   locations and weights (a ``torch.autograd.Function``). CUDA tensors launch
-  ``csrc/deformable_attention.cu`` (forward, and backward with atomics into
-  dvalue); CPU tensors run the plain versions. Float32 only on the card.
+  ``csrc/deformable_attention.cu`` (forward, and backward, whose dvalue is
+  summed in shared memory across a thread-block cluster where the slice of
+  one (batch, head) fits, the same bits on every run, else with atomics);
+  CPU tensors run the plain versions. Float32 only on the card, and a head
+  width that is a multiple of 4.
 - ``deformable_attention_1d_plain``: the JAX package's dense-lerp form
   (``deformable_attention_1d`` there, lines 97-128; its Pallas kernel and
   gather oracle compute the same function) in plain PyTorch.
@@ -94,8 +97,20 @@ def _check(fn: str, name: str, t: torch.Tensor, shape) -> None:
         raise ValueError(f"{fn}: {name} must be {tuple(shape)}, got {tuple(t.shape)}")
     if t.dtype != torch.float32:
         raise TypeError(f"{fn}: {name} must be float32 on the card, got {t.dtype}")
-    if t.device.type != "cuda" or not t.is_contiguous():
-        raise ValueError(f"{fn}: {name} must be a contiguous CUDA tensor")
+    if not t.is_contiguous():
+        raise ValueError(f"{fn}: {name} must be contiguous")
+
+
+def _on_card(fn: str, *ts: torch.Tensor) -> None:
+    if any(t.device.type != "cuda" for t in ts):
+        raise ValueError(f"{fn}: every tensor must be on the card, or every one on the CPU")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous on a 16-byte boundary (the kernels read value and the
+    output gradient as float4), copied where it is not."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _kernel_args(fn: str, value, spatial_shapes, loc, attn):
@@ -107,8 +122,8 @@ def _kernel_args(fn: str, value, spatial_shapes, loc, attn):
     if len(shapes) != levels or not 1 <= levels <= MAX_LEVELS or sum(shapes) != s:
         raise ValueError(f"{fn}: spatial_shapes {shapes} do not fit value {tuple(value.shape)} "
                          f"and {levels} levels (at most {MAX_LEVELS})")
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"{fn}: head width {d} is not in [1, {MAX_HEAD_DIM}]")
+    if not 4 <= d <= MAX_HEAD_DIM or d % 4:
+        raise ValueError(f"{fn}: head width {d} is not a multiple of 4 in [4, {MAX_HEAD_DIM}]")
     _check(fn, "value", value, (n, s, m, d))
     _check(fn, "sampling_locations", loc, (n, lq, m, levels, p))
     _check(fn, "attention_weights", attn, (n, lq, m, levels, p))
@@ -119,8 +134,15 @@ def _forward(value: torch.Tensor, spatial_shapes: Sequence[int], loc: torch.Tens
              attn: torch.Tensor) -> torch.Tensor:
     if value.device.type == "cpu":
         return deformable_attention_1d_plain(value, spatial_shapes, loc, attn)
+    _on_card("deformable_attention_1d", value, loc, attn)
+    return _launch_fwd(value, spatial_shapes, loc, attn)
+
+
+def _launch_fwd(value: torch.Tensor, spatial_shapes: Sequence[int], loc: torch.Tensor,
+                attn: torch.Tensor) -> torch.Tensor:
+    """The forward kernel's launch on tensors of one device."""
     fn = "deformable_attention_1d"
-    value, loc, attn = (t.contiguous() for t in (value, loc, attn))
+    value, loc, attn = _aligned(value), loc.contiguous(), attn.contiguous()
     (n, s, lq, m, d, levels, p), shapes = _kernel_args(fn, value, spatial_shapes, loc, attn)
     out = torch.empty((n, lq, m * d), dtype=torch.float32, device=value.device)
     FWD_KERNEL.launch("deformable_attention_fwd", value.data_ptr(), loc.data_ptr(),
@@ -134,16 +156,26 @@ def deformable_attention_1d_bwd(value: torch.Tensor, spatial_shapes: Sequence[in
                                 grad_out: torch.Tensor
                                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dvalue, dloc, dattn) at ``grad_out`` [N, Lq, M*D]: the backward
-    kernel for CUDA tensors, the plain VJP for CPU tensors."""
+    kernel for CUDA tensors (one launch; it writes every element of its
+    outputs, so none is zeroed here), the plain VJP for CPU tensors."""
     if value.device.type == "cpu":
         return deformable_attention_1d_bwd_plain(value, spatial_shapes, sampling_locations,
                                                  attention_weights, grad_out)
+    _on_card("deformable_attention_1d_bwd", value, sampling_locations, attention_weights,
+             grad_out)
+    return _launch_bwd(value, spatial_shapes, sampling_locations, attention_weights, grad_out)
+
+
+def _launch_bwd(value: torch.Tensor, spatial_shapes: Sequence[int],
+                sampling_locations: torch.Tensor, attention_weights: torch.Tensor,
+                grad_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel's launch on tensors of one device."""
     fn = "deformable_attention_1d_bwd"
-    value, loc, attn, grad_out = (t.contiguous() for t in (value, sampling_locations,
-                                                           attention_weights, grad_out))
+    value, grad_out = _aligned(value), _aligned(grad_out)
+    loc, attn = sampling_locations.contiguous(), attention_weights.contiguous()
     (n, s, lq, m, d, levels, p), shapes = _kernel_args(fn, value, spatial_shapes, loc, attn)
     _check(fn, "grad_out", grad_out, (n, lq, m * d))
-    dvalue = torch.zeros_like(value)
+    dvalue = torch.empty_like(value)
     dloc, dattn = torch.empty_like(loc), torch.empty_like(attn)
     BWD_KERNEL.launch("deformable_attention_bwd", value.data_ptr(), loc.data_ptr(),
                       attn.data_ptr(), grad_out.data_ptr(), dvalue.data_ptr(), dloc.data_ptr(),

@@ -91,8 +91,16 @@ def dot_1batch_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def dot_1batch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not _cuda(a, b):
         return dot_1batch_plain(a, b)
+    return _launch_dot_1batch(a, b)
+
+
+def _launch_dot_1batch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Launch p3's kernel on contiguous inputs of one device."""
     na, r, d = a.shape
     m = b.shape[2]
+    if (tuple(b.shape) != (na, d, m) or a.dtype != torch.float32
+            or b.dtype != torch.float32):
+        raise ValueError("dot_1batch takes float32 a [A, R, D] and b [A, D, M]")
     out = torch.empty(na, r, m, dtype=torch.float32, device=a.device)
     KERNEL.launch("probe_dot_1batch", a.data_ptr(), b.data_ptr(), out.data_ptr(), na, r, m, d,
                   stream_ptr())
