@@ -77,13 +77,31 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    kernel's launches exactly 223 per decode call plus one per language
    detection; audio-seconds per second, peak memory, a profiled decode
    call; fp32 tokens and beam ancestry at 4+4 layers, card against CPU.
+8. (a) HowTo100M pretraining at full width through train/dvc_main.main:
+   configs/htm_pretrain.json (T5-base with ReLU, ViT 12 x 768, bf16,
+   genasr, generative + denoising) with bf16 Adam moments, over a
+   synthetic HowTo100M layout (a csv, .mp4.npy features in 8 shard
+   subdirectories, an ASR pickle) tokenized by a synthetic SentencePiece
+   model of T5-base's 32,100 text ids through the native encoder (a Python
+   fallback fails the run); batch 64 if a step fits, else the largest power
+   of two that does; one epoch of 1 + 3 steps (ms/step, peak memory), the
+   fused-attention launches exactly the count the model's shapes give;
+   log.txt and last; an eval_only rerun that resumes with bf16 moments;
+   an fp32 gradient check of one genasr step at 2+2 layers and of the
+   parameters after the next step. (b) A reference Vid2Seq .pth at T5-base
+   width (seeded random weights under the reference's names, module.
+   prefixes, an args Namespace) imported by serve.load_serving_params bit
+   for bit, two requests served (fused attention, top-k and decode kernel
+   launched), fp32 greedy tokens card vs CPU, and dvc_main --load --eval on
+   phase 5's val set with finite metrics.
 
 The kernels' launch counts are zeroed just before each main path (phases
-3, 4, 6, 7 and each run of 5) and read just after it; the kernel line
+3, 4, 6, 7, 8 and each run of 5) and read just after it; the kernel line
 reports each kernel's count from its own path (training for the fused
 attention, serving for top-k and the decode kernel, phase 5's first run for
 the decode-attention kernels, phase 6's pdvc_main run for the deformable
-attention, phase 7's sweep for the Whisper kernel). The probes lie on no
+attention, phase 7's sweep for the Whisper kernel); rows 1-2 also carry
+``launches_pretrain`` from phase 8's dvc_main run. The probes lie on no
 path: their count is phase 2's.
 
 The last lines are the kernel table as one JSON object, the nvidia-smi
@@ -3079,6 +3097,600 @@ def phase_asr(card: str, cfg=None, seconds=ASR_SECONDS):
     return summary, {"whisper_megakernel": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 8: HowTo100M pretraining and a reference checkpoint at full width
+# ---------------------------------------------------------------------------
+
+PRETRAIN_RECIPE = "configs/htm_pretrain.json"
+PRETRAIN_STEPS = 3                  # timed steps of dvc_main's epoch, after one warm-up step
+PRETRAIN_BATCHES = (64, 32, 16, 8)  # the recipe's batch, then the powers of two below it
+SPM_PIECES = 32000                  # T5-base's spiece.model: 32,000 pieces + 100 sentinels
+ASR_WORDS = ("in step of video we whisk eggs and fold flour then knead the dough let it rest "
+             "for minutes add salt water butter sugar mix bake slice serve").split()
+
+
+def _spm_piece(text: str, score: float, ptype: int = 1) -> bytes:
+    """One ``SentencePiece`` message inside a ``ModelProto`` (field 1)."""
+    import struct
+
+    def varint(n: int) -> bytes:
+        out = b""
+        while True:
+            b, n = n & 0x7F, n >> 7
+            if not n:
+                return out + bytes([b])
+            out += bytes([b | 0x80])
+
+    enc = text.encode("utf-8")
+    body = (b"\x0a" + varint(len(enc)) + enc + b"\x15" + struct.pack("<f", score)
+            + b"\x18" + varint(ptype))
+    return b"\x0a" + varint(len(body)) + body
+
+
+def _write_spm_model(path: Path) -> None:
+    """A unigram ``spiece.model`` with T5-base's layout: pad / eos / unk at
+    ids 0-2, then 31,997 pieces (the ASR's words with and without the ``▁``
+    prefix, every printable ASCII character, the digits' pairs, and letter
+    bigrams and trigrams as filler), scored so that whole words win."""
+    import itertools
+    import string
+
+    pieces = [("<pad>", 0.0, 3), ("</s>", 0.0, 3), ("<unk>", 0.0, 2), ("▁", -4.0, 1)]
+    seen = {p for p, _, _ in pieces}
+
+    def add(text, score):
+        if text not in seen and len(pieces) < SPM_PIECES:
+            seen.add(text)
+            pieces.append((text, score, 1))
+
+    for w in ASR_WORDS:
+        add("▁" + w, -3.0 - 0.01 * len(pieces))
+        add(w, -6.0)
+    for c in string.printable.strip():
+        add(c, -9.0)
+        add("▁" + c, -8.0)
+    for a, b in itertools.product(string.digits, repeat=2):
+        add(a + b, -7.0)
+        add("▁" + a + b, -6.5)
+    for n in (2, 3):
+        for combo in itertools.product(string.ascii_lowercase, repeat=n):
+            add("".join(combo), -12.0 + n)
+            add("▁" + "".join(combo), -11.5 + n)
+    check(len(pieces) == SPM_PIECES, f"synthetic spiece.model holds {len(pieces)} pieces")
+    path.write_bytes(b"".join(_spm_piece(*p) for p in pieces))
+
+
+def _write_htm_dataset(root: Path, n_videos: int, seed: int = 0):
+    """A HowTo100M layout: ``htm.csv`` of ``video_id,video_path``, ``[T, 768]``
+    features (T 200-400, one a second) at ``features/shard{k}/<id>.mp4.npy``
+    over 8 shard subdirectories, an ASR pickle keyed on the last 11
+    characters (90 segments a video: more than 1000 tokens of time + text),
+    and the synthetic ``spiece.model``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rows, asr = [], {}
+    for i in range(n_videos):
+        vid = f"htm{i:08d}"
+        shard = root / "features" / f"shard{i % 8}"
+        shard.mkdir(parents=True, exist_ok=True)
+        frames = int(rng.integers(200, 400))
+        np.save(shard / f"{vid}.mp4.npy",
+                rng.standard_normal((frames, 768), dtype=np.float32))
+        rows.append(f"{vid},shard{i % 8}/{vid}.mp4")
+        st = np.linspace(0.0, frames - 6.0, 90)
+        words = rng.choice(ASR_WORDS, size=(90, 10))
+        asr[vid[-11:]] = {"text": [f"{' '.join(w)} {j}" for j, w in enumerate(words)],
+                          "start": st.tolist(), "end": (st + 4.0).tolist()}
+    (root / "htm.csv").write_text("video_id,video_path\n" + "\n".join(rows) + "\n")
+    with open(root / "asr.pkl", "wb") as f:
+        pickle.dump(asr, f)
+    _write_spm_model(root / "spiece.model")
+    return root
+
+
+def fused_per_step(mcfg, data, genasr: bool) -> int:
+    """Fused-attention forward launches of one train step (the generative
+    pass, then the denoising pass; each launch has one backward), from the
+    route of ``models/t5.T5Attention``: a key mask and Lq > CHUNK with Lq *
+    Lk > 512^2. The encoder pads its input to SEQ_PAD_BLOCK, and Vid2Seq
+    pads the video + ASR states once more before cross-attention."""
+    from vidchapters_tpu_torch.data.dvc_dataset import denoise_length_bounds
+    from vidchapters_tpu_torch.models.t5 import CHUNK, SEQ_PAD_BLOCK
+
+    def pad(n):
+        return -(-n // SEQ_PAD_BLOCK) * SEQ_PAD_BLOCK
+
+    def fused(lq, lk):
+        return int(lq > CHUNK and lq * lk > 512 * 512)
+
+    den_in, den_out = denoise_length_bounds(data.max_input_tokens)
+    gen_in = 1 if genasr else data.max_input_tokens  # genasr: the video alone
+    n = 0
+    for lin, lout in ((gen_in, data.max_output_tokens), (den_in, den_out)):
+        n += mcfg.t5.num_layers * fused(pad(lin), pad(lin))
+        n += mcfg.t5.num_decoder_layers * (fused(lout, lout)
+                                           + fused(lout, pad(data.max_feats + lin)))
+    return n
+
+
+def _pretrain_cfg(root: Path, batch: int, csv_name: str = "htm.csv"):
+    """``configs/htm_pretrain.json`` through the port's ``load_config``, on
+    the synthetic layout under ``root`` (its videos listed in ``csv_name``),
+    one epoch, ``mu_dtype`` bfloat16."""
+    from vidchapters_tpu_torch.config import (
+        CheckpointConfig,
+        DatasetPaths,
+        ExperimentConfig,
+        load_config,
+    )
+
+    base = load_config(ExperimentConfig, str(ROOT / PRETRAIN_RECIPE))
+    t = base.train
+    return dataclasses.replace(
+        base, tokenizer_path=str(root / "spiece.model"),
+        datasets={"htm": DatasetPaths(train_json_path=str(root / csv_name),
+                                      features_path=str(root / "features"),
+                                      subtitles_path=str(root / "asr.pkl"))},
+        train=dataclasses.replace(t, epochs=1, batch_size=batch, print_freq=1,
+                                  optim=dataclasses.replace(t.optim, mu_dtype="bfloat16"),
+                                  checkpoint=CheckpointConfig(save_dir=str(root / "ckpt"))))
+
+
+def _largest_batch_that_fits(cfg, ds):
+    """The recipe's batch if one train step of it fits on the card, else the
+    largest power of two below it that does: (batch, {batch: outcome})."""
+    import numpy as np
+    import torch
+
+    from vidchapters_tpu_torch.data.dvc_dataset import collate
+    from vidchapters_tpu_torch.models.vid2seq import Vid2Seq
+    from vidchapters_tpu_torch.train.dvc_train import (
+        TrainState,
+        batch_to_device,
+        make_train_step,
+    )
+    from vidchapters_tpu_torch.train.schedules import build_optimizer
+
+    t, d = cfg.train, cfg.data
+    model = Vid2Seq(cfg.model).init_weights(torch.Generator().manual_seed(0)).to(DEVICE)
+    state = TrainState(model, build_optimizer(t.optim, 100, model.parameters()))
+    step = make_train_step(model, t.generative, t.denoising, t.genasr)
+    tried = {}
+    chosen = None
+    for bs in PRETRAIN_BATCHES:
+        rng = np.random.default_rng(0)
+        batch = collate([ds.__getitem__(i, rng=rng) for i in range(bs)],
+                        d.max_input_tokens, d.max_output_tokens)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            step(state, batch_to_device(batch, DEVICE), t.seed)
+            torch.cuda.synchronize()
+            tried[bs] = {"fits": True, "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+            chosen = bs
+        except torch.cuda.OutOfMemoryError as e:
+            tried[bs] = {"fits": False, "error": str(e).splitlines()[0][:160]}
+        model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+        say(f"[pretrain] batch {bs}: {tried[bs]}")
+        if chosen is not None:
+            break
+    del model, state, step
+    torch.cuda.empty_cache()
+    check(chosen is not None, f"no batch of {PRETRAIN_BATCHES} fits: {tried}")
+    return chosen, tried
+
+
+def phase_pretrain(card: str):
+    """HowTo100M pretraining at full width through ``train/dvc_main.main``:
+    ``configs/htm_pretrain.json`` (T5-base with ReLU, ViT 12 x 768, bf16
+    compute, ``genasr``: the generative pass sees the video alone; the
+    denoising pass the span-corrupted ASR) with bf16 Adam moments, over a
+    synthetic HowTo100M layout tokenized by a synthetic SentencePiece model
+    of T5-base's 32,100 text ids through the native encoder (the Python
+    Viterbi raises here). The recipe's batch 64 if a step fits on the card,
+    else the largest power of two that does; one epoch of 1 warm-up + 3
+    timed steps; the fused-attention launches exactly ``fused_per_step``
+    each; ``log.txt`` and ``last`` and no ``best``; an ``eval_only`` rerun
+    that resumes from ``last`` with the moments restored as bf16. Then an
+    fp32 gradient check of one genasr step at 2+2 layers."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from vidchapters_tpu_torch.data import native_spm
+    from vidchapters_tpu_torch.data.dvc_dataset import EpochIterator, YTPretrainDataset
+    from vidchapters_tpu_torch.data.tokenizer import SentencePieceUnigramTokenizer
+    from vidchapters_tpu_torch.ops import fused_attention as fa
+    from vidchapters_tpu_torch.runtime.checkpoint import CheckpointManager
+    from vidchapters_tpu_torch.train import dvc_main
+
+    check(native_spm.is_available(), "the native SentencePiece encoder does not build")
+    steps, restored = [], []
+    real_make_step, real_restore = dvc_main.make_train_step, CheckpointManager.restore
+    real_viterbi = SentencePieceUnigramTokenizer._viterbi
+
+    def python_viterbi(self, s):
+        raise SmokeFailure("the tokenizer fell back to the Python Viterbi in phase 8")
+
+    def timed_make_step(*a, **k):
+        step = real_make_step(*a, **k)
+
+        def timed(state, batch, seed):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            m = step(state, batch, seed)
+            torch.cuda.synchronize()
+            steps.append((time.time() - t0) * 1e3)
+            return m
+
+        return timed
+
+    def checked_restore(self, name, state):
+        real_restore(self, name, state)
+        restored.append(sorted({str(m.dtype) for m in state.optimizer.mu}))
+
+    n_steps = 1 + PRETRAIN_STEPS
+    summary = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.time()
+        _write_htm_dataset(root, n_videos=PRETRAIN_BATCHES[0] * n_steps)
+        cfg = _pretrain_cfg(root, PRETRAIN_BATCHES[0])
+        tok = SentencePieceUnigramTokenizer(cfg.tokenizer_path, num_bins=cfg.model.num_bins,
+                                            use_native=True)
+        check(len(tok) == cfg.model.t5.vocab_size,
+              f"tokenizer vocabulary {len(tok)} != the model's {cfg.model.t5.vocab_size}")
+        ds = YTPretrainDataset.from_csv(cfg.datasets["htm"].train_json_path,
+                                        cfg.datasets["htm"].features_path, tok,
+                                        cfg.datasets["htm"].subtitles_path, cfg.data)
+        lens = [len(ds[i]["output_tokens"]) for i in range(4)]
+        check(min(lens) >= cfg.data.max_input_tokens,
+              f"the ASR of a video gives {lens} tokens, not {cfg.data.max_input_tokens}")
+        say(f"[pretrain] synthetic HowTo100M layout: {len(ds)} videos, 8 shards, "
+            f"{len(tok)} ids, in {time.time() - t0:.1f} s")
+        SentencePieceUnigramTokenizer._viterbi = python_viterbi
+        try:
+            bs, tried = _largest_batch_that_fits(cfg, ds)
+            # one epoch of n_steps batches: the first bs * n_steps videos
+            rows = (root / "htm.csv").read_text().splitlines()
+            (root / "epoch.csv").write_text("\n".join(rows[:1 + bs * n_steps]) + "\n")
+            cfg = _pretrain_cfg(root, bs, "epoch.csv")
+            want = fused_per_step(cfg.model, cfg.data, cfg.train.genasr)
+            dvc_main.make_train_step, CheckpointManager.restore = timed_make_step, checked_restore
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for kern in (fa.KERNEL, fa.BWD_KERNEL):
+                kern.launches = 0
+            calls0 = native_spm.NativeSpmEncoder.calls
+            tee = _Tee(sys.stdout)
+            t0 = time.time()
+            with contextlib.redirect_stdout(tee):
+                got = dvc_main.main(cfg, device=DEVICE)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = {"fused_attention_fwd": fa.KERNEL.launches,
+                        "fused_attention_bwd": fa.BWD_KERNEL.launches}
+            peak = torch.cuda.max_memory_allocated()
+            native_calls = native_spm.NativeSpmEncoder.calls - calls0
+            with contextlib.redirect_stdout(tee):
+                again = dvc_main.main(cfg, eval_only=True, device=DEVICE)
+            printed = "".join(tee.parts)
+        finally:
+            SentencePieceUnigramTokenizer._viterbi = real_viterbi
+            dvc_main.make_train_step, CheckpointManager.restore = real_make_step, real_restore
+        ckpt = root / "ckpt"
+        log = (ckpt / "log.txt").read_text().splitlines()
+        check(got == {} and again == {}, f"dvc_main on htm returned {got}, then {again}")
+        check(len(log) == 1 and json.loads(log[0])["epoch"] == 0, f"log.txt: {log}")
+        stats = json.loads(log[0])
+        check(all(np.isfinite(stats[k]) for k in ("train_loss", "train_denoising_loss",
+                                                  "train_total_loss")), f"log.txt: {stats}")
+        check((ckpt / "last").exists() and not (ckpt / "best").exists(),
+              f"save dir holds {sorted(p.name for p in ckpt.iterdir())}")
+        check("resumed from epoch 0" in printed and restored == [["torch.bfloat16"]],
+              f"the rerun did not resume with bf16 moments: restored {restored}")
+        check(len(steps) == n_steps, f"{len(steps)} train steps, expected {n_steps}")
+        check(native_calls >= bs * n_steps * 90,
+              f"the native encoder ran {native_calls} times for {bs * n_steps} videos")
+        for name, count in launches.items():
+            check(count == want * n_steps, f"{name}: {count} launches in {n_steps} steps, "
+                                           f"expected {want} per step")
+        timed = steps[1:]
+        summary.update(
+            batch=bs, batch_trials=tried, steps=n_steps, step_ms=steps,
+            step_ms_mean_timed=sum(timed) / len(timed),
+            videos_per_s=bs * len(timed) / (sum(timed) / 1e3), wall_s=wall,
+            peak_memory_bytes=peak, fused_per_step=want, launches=launches,
+            native_spm_calls=native_calls, checkpoint_bytes=(ckpt / "last").stat().st_size,
+            log=stats)
+        say(f"[pretrain] {json.dumps(summary)}")
+        host_batch = next(iter(EpochIterator(ds, 2, cfg.data, seed=cfg.train.seed)))
+    torch.cuda.empty_cache()
+    summary["fp32_grad_check"] = pretrain_fp32_grad_check(cfg, host_batch)
+    return summary, launches
+
+
+def pretrain_fp32_grad_check(cfg, host_batch):
+    """One genasr step (generative on the video alone + denoising) in fp32
+    at dropout 0, full width and 2+2 layers (ViT depth 2), bf16 Adam moments,
+    on 2 examples: the kernels on the card against the plain versions on the
+    CPU from the same weights; the loss within 1e-4 and every gradient within
+    1e-3 of its norm (phase 3's tolerance). Then a second step on the card
+    (the first update's learning rate is the warm-up's 0): its parameters
+    must equal, within fp32 rounding (rtol 1e-6, atol 1e-7), the CPU
+    optimizer and time-token renorm applied to the card's own gradients from
+    the same state, and its bf16 ``mu`` must be within two bf16 ulps of
+    theirs (``within``: the clip's global norm is summed in another order)."""
+    import torch
+
+    from vidchapters_tpu_torch.models.vid2seq import Vid2Seq
+    from vidchapters_tpu_torch.ops import fused_attention as fa
+    from vidchapters_tpu_torch.train.dvc_train import (
+        BATCH_FIELDS,
+        TrainState,
+        batch_to_device,
+        make_train_step,
+        renorm_time_tokens,
+    )
+    from vidchapters_tpu_torch.train.schedules import build_optimizer
+
+    t5 = dataclasses.replace(cfg.model.t5, dtype="float32", num_layers=2, num_decoder_layers=2,
+                             dropout_rate=0.0, encoder_dropout=0.0, decoder_dropout=0.0)
+    vit = dataclasses.replace(cfg.model.vit, dtype="float32", depth=2)
+    mcfg = dataclasses.replace(cfg.model, t5=t5, vit=vit)
+    weights = Vid2Seq(mcfg).init_weights(torch.Generator().manual_seed(1)).state_dict()
+    sub = {k: host_batch[k][:2] for k in BATCH_FIELDS if k in host_batch}
+    want = fused_per_step(mcfg, cfg.data, True)
+    out = {}
+    for path, dev in (("kernels", DEVICE), ("plain", "cpu")):
+        model = Vid2Seq(mcfg)
+        model.load_state_dict(weights)
+        model.to(dev)
+        state = TrainState(model, build_optimizer(cfg.train.optim, 100, model.parameters()))
+        step = make_train_step(model, genasr=True)
+        batch = batch_to_device(sub, dev)
+        fwd0, bwd0 = fa.KERNEL.launches, fa.BWD_KERNEL.launches
+        loss = float(step(state, batch, 0)["total_loss"])
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        out[path] = (loss, grads, fa.KERNEL.launches - fwd0, fa.BWD_KERNEL.launches - bwd0)
+        if path == "kernels":
+            snap = ({n: p.detach().cpu().clone() for n, p in model.named_parameters()},
+                    {k: ([t.cpu().clone() for t in v] if isinstance(v, list) else v)
+                     for k, v in state.optimizer.state_dict().items()})
+            step(state, batch, 0)
+            after = ({n: p.detach().cpu() for n, p in model.named_parameters()},
+                     [m.cpu() for m in state.optimizer.mu],
+                     {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+        del model, state
+    loss_k, g_k, fwd_n, bwd_n = out["kernels"]
+    loss_p, g_p, _, _ = out["plain"]
+    check(fwd_n == want and bwd_n == want, f"fp32 genasr check launched {fwd_n} / {bwd_n} "
+                                           f"fused fwd / bwd kernels, expected {want} each")
+    rel = {n: float((g_k[n] - g_p[n]).norm() / max(float(g_p[n].norm()), 1e-30)) for n in g_p}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+
+    # the card's second step replayed on the CPU from the same state and gradients
+    replay = Vid2Seq(mcfg)
+    replay.load_state_dict({**weights, **snap[0]})
+    opt = build_optimizer(cfg.train.optim, 100, replay.parameters())
+    opt.load_state_dict(snap[1])
+    for n, p in replay.named_parameters():
+        p.grad = after[2][n]
+    opt.step()
+    renorm_time_tokens(replay, mcfg.num_bins)
+    param_err = {n: float((after[0][n] - p.detach()).abs().max())
+                 for n, p in replay.named_parameters()
+                 if not torch.allclose(after[0][n], p.detach(), rtol=1e-6, atol=1e-7)}
+    mu_ok = all(m.dtype == torch.bfloat16 and within(m, r, 0.0)
+                for m, r in zip(after[1], opt.mu))
+    moved = sum(not torch.equal(after[0][n], snap[0][n]) for n in snap[0])
+    say(f"[fp32-grad] genasr: loss rel diff {loss_rel:.2e} (tol 1e-4); {len(rel)} gradients, "
+        f"worst {worst} at {rel[worst]:.2e} of its norm (tol 1e-3); second step: {moved} "
+        f"parameters moved, {len(param_err)} off the CPU replay, bf16 mu within two ulps: "
+        f"{mu_ok}")
+    check(loss_rel <= 1e-4, f"fp32 genasr loss kernels {loss_k} vs plain {loss_p}")
+    check(rel[worst] <= 1e-3, f"fp32 genasr gradient {worst}: {rel[worst]:.2e} of its norm")
+    check(not param_err, f"parameters after the step off the CPU replay: {param_err}")
+    check(mu_ok, "bf16 mu after the step off the CPU replay by more than two bf16 ulps")
+    check(moved == len(snap[0]), f"only {moved} of {len(snap[0])} parameters moved")
+    return {"loss_kernels": loss_k, "loss_plain": loss_p, "loss_rel_diff": loss_rel,
+            "n_gradients": len(rel), "worst_gradient": worst, "worst_rel_err": rel[worst],
+            "fused_per_step": want, "params_after_step_vs_cpu_replay": "within fp32 rounding",
+            "mu_after_step": "bf16, within two bf16 ulps of the CPU replay",
+            "depth": "T5 2+2 layers, ViT 2, full width, 2 examples, genasr, bf16 mu"}
+
+
+def _reference_name(port: str) -> str:
+    """The reference Vid2Seq's name (HF T5 under ``t5_model.``, the reference
+    ViT under ``visual_encoder.``) of the port's parameter ``port``; both
+    keep torch's ``[out, in]`` layout, so no tensor is transposed."""
+    import re
+
+    m = re.fullmatch(r"t5\.(encoder|decoder)\.blocks\.(\d+)\.(\w+)\.(.+)", port)
+    if m:
+        stack, i, sub, rest = m.groups()
+        ff = 2 if stack == "decoder" else 1
+        base = f"t5_model.{stack}.block.{i}.layer"
+        return {"self_attn_norm": f"{base}.0.layer_norm.{rest}",
+                "self_attn": f"{base}.0.SelfAttention.{rest}",
+                "cross_attn_norm": f"{base}.1.layer_norm.{rest}",
+                "cross_attn": f"{base}.1.EncDecAttention.{rest}",
+                "ff_norm": f"{base}.{ff}.layer_norm.{rest}",
+                "ff": f"{base}.{ff}.DenseReluDense.{rest}"}[sub]
+    m = re.fullmatch(r"t5\.(encoder|decoder)\.(final_norm\.weight|rel_bias\.rel_embedding)",
+                     port)
+    if m:
+        stack, leaf = m.groups()
+        return (f"t5_model.{stack}.final_layer_norm.weight" if leaf.startswith("final")
+                else f"t5_model.{stack}.block.0.layer.0.SelfAttention."
+                     f"relative_attention_bias.weight")
+    if port.startswith("t5."):
+        return "t5_model." + port[3:]  # shared, lm_head
+    m = re.fullmatch(r"visual_encoder\.blocks\.(\d+)\.(fc1|fc2)\.(\w+)", port)
+    if m:
+        return f"visual_encoder.blocks.{m.group(1)}.mlp.{m.group(2)}.{m.group(3)}"
+    return port  # the rest of visual_encoder.* and proj_v2t.* keep their names
+
+
+def _write_reference_pth(path: Path, mcfg, seed: int = 0):
+    """``torch.save`` a reference Vid2Seq checkpoint of ``mcfg``: the port's
+    seeded random weights (``init_weights``: T5's and the ViT's own scales)
+    under the reference's names, with a DDP ``module.`` prefix and HF's tied
+    copies of the embedding, an ``optimizer``, an ``epoch`` and an ``args``
+    Namespace. Returns ``{port name: tensor}``. (Weights drawn N(0, 0.05)
+    everywhere give logits of std 0.05, whose greedy choices sit 1e-4 apart:
+    fp32 sums in another order flip them.)"""
+    import argparse
+
+    import torch
+
+    from vidchapters_tpu_torch.models.vid2seq import Vid2Seq
+
+    port = Vid2Seq(mcfg).init_weights(torch.Generator().manual_seed(seed)).state_dict()
+    ref = {_reference_name(n): t for n, t in port.items()}
+    check(len(ref) == len(port), "two port parameters share a reference name")
+    for copy in ("encoder.embed_tokens.weight", "decoder.embed_tokens.weight",
+                 "lm_head.weight"):
+        ref.setdefault("t5_model." + copy, ref["t5_model.shared.weight"])
+    torch.save({"model": {"module." + k: v for k, v in ref.items()},
+                "optimizer": {"state": {}, "param_groups": [{"lr": 3e-4}]}, "epoch": 9,
+                "args": argparse.Namespace(model_name="t5-base", num_bins=100, max_feats=100,
+                                           lr=3e-4, combine_datasets=["htm"])}, path)
+    return port
+
+
+def _serve_requests(engine, payloads):
+    """``payloads`` posted at once to ``serve(engine)`` on 127.0.0.1 (no
+    warm-up); returns the answers."""
+    from vidchapters_tpu_torch.serve import serve
+
+    box, ready = {}, threading.Event()
+    server = threading.Thread(target=serve, daemon=True, kwargs=dict(
+        engine=engine, host="127.0.0.1", port=0, warmup=False,
+        on_ready=lambda httpd: (box.update(httpd=httpd), ready.set())))
+    server.start()
+    check(ready.wait(timeout=300), "server did not come up")
+    port = box["httpd"].server_address[1]
+    results = [None] * len(payloads)
+
+    def work(i):
+        try:
+            results[i] = _post(port, payloads[i])
+        except Exception as e:  # recorded and failed below
+            results[i] = (None, repr(e))
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    box["httpd"].shutdown()
+    server.join(timeout=60)
+    for i, r in enumerate(results):
+        check(r is not None and r[0] == 200 and isinstance(r[1].get("chapters"), list),
+              f"request {i}: {r}")
+    return results
+
+
+def phase_reference_checkpoint(card: str):
+    """A reference Vid2Seq ``.pth`` at T5-base width (``ExperimentConfig()``:
+    T5-base with ReLU and tied embeddings, ViT 12 x 768), seeded random
+    weights: imported by ``serve.load_serving_params`` (the ``--ckpt``
+    path), every port parameter equal to its source tensor bit for bit; two
+    1000-bucket requests served over HTTP with the fused attention, the
+    top-k and the decode kernel each launched; fp32 greedy tokens, card
+    against CPU, with the imported weights; and ``dvc_main.main(load=pth,
+    eval_only=True)`` on phase 5's val set with finite metrics."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from vidchapters_tpu_torch.config import CheckpointConfig, DatasetPaths, ExperimentConfig
+    from vidchapters_tpu_torch.data.tokenizer import build_tokenizer
+    from vidchapters_tpu_torch.models.vid2seq import Vid2Seq
+    from vidchapters_tpu_torch.ops import decode_megakernel, decoding, fused_attention
+    from vidchapters_tpu_torch.serve import ChapterGenerator, load_serving_params
+    from vidchapters_tpu_torch.train import dvc_main
+
+    kernels = {"fused_attention_fwd": fused_attention.KERNEL, "topk": decoding.TOPK_KERNEL,
+               "decode_megakernel": decode_megakernel.KERNEL}
+    cfg = ExperimentConfig()
+    summary = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        pth = Path(tmp) / "vid2seq_howto100m.pth"
+        t0 = time.time()
+        source = _write_reference_pth(pth, cfg.model)
+        summary["pth_bytes"] = pth.stat().st_size
+        t1 = time.time()
+        model = load_serving_params(Vid2Seq(cfg.model), str(pth))
+        summary["write_s"], summary["import_s"] = t1 - t0, time.time() - t1
+        state = model.state_dict()
+        check(set(state) == set(source), "imported names differ from the model's")
+        differ = [n for n, t in state.items() if not torch.equal(t, source[n])]
+        check(not differ, f"imported parameters differ from their source: {differ[:5]}")
+        say(f"[reference] {pth.name}: {summary['pth_bytes']} bytes, written in "
+            f"{summary['write_s']:.1f} s, imported in {summary['import_s']:.1f} s; "
+            f"{len(state)} parameters equal their source bit for bit")
+
+        tok = build_tokenizer("", num_bins=cfg.model.num_bins)
+        engine = ChapterGenerator(model, tok, cfg.data, cfg.generation, cfg.model.num_bins,
+                                  device=DEVICE)
+        rng = np.random.default_rng(8)
+        payloads = [_request(i, True, rng) for i in range(2)]
+        torch.cuda.synchronize()
+        for kern in kernels.values():
+            kern.launches = 0
+        t0 = time.time()
+        results = _serve_requests(engine, payloads)
+        launches = {n: k.launches for n, k in kernels.items()}
+        summary["serve"] = {"requests": len(results), "wall_s": time.time() - t0,
+                            "launches": launches,
+                            "chapters": [len(r[1]["chapters"]) for r in results]}
+        videos, tokens = _fp32_inputs(engine, payloads)
+        engine.close()
+        say(f"[reference] served {json.dumps(summary['serve'])}")
+        for name, count in launches.items():
+            check(count > 0, f"kernel {name} was not launched serving the imported weights")
+        cpu_state = {k: v.detach().cpu().clone() for k, v in state.items()}
+        del engine, model, state
+        torch.cuda.empty_cache()
+        gen1 = dataclasses.replace(cfg.generation, num_beams=1, max_length=64,
+                                   repetition_penalty=3.0)
+        seqs = {dev: _fp32_tokens(cfg, cpu_state, gen1, dev, videos, tokens,
+                                  "imported greedy") for dev in (DEVICE, "cpu")}
+        _same_tokens(seqs[DEVICE], seqs["cpu"], "imported weights, greedy, card vs CPU", cfg,
+                     cpu_state, videos, tokens)
+        summary["fp32_greedy_card_vs_cpu"] = "identical"
+        say(f"[fp32] imported weights, greedy: identical over {list(seqs['cpu'].shape)}")
+
+        root = Path(tmp) / "data"
+        root.mkdir()
+        _write_train_dataset(root, n_videos=16, n_val=8)  # phase 5's val set
+        run_cfg = dataclasses.replace(
+            cfg, datasets={"chapters": DatasetPaths(
+                train_json_path=str(root / "ann.json"), val_json_path=str(root / "val.json"),
+                features_path=str(root / "features"), subtitles_path=str(root / "asr.pkl"))},
+            train=dataclasses.replace(cfg.train, eval_batch_size=8, print_freq=1,
+                                      checkpoint=CheckpointConfig(save_dir=str(root / "ckpt"))))
+        tee = _Tee(sys.stdout)
+        t0 = time.time()
+        with contextlib.redirect_stdout(tee):
+            metrics = dvc_main.main(run_cfg, load=str(pth), eval_only=True, device=DEVICE)
+        summary["dvc_main_eval"] = {"wall_s": time.time() - t0, "metrics": metrics}
+        printed = "".join(tee.parts)
+    missing = [m for m in EVAL_METRICS if not np.isfinite(
+        metrics.get(f"chapters_{m}", float("nan")))]
+    check(not missing, f"dvc_main --load <pth> --eval: metrics missing or not finite: {missing}")
+    check("imported reference checkpoint" in printed and "resumed from" not in printed,
+          "dvc_main --load did not import the reference checkpoint")
+    say(f"[reference] dvc_main --load --eval: {json.dumps(summary['dvc_main_eval'])}")
+    return summary, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -3123,6 +3735,10 @@ def main() -> int:
         pdvc, pdvc_launches = phase_pdvc(card)
         torch.cuda.empty_cache()
         asr_run, asr_launches = phase_asr(card)
+        torch.cuda.empty_cache()
+        pretrain, pretrain_launches = phase_pretrain(card)
+        torch.cuda.empty_cache()
+        reference, reference_launches = phase_reference_checkpoint(card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
@@ -3140,6 +3756,8 @@ def main() -> int:
         else:
             row["launches"] = train_launches.get(row["name"], serve_launches.get(row["name"]))
     table[0]["launches_serving"] = serve_launches["fused_attention_fwd"]
+    for row in table[:2]:  # rows 1-2 on the pretraining path (phase 8a)
+        row["launches_pretrain"] = pretrain_launches[row["name"]]
     say(f"[summary] serving {e2e['videos_per_s']:.3f} videos/s (megakernel, beam 4); eval "
         f"{evaluation['eval_videos_per_s_beam4_standard']:.3f} videos/s (standard, beam 4), "
         f"{evaluation['eval_videos_per_s_nucleus']:.3f} videos/s (nucleus); training "
@@ -3147,9 +3765,13 @@ def main() -> int:
         f"{[round(x, 1) for x in evaluation['train_step_ms']]} ms; PDVC "
         f"{pdvc['train_step_ms_mean_after_first']:.2f} ms/step, eval "
         f"{pdvc['eval_videos_per_s']:.3f} videos/s; ASR "
-        f"{asr_run['sweep']['audio_s_per_s']:.2f} audio-s/s (large-v2, batch 8)")
+        f"{asr_run['sweep']['audio_s_per_s']:.2f} audio-s/s (large-v2, batch 8); pretraining "
+        f"{pretrain['step_ms_mean_timed']:.1f} ms/step at batch {pretrain['batch']} "
+        f"({pretrain['videos_per_s']:.2f} videos/s, peak {pretrain['peak_memory_bytes']} B); "
+        f"reference .pth served with launches {reference_launches}")
     record = {"kernels": table, "train": train, "end_to_end": e2e, "fp32_tokens": fp32,
-              "evaluation": evaluation, "pdvc": pdvc, "asr": asr_run, "card": card}
+              "evaluation": evaluation, "pdvc": pdvc, "asr": asr_run, "pretrain": pretrain,
+              "reference_checkpoint": reference, "card": card}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

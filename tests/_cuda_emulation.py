@@ -1,6 +1,6 @@
 """Build a CUDA source of ``vidchapters_tpu_torch/csrc`` for the CPU: g++
 against ``tests/cuda_emulation/emu_rt.h`` (a stand-in for the CUDA runtime
-and the warp primitives: one OS thread per CUDA thread, the blocks of a grid
+and the warp primitives: one fiber per CUDA thread, the blocks of a grid
 one after another, or all at once for a cooperative launch). The sources are
 used as they are, except that the bodies of the functions holding inline PTX
 (in ``tensor_core.cuh``, and in the kernel's own source where it has them)

@@ -3,22 +3,26 @@
 // deformable-attention kernels use, so that their sources compile with g++
 // and run on the CPU in tests (tests/test_torch_*_emulated.py).
 //
-// Each CUDA thread is an OS thread. The blocks of a grid launched with <<<>>>
-// run one after another, so a block that counts arrivals with atomics meets
-// every other block of the grid finished. A cooperative launch
+// Each CUDA thread is a fiber: its own stack, switched to and from by hand
+// (x86-64; ucontext elsewhere) on the OS thread that launched the kernel,
+// which runs the fibers of a launch round-robin. A fiber runs until it waits
+// at a barrier (warp, block, cluster) or in __nanosleep, so a launch creates
+// no OS thread, waits on no futex and takes one core; a kernel that spun on
+// memory without __nanosleep would not end. The blocks of a grid launched
+// with <<<>>> run one after another, so a block that counts arrivals with
+// atomics meets every other block of the grid finished. A cooperative launch
 // (cudaLaunchKernelEx with cudaLaunchAttributeCooperative) runs all its
 // blocks at once, as a grid barrier needs; the SM count it reads is
 // $EMU_SM_COUNT (default 2). A launch with a cluster dimension (x only) runs
 // the blocks of one cluster at once, one cluster after another, and
 // cooperative_groups::this_cluster() gives its barrier, the block's rank and
 // map_shared_rank into another block's dynamic shared memory. Each block has
-// its own blockIdx, warps, block
-// barrier and dynamic shared memory; a static __shared__ array is one object
-// for the whole grid, so a cooperative kernel keeps its shared memory
-// dynamic. __syncthreads is a barrier of the block's threads; atomics are the
-// compiler's (float ones through std::atomic_ref), and __threadfence a full
-// fence. The warp collectives (shuffles, votes, ldmatrix, mma.sync) post each
-// lane's operands into the warp's exchange
+// its own blockIdx, warps, block barrier and dynamic shared memory; a static
+// __shared__ array is one object for the whole grid, so a cooperative kernel
+// keeps its shared memory dynamic. __syncthreads is a barrier of the block's
+// threads; atomics are the compiler's (float ones through std::atomic_ref),
+// and __threadfence a full fence. The warp collectives (shuffles, votes,
+// ldmatrix, mma.sync) post each lane's operands into the warp's exchange
 // buffer, meet at the warp's barrier, compute every lane's result from all
 // 32 posts by the PTX ISA's fragment layouts, and meet again before the
 // buffer is reused. cp.async copies at once; its groups need no waiting.
@@ -27,18 +31,19 @@
 #pragma once
 #include <algorithm>
 #include <atomic>
-#include <barrier>
 #include <chrono>
 #include <cmath>
 #include <cstdint>
 #include <cstdlib>
 #include <cstring>
 #include <memory>
-#include <optional>
-#include <thread>
 #include <type_traits>
 #include <vector>
 #include <stddef.h>
+#include <sys/mman.h>
+#if !defined(__x86_64__)
+#include <ucontext.h>
+#endif
 
 #define __global__
 #define __device__
@@ -134,24 +139,180 @@ inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline float __fsub_rn(float a, float b) { return a - b; }
 
 namespace emu {
+// ---- fibers ----
+struct Block;
+struct Fiber {
+#if defined(__x86_64__)
+  void* sp = nullptr;  // its saved stack pointer while it is not running
+#else
+  ucontext_t ctx;
+#endif
+  Block* blk = nullptr;
+  uint3 bid{}, tid{};
+  bool finished = false;
+  unsigned cluster_gen = 0;  // the cluster barrier's generation at its arrive
+};
+struct Sched {
+#if defined(__x86_64__)
+  void* sp = nullptr;  // the launching thread's own context
+#else
+  ucontext_t ctx;
+#endif
+  Fiber* cur = nullptr;
+  void (*body)(void*) = nullptr;
+  void* arg = nullptr;
+  std::vector<char*> stacks;  // reused by every launch of this OS thread
+};
+inline thread_local Sched sched;
+constexpr size_t STACK_BYTES = size_t(1) << 19;  // reserved, not committed: pages on touch
+constexpr size_t GUARD_BYTES = 4096;              // a PROT_NONE page under each stack
+
+#if defined(__x86_64__)
+// emu_fiber_switch(save, to): push the callee-saved registers and the SSE and
+// x87 control words, store the stack pointer in *save, then pop them from
+// the stack `to` and return into it.
+asm(R"(
+  .pushsection .text
+  .p2align 4
+  .globl emu_fiber_switch
+  .hidden emu_fiber_switch
+  .type emu_fiber_switch, @function
+emu_fiber_switch:
+  pushq %rbp
+  pushq %rbx
+  pushq %r12
+  pushq %r13
+  pushq %r14
+  pushq %r15
+  subq $8, %rsp
+  stmxcsr (%rsp)
+  fnstcw 4(%rsp)
+  movq %rsp, (%rdi)
+  movq %rsi, %rsp
+  ldmxcsr (%rsp)
+  fldcw 4(%rsp)
+  addq $8, %rsp
+  popq %r15
+  popq %r14
+  popq %r13
+  popq %r12
+  popq %rbx
+  popq %rbp
+  ret
+  .size emu_fiber_switch, .-emu_fiber_switch
+  .popsection
+)");
+extern "C" void emu_fiber_switch(void** save, void* to);
+#endif
+
+// From the running fiber back to the launching thread, which resumes the next.
+inline void yield() {
+#if defined(__x86_64__)
+  emu_fiber_switch(&sched.cur->sp, sched.sp);
+#else
+  swapcontext(&sched.cur->ctx, &sched.ctx);
+#endif
+}
+[[noreturn]] inline void fiber_main() {
+  sched.body(sched.arg);
+  sched.cur->finished = true;
+  yield();
+  __builtin_unreachable();
+}
+inline char* fiber_stack(size_t i) {
+  while (sched.stacks.size() <= i) {
+    void* p = mmap(nullptr, STACK_BYTES, PROT_READ | PROT_WRITE,
+                   MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE | MAP_STACK, -1, 0);
+    if (p == MAP_FAILED) std::abort();
+    mprotect(p, GUARD_BYTES, PROT_NONE);
+    sched.stacks.push_back(static_cast<char*>(p));
+  }
+  return sched.stacks[i];
+}
+// Fiber f, on stack i, to start at fiber_main when it is first resumed.
+inline void fiber_start(Fiber& f, size_t i) {
+  char* base = fiber_stack(i);
+#if defined(__x86_64__)
+  // the frame emu_fiber_switch pops: control words, r15 .. rbp, the return
+  // address (fiber_main, entered with rsp = 8 mod 16 as after a call)
+  uint64_t* top = reinterpret_cast<uint64_t*>(
+      (reinterpret_cast<uintptr_t>(base) + STACK_BYTES) & ~uintptr_t(15));
+  top[-1] = 0;
+  top[-2] = reinterpret_cast<uint64_t>(&fiber_main);
+  for (int r = 3; r <= 8; ++r) top[-r] = 0;
+  uint32_t mxcsr;
+  uint16_t fpucw;
+  asm volatile("stmxcsr %0" : "=m"(mxcsr));
+  asm volatile("fnstcw %0" : "=m"(fpucw));
+  top[-9] = 0;
+  std::memcpy(&top[-9], &mxcsr, 4);
+  std::memcpy(reinterpret_cast<char*>(&top[-9]) + 4, &fpucw, 2);
+  f.sp = &top[-9];
+#else
+  getcontext(&f.ctx);
+  f.ctx.uc_stack.ss_sp = base + GUARD_BYTES;
+  f.ctx.uc_stack.ss_size = STACK_BYTES - GUARD_BYTES;
+  f.ctx.uc_link = nullptr;
+  makecontext(&f.ctx, reinterpret_cast<void (*)()>(&fiber_main), 0);
+#endif
+}
+inline thread_local Block* block;
+// Run fibers round-robin until every one has finished.
+inline void run_fibers(std::vector<Fiber>& fs) {
+  for (size_t live = fs.size(); live > 0;) {
+    for (auto& f : fs) {
+      if (f.finished) continue;
+      sched.cur = &f;
+      block = f.blk;
+      blockIdx = f.bid;
+      threadIdx = f.tid;
+#if defined(__x86_64__)
+      emu_fiber_switch(&sched.sp, f.sp);
+#else
+      swapcontext(&sched.ctx, &f.ctx);
+#endif
+      if (f.finished) --live;
+    }
+  }
+  sched.cur = nullptr;
+}
+// A barrier of `expected` fibers; the last to arrive goes on at once, the
+// others yield until its arrival has opened the next generation.
+struct Barrier {
+  explicit Barrier(std::ptrdiff_t n) : expected(n) {}
+  std::ptrdiff_t expected, arrived = 0;
+  unsigned gen = 0;
+  unsigned arrive() {
+    const unsigned g = gen;
+    if (++arrived == expected) {
+      arrived = 0;
+      ++gen;
+    }
+    return g;
+  }
+  void wait(unsigned g) const {
+    while (gen == g) yield();
+  }
+  void arrive_and_wait() { wait(arrive()); }
+};
+
 constexpr size_t SMEM_BYTES = 232448;  // a block's dynamic shared memory, the H100's most
 struct Warp {
-  std::unique_ptr<std::barrier<>> bar;
+  std::unique_ptr<Barrier> bar;
   alignas(16) unsigned char buf[32][128];
 };
 struct Cluster;
 struct Block {
   std::vector<Warp> warps;
-  std::unique_ptr<std::barrier<>> bar;
+  std::unique_ptr<Barrier> bar;
   std::unique_ptr<unsigned char[]> smem;  // operator new[]: 16-byte aligned
   Cluster* cluster = nullptr;             // the blocks launched with it, if any
   unsigned rank = 0;                      // its rank in the cluster
 };
 struct Cluster {
   std::vector<Block*> blocks;
-  std::unique_ptr<std::barrier<>> bar;  // every thread of every block
+  std::unique_ptr<Barrier> bar;  // every thread of every block
 };
-inline thread_local Block* block;
 inline int lane() { return threadIdx.x & 31; }
 inline Warp& warp() { return block->warps[threadIdx.x >> 5]; }
 inline unsigned char* dyn_smem() { return block->smem.get(); }
@@ -214,7 +375,7 @@ inline unsigned atomicOr(unsigned* p, unsigned v) {
 inline unsigned atomicExch(unsigned* p, unsigned v) {
   return __atomic_exchange_n(p, v, __ATOMIC_SEQ_CST);
 }
-inline void __nanosleep(unsigned) { std::this_thread::yield(); }
+inline void __nanosleep(unsigned) { emu::yield(); }
 template <class T> inline T __ldcg(const T* p) { return *p; }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline size_t __cvta_generic_to_shared(const void*) { return 0; }
@@ -295,14 +456,15 @@ inline void mma(float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
 inline std::unique_ptr<Block> new_block(int nt) {
   auto b = std::make_unique<Block>();
   b->warps = std::vector<Warp>((nt + 31) / 32);
-  for (auto& w : b->warps) w.bar = std::make_unique<std::barrier<>>(32);
-  b->bar = std::make_unique<std::barrier<>>(nt);
+  for (auto& w : b->warps) w.bar = std::make_unique<Barrier>(32);
+  b->bar = std::make_unique<Barrier>(nt);
   b->smem.reset(new unsigned char[SMEM_BYTES]);
   std::memset(b->smem.get(), 0xff, SMEM_BYTES);
   return b;
 }
 // The blocks of grid g one after another, all at once when `together`, or
-// `cluster` consecutive blocks along x at once (gridDim.x a multiple of it).
+// `cluster` consecutive blocks along x at once (gridDim.x a multiple of it):
+// each wave's threads are fibers run to their end before the next wave.
 template <class F> void run_grid(dim3 g, dim3 b, F f, bool together = false,
                                  unsigned cluster = 1) {
   gridDim = g;
@@ -314,11 +476,13 @@ template <class F> void run_grid(dim3 g, dim3 b, F f, bool together = false,
       for (unsigned x = 0; x < g.x; ++x) ids.push_back({x, y, z});
   if (cluster > 1 && g.x % cluster != 0) std::abort();
   const size_t wave = together ? ids.size() : cluster;
+  sched.body = +[](void* p) { (*static_cast<F*>(p))(); };
+  sched.arg = &f;
+  std::vector<Fiber> fibers;
   for (size_t i0 = 0; i0 < ids.size(); i0 += wave) {
     std::vector<std::unique_ptr<Block>> blocks;
-    std::vector<std::thread> threads;
     Cluster cl;
-    cl.bar = std::make_unique<std::barrier<>>(nt * (std::ptrdiff_t)wave);
+    cl.bar = std::make_unique<Barrier>(nt * (std::ptrdiff_t)wave);
     for (size_t i = i0; i < i0 + wave; ++i) {
       blocks.push_back(new_block(nt));
       if (cluster > 1) {
@@ -327,18 +491,16 @@ template <class F> void run_grid(dim3 g, dim3 b, F f, bool together = false,
         cl.blocks.push_back(blocks.back().get());
       }
     }
-    for (size_t i = i0; i < i0 + wave; ++i) {
-      Block* blk = blocks[i - i0].get();
-      const uint3 id = ids[i];
-      for (int t = 0; t < nt; ++t)
-        threads.emplace_back([&f, blk, id, t] {
-          block = blk;
-          blockIdx = id;
-          threadIdx = {(unsigned)t, 0, 0};
-          f();
-        });
-    }
-    for (auto& th : threads) th.join();
+    fibers.assign(wave * nt, Fiber{});
+    for (size_t i = i0; i < i0 + wave; ++i)
+      for (int t = 0; t < nt; ++t) {
+        Fiber& fb = fibers[(i - i0) * nt + t];
+        fb.blk = blocks[i - i0].get();
+        fb.bid = ids[i];
+        fb.tid = {(unsigned)t, 0, 0};
+        fiber_start(fb, (i - i0) * nt + t);
+      }
+    run_fibers(fibers);
   }
 }
 }  // namespace emu
@@ -367,14 +529,13 @@ cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kern)(P...)
 }
 
 namespace emu {
-inline thread_local std::optional<std::barrier<>::arrival_token> cluster_token;
 // barrier.cluster.arrive / wait: the two halves of the cluster's barrier
 inline void cluster_arrive() {
-  if (block->cluster != nullptr) cluster_token = block->cluster->bar->arrive();
+  if (block->cluster != nullptr) sched.cur->cluster_gen = block->cluster->bar->arrive();
   else __syncthreads();
 }
 inline void cluster_wait() {
-  if (block->cluster != nullptr) block->cluster->bar->wait(std::move(*cluster_token));
+  if (block->cluster != nullptr) block->cluster->bar->wait(sched.cur->cluster_gen);
 }
 }  // namespace emu
 

@@ -1,7 +1,7 @@
 """The decode-attention CUDA sources, run on the CPU.
 
 ``csrc/decode_attention.cu`` is compiled with g++ against
-``tests/cuda_emulation/emu_rt.h`` (tests/_cuda_emulation.py): one OS thread
+``tests/cuda_emulation/emu_rt.h`` (tests/_cuda_emulation.py): one fiber
 per CUDA thread, shuffles through a warp's exchange buffer, the blocks of a
 grid one after another, so the last-block merges across blocks (an atomic
 arrival counter that the merging block sets back to 0) run as they would on

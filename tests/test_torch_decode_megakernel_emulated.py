@@ -1,7 +1,7 @@
 """The T5 decode kernel's CUDA source, run on the CPU.
 
 ``csrc/decode_megakernel.cu`` is compiled with g++ against
-``tests/cuda_emulation/emu_rt.h`` (tests/_cuda_emulation.py): one OS thread
+``tests/cuda_emulation/emu_rt.h`` (tests/_cuda_emulation.py): one fiber
 per CUDA thread, and, since the kernel is a cooperative launch with grid
 barriers between its phases, every block of the grid at once, on an SM
 count of 2 to 4 (``EMU_SM_COUNT``). The wrapper's own launch code drives it

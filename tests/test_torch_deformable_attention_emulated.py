@@ -2,7 +2,7 @@
 run on the CPU.
 
 The source is compiled with g++ against ``tests/cuda_emulation/emu_rt.h``
-(tests/_cuda_emulation.py): one OS thread per CUDA thread, shuffles and votes
+(tests/_cuda_emulation.py): one fiber per CUDA thread, shuffles and votes
 through a warp's exchange buffer, the blocks of a thread-block cluster at
 once with distributed shared memory mapped onto each other's buffers. The
 wrappers' own launch code (``_launch_fwd``, ``_launch_bwd``) drives the

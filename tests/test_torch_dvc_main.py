@@ -130,7 +130,7 @@ def test_cli_eval_on_cpu_and_load_of_a_foreign_file(tmp_path):
     assert "number of params" in out.stdout and "'chapters_soda_c'" in out.stdout
     foreign = tmp_path / "reference.pth"
     torch.save({"state_dict": {}}, foreign)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="neither a checkpoint of train/dvc_main nor"):
         main(cfg, load=str(foreign), device="cpu")
 
 

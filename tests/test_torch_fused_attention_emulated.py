@@ -2,7 +2,7 @@
 
 ``csrc/fused_attention_fwd.cu`` and ``csrc/fused_attention_bwd.cu`` are
 compiled with g++ against ``tests/cuda_emulation/emu_rt.h``, a CPU stand-in
-for the CUDA runtime and the warp primitives the kernels use (one OS thread
+for the CUDA runtime and the warp primitives the kernels use (one fiber
 per CUDA thread, ``mma.sync`` / ``ldmatrix`` / shuffles computed from the
 PTX fragment layouts, ``cp.async`` copying at once). The sources are used as
 they are, except that in ``tensor_core.cuh`` the bodies of the six

@@ -48,7 +48,9 @@ def test_package_imports_with_jax_blocked():
         "import vidchapters_tpu_torch.factory.audio, vidchapters_tpu_torch.factory.vad\n"
         "import vidchapters_tpu_torch.factory.asr, vidchapters_tpu_torch.factory.whisper_transcribe\n"
         "import vidchapters_tpu_torch.models.whisper, vidchapters_tpu_torch.ops.whisper_megakernel\n"
-        "import vidchapters_tpu_torch.ops.probes\n"
+        "import vidchapters_tpu_torch.ops.probes, vidchapters_tpu_torch.models.torch_import\n"
+        "import vidchapters_tpu_torch.data.native_spm, vidchapters_tpu_torch.data.native_loader\n"
+        "import vidchapters_tpu_torch.data.features, vidchapters_tpu_torch.data.tokenizer\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'vidchapters_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

@@ -1,7 +1,7 @@
 """Probe p2's CUDA source, run on the CPU.
 
 ``csrc/probes.cu`` is compiled with g++ against ``tests/cuda_emulation/emu_rt.h``
-(tests/_cuda_emulation.py): one OS thread per CUDA thread, shuffles through a
+(tests/_cuda_emulation.py): one fiber per CUDA thread, shuffles through a
 warp's exchange buffer, the blocks of a grid one after another. The
 wrapper's own launch code drives ``dot_2batch``'s kernel, held against
 ``dot_2batch_plain`` on seeded random inputs within 1e-5 of the largest

@@ -242,5 +242,5 @@ def test_serve_ckpt_refuses_a_foreign_file(tmp_path):
 
     path = tmp_path / "foreign.pth"
     torch.save({"state": {"encoder.weight": torch.zeros(2)}, "epoch": 3}, path)
-    with pytest.raises(ValueError, match="ROADMAP.md §1 item 2"):
+    with pytest.raises(ValueError, match="nor a reference Vid2Seq .pth"):
         load_serving_params(Vid2Seq(_tiny_cfg(tmp_path).model), str(path))

@@ -1,7 +1,7 @@
 """The top-k CUDA source, run on the CPU.
 
 ``csrc/topk.cu`` is compiled with g++ against ``tests/cuda_emulation/emu_rt.h``
-(tests/_cuda_emulation.py): one OS thread per CUDA thread, shuffles through a
+(tests/_cuda_emulation.py): one fiber per CUDA thread, shuffles through a
 warp's exchange buffer, the blocks of a grid one after another, so the
 last-block merge across blocks (an atomic arrival counter that the merging
 block sets back to 0) runs as it would on the card. The wrapper's own launch

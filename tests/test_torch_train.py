@@ -186,11 +186,12 @@ def test_schedule_values_match_jax(schedule, total, frac):
 
 
 def test_mu_dtype_other_than_float32_raises():
+    """float32 and bfloat16 moments are built; any other dtype raises."""
     from vidchapters_tpu_torch import config as tc
     from vidchapters_tpu_torch.train.schedules import build_optimizer
 
-    with pytest.raises(NotImplementedError):
-        build_optimizer(tc.OptimConfig(mu_dtype="bfloat16"), 10, [torch.nn.Parameter(
+    with pytest.raises(ValueError, match="float16"):
+        build_optimizer(tc.OptimConfig(mu_dtype="float16"), 10, [torch.nn.Parameter(
             torch.zeros(2))])
 
 

@@ -6,12 +6,13 @@ annotation json ``{vid: {duration, timestamps, sentences}}`` and an ASR
 pickle ``{vid: {text[], start[], end[]}}`` (or per-video pickles):
 time-token input sequences, span-corruption denoising pairs and output
 sequences, collated to fixed lengths (the reference pads per batch,
-dvc_dataset.py:168-208). The HowTo100M ``YTPretrainDataset`` is not
-ported yet.
+dvc_dataset.py:168-208); and the HowTo100M pretraining set
+``YTPretrainDataset`` (dataset/yt_dataset.py) over a csv of videos.
 """
 
 from __future__ import annotations
 
+import csv
 import os
 import pickle
 from typing import Dict, Iterator, List, Optional, Sequence
@@ -19,7 +20,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 
 from vidchapters_tpu_torch.config import DataConfig
-from vidchapters_tpu_torch.data.features import FeatureSource
+from vidchapters_tpu_torch.data.features import FeatureSource, subsample_or_pad
 from vidchapters_tpu_torch.data.span_corruption import span_corrupt
 from vidchapters_tpu_torch.data.time_tokens import build_time_text_sequence
 from vidchapters_tpu_torch.utils.io import load_json
@@ -105,6 +106,81 @@ class DenseVideoCaptioningDataset:
             "video": video,
             "input_tokens": input_tokens,
             "output_tokens": output_tokens,
+            "denoising_input_tokens": den_in,
+            "denoising_output_tokens": den_out,
+        }
+
+
+class YTPretrainDataset:
+    """HowTo100M-style pretraining (dataset/yt_dataset.py): the generative
+    target is the ASR's time+text sequence (the video alone generates its
+    speech, ``genasr``, dvc.py:59-68), plus the denoising pair drawn from
+    the epoch's generator. Examples are the JAX package's for the same
+    seed."""
+
+    def __init__(self, csv_rows: Sequence[dict], features_path, tokenizer,
+                 subtitles_path: Optional[str] = None,
+                 cfg: DataConfig = DataConfig()):
+        # csv rows: {"video_id": ..., "video_path": ...}
+        self.rows = list(csv_rows)
+        self.features = FeatureSource(features_path, cfg.max_feats, cfg.features_dim)
+        self.tokenizer = tokenizer
+        self.cfg = cfg
+        self.subs = SubtitleSource(subtitles_path)
+
+    @classmethod
+    def from_csv(cls, csv_path: str, features_path, tokenizer, subtitles_path=None,
+                 cfg: DataConfig = DataConfig()):
+        with open(csv_path) as f:
+            rows = list(csv.DictReader(f))
+        return cls(rows, features_path, tokenizer, subtitles_path, cfg)
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    def __getitem__(self, idx: int, rng: Optional[np.random.Generator] = None) -> dict:
+        row = self.rows[idx]
+        video_id = row["video_id"]
+        # a csv video_path is joined under features_path with its
+        # subdirectories kept (yt_dataset.py:49): HowTo100M shards features
+        # into subdirectories. Only the feature suffix goes, since
+        # FeatureSource appends .mp4.npy / .npy itself.
+        if self.features.dir_path and row.get("video_path"):
+            key = row["video_path"]
+            for suffix in (".mp4.npy", ".npy", ".mp4"):
+                if key.endswith(suffix):
+                    key = key[: -len(suffix)]
+                    break
+        else:
+            key = video_id
+        raw = self.features.raw(key)
+        sub = self.subs.get(video_id) or {"text": [], "start": [], "end": []}
+        duration = float(sub.get("duration", len(raw) + 1))
+        video = subsample_or_pad(raw, self.cfg.max_feats, self.cfg.features_dim)
+        # subtitles inside [0, duration] only, their times clamped into it
+        # (yt_dataset.py:55-59)
+        keep = [(s >= 0 and e <= duration) for s, e in zip(sub["start"], sub["end"])]
+        starts = [max(s, 0) for i, s in enumerate(sub["start"]) if keep[i]]
+        ends = [min(e, duration) for i, e in enumerate(sub["end"]) if keep[i]]
+        texts = [t for i, t in enumerate(sub["text"]) if keep[i]]
+
+        if texts:
+            seq = np.asarray(build_time_text_sequence(
+                starts, ends, texts, duration, self.tokenizer,
+                self.cfg.num_bins, self.cfg.max_input_tokens), dtype=np.int64)
+            den_in, den_out = span_corrupt(
+                seq, self.tokenizer, self.cfg.noise_density,
+                self.cfg.mean_noise_span_length, rng)
+        else:
+            seq = np.array([self.tokenizer.eos_token_id], dtype=np.int64)
+            den_in = np.array([0], dtype=np.int64)
+            den_out = seq
+
+        return {
+            "video_id": video_id,
+            "duration": duration,
+            "video": video,
+            "output_tokens": seq,  # the generative target is the ASR sequence
             "denoising_input_tokens": den_in,
             "denoising_output_tokens": den_out,
         }
@@ -217,6 +293,20 @@ class EpochIterator:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
+    def _prefetch(self, idxs) -> None:
+        """Warm the native feature cache for the next batch, so its disk reads
+        overlap this step. Only datasets keyed by ``vids`` (the DVC set) are
+        warmed; a prefetch that fails is ignored, since the load reads the
+        file again."""
+        features = getattr(self.dataset, "features", None)
+        vids = getattr(self.dataset, "vids", None)
+        if features is None or vids is None or not hasattr(features, "prefetch"):
+            return
+        try:
+            features.prefetch([vids[int(i)][-11:] for i in idxs])
+        except (OSError, RuntimeError):
+            pass
+
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         n = len(self.dataset)
         order = np.arange(n)
@@ -228,6 +318,7 @@ class EpochIterator:
             idxs = order[b * self.batch_size:(b + 1) * self.batch_size]
             if len(idxs) == 0:
                 break
+            self._prefetch(order[(b + 1) * self.batch_size:(b + 2) * self.batch_size])
             examples = [self.dataset.__getitem__(int(i), rng=rng) for i in idxs]
             yield collate(examples, self.cfg.max_input_tokens,
                           self.cfg.max_output_tokens, self.max_denoise_out,

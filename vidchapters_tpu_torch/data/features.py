@@ -4,8 +4,7 @@ Reference semantics (dataset/dvc_dataset.py:61-86): features come either from
 a directory of per-video ``<id>.npy`` / ``<id>.mp4.npy`` files or from one
 consolidated mapping; long videos are subsampled with the integer stride rule
 ``video[(j * len) // max_feats]`` and short ones zero-padded to ``max_feats``.
-The port's own copy of ``vidchapters_tpu/data/features.py``, without the
-native C++ prefetch loader (the same stride rule, in numpy).
+The port's own copy of ``vidchapters_tpu/data/features.py``.
 """
 
 from __future__ import annotations
@@ -32,14 +31,23 @@ def subsample_or_pad(video: np.ndarray, max_feats: int,
 
 
 class FeatureSource:
-    """Uniform accessor over per-video .npy dirs or consolidated feature dicts."""
+    """Uniform accessor over per-video .npy dirs or consolidated feature dicts.
+
+    In directory mode the C++ loader (``data/native_loader.py``: mmap'd npy,
+    the same stride rule, a thread pool that prefetches into an LRU cache)
+    serves ``__call__`` and ``prefetch`` when it builds: ``native=None``
+    chooses it when g++ is there, ``False`` keeps numpy, ``True`` requires
+    the library. Host code only."""
 
     def __init__(self, features_path: Union[str, Dict[str, np.ndarray]],
-                 max_feats: int = 100, features_dim: int = 768):
+                 max_feats: int = 100, features_dim: int = 768,
+                 native: Optional[bool] = None):
         self.max_feats = max_feats
         self.features_dim = features_dim
         self.features: Optional[Dict[str, np.ndarray]] = None
         self.dir_path: Optional[str] = None
+        self._native = None
+        self._native_opt = native
         if isinstance(features_path, dict):
             self.features = features_path
         elif os.path.isdir(features_path):
@@ -51,6 +59,22 @@ class FeatureSource:
 
             loaded = torch.load(features_path, map_location="cpu")
             self.features = {k: v.numpy() for k, v in loaded.items()}
+
+    def _native_loader(self):
+        """The native loader, made at first use; None when disabled, not in
+        directory mode, or (with ``native=None``) when it does not build."""
+        if self._native_opt is False or self.dir_path is None:
+            return None
+        if self._native is None:
+            from vidchapters_tpu_torch.data import native_loader
+
+            try:
+                self._native = native_loader.NativeFeatureLoader()
+            except (RuntimeError, OSError):
+                if self._native_opt is True:
+                    raise
+                self._native = False  # tried: unavailable here
+        return self._native or None
 
     def _path(self, video_id: str) -> str:
         path = os.path.join(self.dir_path, video_id + ".mp4.npy")
@@ -66,5 +90,16 @@ class FeatureSource:
             return np.asarray(self.features[video_id], dtype=np.float32)
         return np.load(self._path(video_id)).astype(np.float32)
 
+    def prefetch(self, video_ids) -> None:
+        """Warm the native cache for upcoming ids (nothing without it)."""
+        loader = self._native_loader()
+        if loader is not None:
+            loader.prefetch([self._path(v) for v in video_ids])
+
     def __call__(self, video_id: str) -> np.ndarray:
+        loader = self._native_loader()
+        if loader is not None:
+            path = self._path(video_id)
+            if os.path.exists(path):
+                return loader.load(path, self.max_feats, self.features_dim)
         return subsample_or_pad(self.raw(video_id), self.max_feats, self.features_dim)

@@ -1,8 +1,8 @@
 """Tokenizers with T5 vocabulary layout + ``<time=k>`` tokens.
 
 The PyTorch port's own copy of ``vidchapters_tpu/data/tokenizer.py``: the
-same ids, with the SentencePiece encoder on its pure-Python Viterbi path
-only (the C++ twin is not carried over).
+same ids, with the SentencePiece Viterbi in Python and in C++
+(``data/native_spm.py``, chosen when g++ builds it).
 
 The reference builds its tokenizer from HF ``T5Tokenizer`` and appends
 ``num_bins`` time tokens (model/vid2seq.py:10-18); the embedding table is
@@ -236,7 +236,8 @@ _WS = "▁"  # sentencepiece whitespace marker
 
 
 class SentencePieceUnigramTokenizer(_TokenizerBase):
-    """Pure-Python unigram sentencepiece encoder over a real ``spiece.model``.
+    """Unigram sentencepiece encoder over a real ``spiece.model`` (Viterbi
+    in C++ when ``use_native`` allows and g++ builds it, else in Python).
 
     Matches HF T5Tokenizer ids: spm pieces own ids [0, n_pieces); 100
     ``<extra_id_k>`` sentinels appended with <extra_id_0> last (highest id);
@@ -244,21 +245,30 @@ class SentencePieceUnigramTokenizer(_TokenizerBase):
     CONTROL/UNKNOWN pieces already.
     """
 
-    def __init__(self, model_path: str, num_bins: int = 100, extra_ids: int = 100):
+    def __init__(self, model_path: str, num_bins: int = 100, extra_ids: int = 100,
+                 use_native: Optional[bool] = None):
         with open(model_path, "rb") as f:
             pieces = _parse_spm_pieces(f.read())
         self.pieces = pieces
         self.piece_to_id: Dict[str, int] = {p: i for i, (p, _, _) in enumerate(pieces)}
         self.scores: List[float] = [s for (_, s, _) in pieces]
         self.max_piece_len = max(len(p) for (p, _, _) in pieces)
-        # proper prefixes of every piece: lets the Viterbi inner loop stop
-        # as soon as no piece can extend the current substring
-        self._prefixes = {p[:k] for (p, _, _) in pieces
-                          for k in range(1, len(p))}
+        self._prefix_set = None  # built by the Python Viterbi's first call
         text_vocab_size = len(pieces) + extra_ids
         super().__init__(text_vocab_size, num_bins, num_sentinels=extra_ids)
         # unigram Viterbi needs an unk score penalty
         self._unk_score = min(self.scores) - 10.0
+        # the C++ Viterbi twin (data/native_spm.py): the same ids, far faster.
+        # None: use it when g++ builds it; True: require it; False: Python.
+        self._native = None
+        if use_native is not False:
+            from vidchapters_tpu_torch.data import native_spm
+
+            try:
+                self._native = native_spm.NativeSpmEncoder(pieces, UNK_ID, self._unk_score)
+            except (RuntimeError, OSError):
+                if use_native:
+                    raise
 
     # -- normalization (T5 spm: add dummy prefix, collapse spaces) -----------
 
@@ -266,10 +276,26 @@ class SentencePieceUnigramTokenizer(_TokenizerBase):
         text = re.sub(r"\s+", " ", text.strip())
         return _WS + text.replace(" ", _WS)
 
+    @property
+    def _prefixes(self):
+        """Proper prefixes of every piece: the Viterbi's inner loop stops as
+        soon as no piece can extend the current substring (the native
+        encoder prunes the same way)."""
+        if self._prefix_set is None:
+            self._prefix_set = {p[:k] for (p, _, _) in self.pieces
+                                for k in range(1, len(p))}
+        return self._prefix_set
+
     def _encode_text(self, text: str) -> List[int]:
         if not text.strip():
             return []
         s = self._normalize(text)
+        if self._native is not None:
+            return self._native.encode(s)
+        return self._viterbi(s)
+
+    def _viterbi(self, s: str) -> List[int]:
+        """Ids of the normalized string ``s``, in Python."""
         n = len(s)
         # Viterbi over substrings present in the vocab
         best = [float("-inf")] * (n + 1)

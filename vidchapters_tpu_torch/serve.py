@@ -21,7 +21,8 @@ encode, beam decode, ``<time=k>`` parse, answered as JSON over HTTP:
 
 Usage:
     python -m vidchapters_tpu_torch.serve --config exp.json \
-        [--ckpt SAVE_DIR | CKPT_FILE | state_dict.pt] [--device cuda] --port 8976
+        [--ckpt SAVE_DIR | CKPT_FILE | state_dict.pt | reference.pth] [--device cuda] \
+        --port 8976
 (--ckpt omitted = seeded random weights: smoke/benchmark mode.)
 """
 
@@ -47,6 +48,7 @@ from vidchapters_tpu_torch.data.time_tokens import (
     build_time_text_sequence,
     decode_chapter_sequence,
 )
+from vidchapters_tpu_torch.models import torch_import
 from vidchapters_tpu_torch.runtime.checkpoint import CheckpointManager
 
 
@@ -440,10 +442,13 @@ def load_serving_params(model, ckpt: Optional[str], seed: int = 0):
       restores one);
     - a checkpoint file of that module (a payload with a ``"model"`` key);
     - a ``torch.save``d bare state_dict of the port's Vid2Seq;
+    - a reference ``.pth`` (``{"model", "optimizer", "epoch", "args"}`` or a
+      bare state_dict under the reference's names), through
+      ``models/torch_import`` (vidchapters_tpu/serve.py:447-457);
     - None: seeded random weights (``torch.Generator``).
 
-    Anything else raises: a reference ``.pth`` is not importable yet
-    (ROADMAP.md §1 item 2)."""
+    Anything else raises, as does a reference name with no place in the
+    port's Vid2Seq."""
     if not ckpt:
         model.init_weights(torch.Generator().manual_seed(seed))
         return model
@@ -457,8 +462,10 @@ def load_serving_params(model, ckpt: Optional[str], seed: int = 0):
         model.load_state_dict(mgr.load(name, map_location="cpu")["model"])
         print(f"restored '{name}' from {ckpt}")
         return model
-    payload = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(payload, dict) and isinstance(payload.get("model"), dict):
+    payload = torch_import.load_payload(path)
+    if torch_import.load_reference_weights(payload, model):
+        print(f"imported reference checkpoint {ckpt}")
+    elif isinstance(payload, dict) and isinstance(payload.get("model"), dict):
         model.load_state_dict(payload["model"])
         print(f"loaded checkpoint {ckpt}")
     elif isinstance(payload, dict) and payload and all(
@@ -467,9 +474,8 @@ def load_serving_params(model, ckpt: Optional[str], seed: int = 0):
         print(f"loaded state_dict {ckpt}")
     else:
         raise ValueError(
-            f"{ckpt} is neither a checkpoint of train/dvc_main nor a state_dict of the "
-            f"port's Vid2Seq; importing a reference .pth is not ported yet "
-            f"(ROADMAP.md §1 item 2)")
+            f"{ckpt} is neither a checkpoint of train/dvc_main, a state_dict of the "
+            f"port's Vid2Seq nor a reference Vid2Seq .pth")
     return model
 
 
@@ -484,9 +490,9 @@ def main(args=None) -> None:
     p.add_argument("--config", required=True, help="ExperimentConfig json")
     p.add_argument("--ckpt", default=None,
                    help="a train/dvc_main save directory (best, else last), "
-                        "one of its checkpoint files, or a torch.save'd "
-                        "state_dict of the port's Vid2Seq; omit for seeded "
-                        "random weights")
+                        "one of its checkpoint files, a torch.save'd "
+                        "state_dict of the port's Vid2Seq, or a reference "
+                        ".pth; omit for seeded random weights")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights when --ckpt is omitted")
     p.add_argument("--device", default="cuda",

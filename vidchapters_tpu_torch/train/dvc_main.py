@@ -11,10 +11,12 @@ when there is none).
     python -m vidchapters_tpu_torch.train.dvc_main --config exp.json [--eval]
         [--load CKPT] [--device cuda|cpu]
 
-Not ported: the HowTo100M pretraining set (``htm``), the import of a
-reference ``.pth`` with ``--load``, and data parallelism over more than one
-GPU (ROADMAP.md). ``profile_dir`` writes a ``torch.profiler`` trace of the
-same steps the JAX package profiles.
+``htm`` (HowTo100M pretraining, ``configs/htm_pretrain.json``) has a train
+set only: no eval, no ``best``, ``last`` and ``log.txt`` each epoch, and
+``main`` returns ``{}``. ``--load`` takes a checkpoint of this module or a
+reference ``.pth`` (``models/torch_import.py``). Not ported: data
+parallelism over more than one GPU (ROADMAP.md). ``profile_dir`` writes a
+``torch.profiler`` trace of the same steps the JAX package profiles.
 """
 
 from __future__ import annotations
@@ -29,8 +31,13 @@ import torch
 
 from vidchapters_tpu_torch import resolve_device
 from vidchapters_tpu_torch.config import ExperimentConfig, default_dataset_paths
-from vidchapters_tpu_torch.data.dvc_dataset import DenseVideoCaptioningDataset, EpochIterator
+from vidchapters_tpu_torch.data.dvc_dataset import (
+    DenseVideoCaptioningDataset,
+    EpochIterator,
+    YTPretrainDataset,
+)
 from vidchapters_tpu_torch.data.tokenizer import build_tokenizer
+from vidchapters_tpu_torch.models import torch_import
 from vidchapters_tpu_torch.models.vid2seq import Vid2Seq
 from vidchapters_tpu_torch.runtime.checkpoint import CheckpointManager
 from vidchapters_tpu_torch.runtime.collectives import is_main_process
@@ -49,12 +56,13 @@ def build_datasets(cfg: ExperimentConfig, tokenizer):
     reference json)]`` for each of ``cfg.combine_datasets``."""
     train_sets, val_sets, test_sets = [], [], []
     for name in cfg.combine_datasets:
-        if name == "htm":
-            raise NotImplementedError(
-                "the HowTo100M pretraining set (YTPretrainDataset) is not ported yet "
-                "(ROADMAP.md)")
         # explicit per-dataset paths win; else the reference's standard layout
         paths = cfg.datasets.get(name) or default_dataset_paths(cfg.paths, name)
+        if name == "htm":  # pretraining: a train set only
+            train_sets.append((name, YTPretrainDataset.from_csv(
+                paths.train_json_path, paths.features_path, tokenizer,
+                paths.subtitles_path, cfg.data)))
+            continue
 
         def make(json_path):
             return DenseVideoCaptioningDataset(json_path, paths.features_path, tokenizer,
@@ -67,14 +75,17 @@ def build_datasets(cfg: ExperimentConfig, tokenizer):
     return train_sets, val_sets, test_sets
 
 
-def _load_weights(model: Vid2Seq, load: str, device) -> None:
-    """``--load``: the model weights of a checkpoint this module wrote."""
-    payload = torch.load(load, map_location=device, weights_only=True)
-    if not (isinstance(payload, dict) and "model" in payload and "optimizer" in payload):
-        raise NotImplementedError(
-            f"{load} is not a checkpoint of this package: importing a reference .pth "
-            f"(models/torch_import.py) is not ported yet (ROADMAP.md)")
-    model.load_state_dict(payload["model"])
+def _load_weights(model: Vid2Seq, load: str) -> None:
+    """``--load``: the model weights of a checkpoint this module wrote, or of
+    a reference ``.pth`` (through ``models/torch_import``)."""
+    payload = torch_import.load_payload(load)
+    if torch_import.load_reference_weights(payload, model):
+        print(f"imported reference checkpoint {load}")
+    elif isinstance(payload, dict) and "model" in payload and "optimizer" in payload:
+        model.load_state_dict(payload["model"])
+    else:
+        raise ValueError(f"{load} is neither a checkpoint of train/dvc_main nor a "
+                         f"reference Vid2Seq .pth")
 
 
 def main(cfg: ExperimentConfig, load: str = "", eval_only: bool = False,
@@ -97,7 +108,7 @@ def main(cfg: ExperimentConfig, load: str = "", eval_only: bool = False,
     model.to(device)
     if load:
         print(f"loading checkpoint {load}")
-        _load_weights(model, load, device)
+        _load_weights(model, load)
     print(f"number of params: {sum(p.numel() for p in model.parameters())}")  # dvc.py:339-341
 
     steps_per_epoch = sum(len(EpochIterator(ds, cfg.train.batch_size, d))
@@ -203,7 +214,7 @@ if __name__ == "__main__":
     p.add_argument("--config", required=True, help="experiment json")
     p.add_argument("--load", default="",
                    help="start from the weights of a checkpoint written by this module "
-                        "(a reference .pth is not ported yet)")
+                        "or of a reference .pth")
     p.add_argument("--eval", action="store_true",
                    help="skip training; evaluate the loaded or best weights on the test "
                         "(or val) split")

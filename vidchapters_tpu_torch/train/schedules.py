@@ -13,7 +13,13 @@ which ``torch.optim.AdamW`` with ``clip_grad_norm_`` does not have:
 - decoupled weight decay ``wd * param`` on every parameter, added to the
   Adam direction before the learning rate scales it;
 - clipping ``g * max_norm / ||g||`` when ``||g|| >= max_norm``, with no
-  ``+1e-6`` in the denominator.
+  ``+1e-6`` in the denominator;
+- ``mu_dtype`` bfloat16 (optax 0.2.6 ``scale_by_adam``): the new first
+  moment is ``(1 - b1) * g + b1 * mu``, where ``b1 * mu`` is computed in
+  bf16 (``b1`` rounded to bf16, the product rounded) and the sum in fp32;
+  the update uses that fp32 moment, and only the stored ``mu`` is cast to
+  bf16. ``nu`` stays fp32. This is optax's op-by-op result; a jitted JAX
+  step may keep ``b1 * mu`` in fp32 (XLA's excess precision).
 """
 
 from __future__ import annotations
@@ -60,18 +66,21 @@ class ClipAdamW:
     over a list of parameters, updated in place. ``step()`` reads each
     parameter's ``.grad`` (None counts as zeros), applies one update, and
     returns the global norm of the raw gradients (before the clip). The
-    state (``mu``, ``nu`` in float32, ``count``) lives on the parameters'
-    devices."""
+    state (``mu`` in ``mu_dtype``, ``nu`` in float32, ``count``) lives on
+    the parameters' devices."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], schedule: Callable[[int], float],
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 weight_decay: float = 0.0, clip_max_norm: float = 0.0):
+                 weight_decay: float = 0.0, clip_max_norm: float = 0.0,
+                 mu_dtype: torch.dtype = torch.float32):
         self.params: List[torch.nn.Parameter] = list(params)
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
+        # b1 as a constant of mu's dtype (JAX's weak-typed Python float)
+        self._b1_mu = float(torch.tensor(b1, dtype=mu_dtype))
         self.weight_decay = weight_decay
         self.clip_max_norm = clip_max_norm
-        self.mu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
+        self.mu = [torch.zeros_like(p, dtype=mu_dtype) for p in self.params]
         self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in self.params]
         self.count = 0
 
@@ -90,16 +99,17 @@ class ClipAdamW:
         bc2 = 1.0 - b2 ** self.count
         for p, g, mu, nu in zip(self.params, grads, self.mu, self.nu):
             g = g.float()
-            mu.copy_((1.0 - b1) * g + b1 * mu)
+            m = (1.0 - b1) * g + self._b1_mu * mu  # b1 * mu in mu's dtype, the sum fp32
             nu.copy_((1.0 - b2) * (g * g) + b2 * nu)
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            u = (m / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            mu.copy_(m)
             u = u + self.weight_decay * p.float()
             p.copy_(p + (u * -lr).to(p.dtype))
         return g_norm
 
     def state_dict(self) -> dict:
-        """The moments and the update count (the schedule is rebuilt from
-        the config)."""
+        """The moments (``mu`` in its own dtype) and the update count (the
+        schedule is rebuilt from the config)."""
         return {"mu": list(self.mu), "nu": list(self.nu), "count": self.count}
 
     @torch.no_grad()
@@ -114,12 +124,12 @@ class ClipAdamW:
 
 def build_optimizer(cfg: OptimConfig, num_training_steps: int,
                     params: Iterable[torch.nn.Parameter]) -> ClipAdamW:
-    """Global-norm clip + AdamW on ``params`` (dvc.py:112-116, 346-351).
-    Only float32 Adam moments are ported; ``fused_flat`` changes nothing
-    that is computed and is ignored."""
-    if cfg.mu_dtype != "float32":
-        raise NotImplementedError(
-            f"mu_dtype={cfg.mu_dtype!r} is not ported (ROADMAP.md): only float32")
+    """Global-norm clip + AdamW on ``params`` (dvc.py:112-116, 346-351),
+    the first moment stored in ``cfg.mu_dtype`` ("float32" or "bfloat16").
+    ``fused_flat`` changes nothing that is computed and is ignored."""
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    if cfg.mu_dtype not in dtypes:
+        raise ValueError(f"mu_dtype={cfg.mu_dtype!r}: expected one of {sorted(dtypes)}")
     return ClipAdamW(params, build_schedule(cfg, num_training_steps), b1=cfg.beta1,
                      b2=cfg.beta2, weight_decay=cfg.weight_decay,
-                     clip_max_norm=cfg.clip_max_norm)
+                     clip_max_norm=cfg.clip_max_norm, mu_dtype=dtypes[cfg.mu_dtype])
