@@ -94,6 +94,28 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    for bit, two requests served (fused attention, top-k and decode kernel
    launched), fp32 greedy tokens card vs CPU, and dvc_main --load --eval on
    phase 5's val set with finite metrics.
+9. VC (chapter titles from ground-truth boundaries) at T5-base width
+   through train/vc_main.main: one epoch at batch 16 (3 steps) over 48
+   synthetic videos, the val eval and the final eval (best) over 4 videos
+   of 16 chapters at beam 4 / max_length 32, 16 clips a generate call
+   (64 decode-kernel rows); best / last / log.txt, finite CIDEr / METEOR /
+   BLEU / ROUGE-L; the fused attention's, the top-k's and the decode
+   kernel's launches exactly the counts the model, the shapes and the
+   decode steps run give; ms a step, clips/s, peak memory; fp32 beam tokens
+   at 2+2 layers card vs CPU; phase 5's best weights stripped of their time
+   tokens load into a text-only-vocab VC model; --eval --model-type random.
+   Phase 2 also holds the decode kernel at 16 x 4 rows and L 32 (fp32 and
+   bf16) and the top-k at [16, 4*32200].
+10. Moment-DETR at configs/chapters_momentdetr.json (hidden 256, 8 heads,
+   2+2 layers, 10 queries, max_v_l 1200, TEF, bf16) through
+   grounding_main's CLI with a 12-layer CLIP ViT-L/14 text tower from a
+   synthetic OpenAI-named state dict (--clip-text-ckpt): the recipe's batch
+   256 if a step fits, else the largest power of two that does; one epoch
+   over 768 synthetic queries (videos up to 3600 s: 1200 clips), the val
+   eval, best / last / log.txt, the final eval and test_preds.jsonl with
+   finite metrics; ms a step and peak memory; an fp32 gradient check at
+   hidden 64, card vs CPU; one use_speech step with the smoke-mode BERT
+   tower on the card.
 
 The kernels' launch counts are zeroed just before each main path (phases
 3, 4, 6, 7, 8 and each run of 5) and read just after it; the kernel line
@@ -101,7 +123,8 @@ reports each kernel's count from its own path (training for the fused
 attention, serving for top-k and the decode kernel, phase 5's first run for
 the decode-attention kernels, phase 6's pdvc_main run for the deformable
 attention, phase 7's sweep for the Whisper kernel); rows 1-2 also carry
-``launches_pretrain`` from phase 8's dvc_main run. The probes lie on no
+``launches_pretrain`` from phase 8's dvc_main run and rows 1-4
+``launches_vc`` from phase 9's vc_main run. The probes lie on no
 path: their count is phase 2's.
 
 The last lines are the kernel table as one JSON object, the nvidia-smi
@@ -632,7 +655,8 @@ TOPK_SHAPES = ((8, 4 * 32200, 8, "float32"),    # serving: 8 examples x 2K of 4 
                (8, 4 * 32200, 8, "bfloat16"),
                (1, 5 * 51865, 5, "float32"),    # Whisper beam 5, the one-file transcribe
                (8, 5 * 51865, 5, "float32"),    # Whisper beam 5 at batch 8
-               (8, 51865, 5, "float32"))        # Whisper's first beam step
+               (8, 51865, 5, "float32"),        # Whisper's first beam step
+               (16, 4 * 32200, 8, "float32"))   # VC's eval: 16 clips x 2K of 4 beams
 
 
 def check_topk(gen):
@@ -707,37 +731,43 @@ def decode_kernel_tol(ref, dtype) -> float:
 MEGA_SHAPE = dict(b0=8, g=4, n=12, length=256, lenc=1152, d=768, heads=12, dff=3072)
 
 
-def megakernel_inputs(gen):
-    """The decode kernel's check inputs at full width (8 examples x 4 beams,
-    12 layers, L 256, Lenc 1152), on the CPU in fp32: (stacked weights, x,
-    self caches, cross K/V, the [L, L, H] bias table, the encoder mask, the
-    beam permutation)."""
+def megakernel_inputs(gen, b0: int = MEGA_SHAPE["b0"], length: int = MEGA_SHAPE["length"],
+                      device: str = "cpu"):
+    """The decode kernel's check inputs at full width (``b0`` examples x 4
+    beams, 12 layers, L ``length``, Lenc 1152; serving's 8 and 256 by
+    default), in fp32 on ``device`` (``gen``'s): (stacked weights, x, self
+    caches, cross K/V, the [L, L, H] bias table, the encoder mask, the beam
+    permutation)."""
     import torch
 
-    b0, g, n, length, lenc, d, heads, dff = MEGA_SHAPE.values()
+    _, g, n, _, lenc, d, heads, dff = MEGA_SHAPE.values()
     inner, rows = d, b0 * g
 
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
     def w(*shape, fan_in):
-        return torch.randn(*shape, generator=gen) * fan_in ** -0.5
+        return randn(*shape) * fan_in ** -0.5
 
     # T5's init scales: q carries the absent 1/sqrt(d_kv) of the scores
     dkv = inner // heads
-    stacked = {"ln": 1.0 + 0.1 * torch.randn(n, 3, d, generator=gen),
+    stacked = {"ln": 1.0 + 0.1 * randn(n, 3, d),
                "wqkv": torch.cat([w(n, d, inner, fan_in=d * dkv),
                                   w(n, d, 2 * inner, fan_in=d)], dim=2),
                "wo_self": w(n, inner, d, fan_in=inner),
                "wq_cross": w(n, d, inner, fan_in=d * dkv),
                "wo_cross": w(n, inner, d, fan_in=inner),
                "wi": w(n, d, dff, fan_in=d), "wo_ff": w(n, dff, d, fan_in=dff),
-               "final_ln": 1.0 + 0.1 * torch.randn(1, d, generator=gen)}
-    x = torch.randn(rows, d, generator=gen)
-    kc, vc = (torch.randn(rows, n, length, inner, generator=gen) for _ in range(2))
-    kx, vx = (torch.randn(b0, n, lenc, inner, generator=gen) for _ in range(2))
-    bias_all = torch.randn(length, length, heads, generator=gen)
-    mask = torch.ones(b0, lenc, dtype=torch.int32)
+               "final_ln": 1.0 + 0.1 * randn(1, d)}
+    x = randn(rows, d)
+    kc, vc = (randn(rows, n, length, inner) for _ in range(2))
+    kx, vx = (randn(b0, n, lenc, inner) for _ in range(2))
+    bias_all = randn(length, length, heads)
+    mask = torch.ones(b0, lenc, dtype=torch.int32, device=device)
     for e in range(b0):
-        mask[e, 100 + 100 * e:] = 0   # 100 video frames + per-example ASR length
-    src = torch.tensor([(r // g) * g + (r * 3 + 1) % g for r in range(rows)], dtype=torch.int32)
+        mask[e, 100 + 100 * e % 1000:] = 0   # 100 video frames + per-example ASR length
+    src = torch.tensor([(r // g) * g + (r * 3 + 1) % g for r in range(rows)], dtype=torch.int32,
+                       device=device)
     return stacked, x, kc, vc, kx, vx, bias_all, mask, src
 
 
@@ -903,6 +933,50 @@ def check_mega_tensor_cores():
     return counts
 
 
+def _mega_check(st, ts, m, s, bias_all, idxs, dtype, g: int, label: str):
+    """One form of the decode kernel against its plain version at each cache
+    index of ``idxs``: hidden and k/v new within ``decode_kernel_tol``, the
+    permuted cache rows bit for bit (greedy: the other rows untouched), row
+    idx the new k/v. Returns (the largest error, the largest tolerance)."""
+    import torch
+
+    from vidchapters_tpu_torch.ops import decode_megakernel as dm
+
+    heads = MEGA_SHAPE["heads"]
+    xx, kk, vv, kxx, vxx = ts
+    worst, tol = 0.0, 0.0
+    for idx in idxs:
+        br, b0b = bias_all[idx].cuda(), bias_all[0, :1].cuda().contiguous()
+        k_in, v_in = kk.clone(), vv.clone()
+        got = dm.mega_decode_step(st, xx, k_in, v_in, kxx, vxx, br, b0b, m, idx, g, heads, src=s)
+        ref = dm.mega_decode_step_plain(st, xx, kk.clone(), vv.clone(), kxx, vxx, br, b0b, m,
+                                        idx, g, heads, src=s)
+        torch.cuda.synchronize()
+        per = {name: (a.float() - r.float()).abs().max().item()
+               for name, a, r in zip(("hidden", "k_new", "v_new"), got, ref)}
+        tols = [decode_kernel_tol(r, dtype) for r in ref[:3]]
+        check(all(torch.isfinite(a.float()).all().item() for a in got[:3]),
+              f"decode kernel {dtype} {label} idx={idx}: not finite")
+        check(all(within(a, r, t) for a, r, t in zip(got[:3], ref[:3], tols)),
+              f"decode kernel {dtype} {label} idx={idx}: err {per} > {tols}")
+        tol = max(tol, *tols)
+        caches = got[3:] if s is not None else (k_in, v_in)
+        for c_got, new in zip(caches, got[1:3]):
+            check(torch.equal(c_got[:, :, idx], new),
+                  f"decode kernel {dtype} {label} idx={idx}: cache row idx != new k/v")
+        if s is not None:
+            for c_got, c_ref in zip(got[3:], ref[3:]):
+                check(torch.equal(c_got[:, :, :idx], c_ref[:, :, :idx]),
+                      f"decode kernel {dtype} {label} idx={idx}: permuted rows differ")
+        else:
+            keep = [i for i in range(kk.shape[2]) if i != idx]
+            check(torch.equal(k_in[:, :, keep], kk[:, :, keep]) and
+                  torch.equal(v_in[:, :, keep], vv[:, :, keep]),
+                  f"decode kernel {dtype} {label} idx={idx}: greedy touched other rows")
+        worst = max(worst, max(per.values()))
+    return worst, tol
+
+
 def check_megakernel(gen):
     """The T5 decode kernel against its plain version at T5-base width (12
     layers, d 768, 12 heads, d_ff 3072, L 256, 1152 encoder keys), fp32 and
@@ -932,53 +1006,29 @@ def check_megakernel(gen):
     errs, identical = {}, False
     for dtype in (torch.float32, torch.bfloat16):
         for b0, g in MEGA_FORMS:
-            st, (xx, kk, vv, kxx, vxx), m, s, _ = on(dtype, b0, g)
-            worst, tol = 0.0, 0.0
-            for idx in (0, 1, 127, 128, 255):
+            st, ts, m, s, _ = on(dtype, b0, g)
+            worst, tol = _mega_check(st, ts, m, s, bias_all, (0, 1, 127, 128, 255), dtype, g,
+                                     f"{b0}x{g}")
+            if dtype == torch.bfloat16 and (b0, g) == (8, 4):
+                # sums in a fixed order: a second call gives the same bits
+                xx, kk, vv, kxx, vxx = ts
+                idx = 128
                 br, b0b = bias_all[idx].cuda(), bias_all[0, :1].cuda().contiguous()
-                k_in, v_in = kk.clone(), vv.clone()
-                got = dm.mega_decode_step(st, xx, k_in, v_in, kxx, vxx, br, b0b, m, idx, g,
-                                          heads, src=s)
-                ref = dm.mega_decode_step_plain(st, xx, kk.clone(), vv.clone(), kxx, vxx, br,
-                                                b0b, m, idx, g, heads, src=s)
-                torch.cuda.synchronize()
-                per = {name: (a.float() - r.float()).abs().max().item()
-                       for name, a, r in zip(("hidden", "k_new", "v_new"), got, ref)}
-                tols = [decode_kernel_tol(r, dtype) for r in ref[:3]]
-                check(all(torch.isfinite(a.float()).all().item() for a in got[:3]),
-                      f"decode kernel {dtype} {b0}x{g} idx={idx}: not finite")
-                check(all(within(a, r, t) for a, r, t in zip(got[:3], ref[:3], tols)),
-                      f"decode kernel {dtype} {b0}x{g} idx={idx}: err {per} > {tols}")
-                tol = max(tol, *tols)
-                caches = got[3:] if s is not None else (k_in, v_in)
-                for c_got, new in zip(caches, got[1:3]):
-                    check(torch.equal(c_got[:, :, idx], new),
-                          f"decode kernel {dtype} {b0}x{g} idx={idx}: cache row idx != new k/v")
-                if s is not None:
-                    for c_got, c_ref in zip(got[3:], ref[3:]):
-                        check(torch.equal(c_got[:, :, :idx], c_ref[:, :, :idx]),
-                              f"decode kernel {dtype} {b0}x{g} idx={idx}: permuted rows differ")
-                else:
-                    keep = [i for i in range(kk.shape[2]) if i != idx]
-                    check(torch.equal(k_in[:, :, keep], kk[:, :, keep]) and
-                          torch.equal(v_in[:, :, keep], vv[:, :, keep]),
-                          f"decode kernel {dtype} {b0}x{g} idx={idx}: greedy touched other rows")
-                worst = max(worst, max(per.values()))
-                if dtype == torch.bfloat16 and (b0, g) == (8, 4) and idx == 128:
-                    # sums in a fixed order: a second call gives the same bits
-                    again = dm.mega_decode_step(st, xx, kk.clone(), vv.clone(), kxx, vxx, br, b0b,
-                                                m, idx, g, heads, src=s)
-                    check(all(torch.equal(p, q) for p, q in zip(again[:3], got[:3])) and
-                          all(torch.equal(p[:, :, :idx + 1], q[:, :, :idx + 1])
-                              for p, q in zip(again[3:], got[3:])),
-                          "decode kernel bf16 8x4: two calls differ")
-                    identical = True
+                got = dm.mega_decode_step(st, xx, kk.clone(), vv.clone(), kxx, vxx, br, b0b, m,
+                                          idx, g, heads, src=s)
+                again = dm.mega_decode_step(st, xx, kk.clone(), vv.clone(), kxx, vxx, br, b0b,
+                                            m, idx, g, heads, src=s)
+                check(all(torch.equal(p, q) for p, q in zip(again[:3], got[:3])) and
+                      all(torch.equal(p[:, :, :idx + 1], q[:, :, :idx + 1])
+                          for p, q in zip(again[3:], got[3:])),
+                      "decode kernel bf16 8x4: two calls differ")
+                identical = True
             errs[(str(dtype).split(".")[-1], f"{b0}x{g}")] = worst
             say(f"[check] decode kernel {dtype} {b0}x{g} idx 0/1/127/128/255: max_abs_err "
                 f"{worst:.3e} (tol up to {tol:.4f}"
                 f"{', or 2 bf16 ulps' if dtype == torch.bfloat16 else ''}); "
                 f"{'permuted' if g > 1 else 'untouched'} rows and new rows exact")
-            del st, xx, kk, vv, kxx, vxx
+            del st, ts
             torch.cuda.empty_cache()
     times, idx = {}, 128
     for b0, g in MEGA_FORMS:
@@ -1012,6 +1062,7 @@ def check_megakernel(gen):
     say(f"[time] decode kernel grid barrier alone: {barrier_us:.3f} us ({n_bar} a step: "
         f"{barrier_us * n_bar / 1e3:.4f} ms)")
     hmma = check_mega_tensor_cores()
+    vc_form = check_megakernel_vc()
     main = times["8x4"]
     return {"name": "decode_megakernel", "route": "cuda",
             "source": "vidchapters_tpu_torch/csrc/decode_megakernel.cu",
@@ -1022,13 +1073,63 @@ def check_megakernel(gen):
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None, "library": "none (no single call)",
             "eager_ms": main["eager_ms"], "phases_ms": main["phases_ms"],
-            "greedy_8x1": times["8x1"], "beam_2x4": times["2x4"],
+            "greedy_8x1": times["8x1"], "beam_2x4": times["2x4"], "vc_16x4_L32": vc_form,
             "bit_identical_8x4_bf16": identical, "barrier_us": barrier_us,
             "hmma_per_kernel": hmma, "ptxas": _ptxas_lines("decode_megakernel"),
             "timing": TIMING_GRAPH,
             "bound_note": "cross K/V bytes and operations of the live keys only (each "
                           "example's keys up to its last unmasked one), which the kernel reads",
             "shape": "8 examples x 4 beams, 12 layers, L=256, Lenc=1152, idx=128, bf16"}
+
+
+MEGA_VC = (16, 32)  # VC's eval (phase 9): 16 clips x 4 beams = 64 rows, max_length 32
+
+
+def check_megakernel_vc():
+    """The T5 decode kernel at VC's eval form: 16 examples x 4 beams (64
+    rows: two product passes), L 32, 1152 encoder keys, T5-base width, fp32
+    and bf16 at cache indices 0, 1, 15, 16 and 31, held as
+    ``check_megakernel`` holds the other forms; timed at idx 16 in bf16 by
+    CUDA-graph replay beside its plain version and its bound."""
+    import torch
+
+    from vidchapters_tpu_torch.ops import decode_megakernel as dm
+
+    b0, length = MEGA_VC
+    g, heads, idx = MEGA_SHAPE["g"], MEGA_SHAPE["heads"], 16
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    stacked, x, kc, vc, kx, vx, bias_all, mask, src = megakernel_inputs(
+        gen, b0=b0, length=length, device="cuda")
+    out = {"shape": f"{b0} examples x {g} beams, 12 layers, L={length}, Lenc=1152"}
+    for dtype in (torch.float32, torch.bfloat16):
+        st = dm.with_kernel_layout({k: (v if k in ("ln", "final_ln") else v.to(dtype))
+                                    for k, v in stacked.items()})
+        ts = [t.to(dtype) for t in (x, kc, vc, kx, vx)]
+        worst, tol = _mega_check(st, ts, mask, src, bias_all, (0, 1, 15, 16, length - 1),
+                                 dtype, g, f"{b0}x{g} L{length}")
+        name = str(dtype).split(".")[-1]
+        out[f"max_abs_err_{name}"], out[f"tol_{name}"] = worst, tol
+        say(f"[check] decode kernel {dtype} {b0}x{g} L {length} idx 0/1/15/16/{length - 1}: "
+            f"max_abs_err {worst:.3e} (tol up to {tol:.4f}); permuted and new rows exact")
+        if dtype == torch.bfloat16:
+            xx, kk, vv, kxx, vxx = ts
+            br, b0b = bias_all[idx].contiguous(), bias_all[0, :1].contiguous()
+            outs = (torch.empty_like(kk), torch.empty_like(vv))
+            kernel = lambda: dm.mega_decode_step(st, xx, kk, vv, kxx, vxx, br, b0b, mask,  # noqa: E731
+                                                 idx, g, heads, src=src, out_caches=outs)
+            plain = lambda: dm.mega_decode_step_plain(st, xx, kk, vv, kxx, vxx, br, b0b,  # noqa: E731
+                                                      mask, idx, g, heads, src=src,
+                                                      out_caches=outs)
+            live = _mega_live_keys(mask.cpu())
+            out.update(ms=time_ms_graph(kernel, 10, 3), plain_ms=time_ms_graph(plain, 3, 2),
+                       live_keys=live)
+            out["bound_ms"], out["bound_by"] = _mega_bound(b0 * g, b0, idx, True, live, g)
+            say(f"[time] decode kernel {b0}x{g} L {length} bf16 idx {idx}: {out['ms']:.4f} ms "
+                f"(plain {out['plain_ms']:.4f}, bound {out['bound_ms']:.4f} by "
+                f"{out['bound_by']})")
+        del st, ts
+        torch.cuda.empty_cache()
+    return out
 
 
 DEC_ROWS, DEC_HEADS, DEC_LEN, DEC_DKV = 32, 12, 256, 64  # 8 examples x 4 beams, T5-base
@@ -2339,6 +2440,9 @@ def phase_train_and_evaluate(card: str, fp32_state, fp32_inputs):
                   "the eval_only run did not resume from `last` (or the first run did)")
             check(len(steps) == 2, f"{len(steps)} train steps, expected 2")
             ckpt_bytes = (ckpt / "last").stat().st_size
+            # the DVC weights phase 9 strips of their time tokens
+            best_weights = torch.load(ckpt / "best", map_location="cpu",
+                                      weights_only=True)["model"]
         finally:
             t5_mod.USE_MEGA_DECODE, dvc_main.evaluate, dvc_main.make_train_step = old
         val_batch = next(iter(EpochIterator(
@@ -2380,7 +2484,7 @@ def phase_train_and_evaluate(card: str, fp32_state, fp32_inputs):
         t5_mod.USE_MEGA_DECODE = old_route
     say(f"[fp32] standard decode: {fp32} over {list(mega.shape)} (max_length 64)")
     summary.update(runs=runs, fp32_tokens=fp32)
-    return summary, runs["beam4"]["launches"]
+    return summary, runs["beam4"]["launches"], best_weights
 
 
 # ---------------------------------------------------------------------------
@@ -3691,6 +3795,650 @@ def phase_reference_checkpoint(card: str):
     return summary, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: VC (chapter titles from ground-truth boundaries) through vc_main
+# ---------------------------------------------------------------------------
+
+VC_TRAIN_VIDEOS = 48       # 3 steps of vc_main's batch 16 in one epoch
+VC_VAL_VIDEOS = 4          # 4 generate calls an eval
+VC_VAL_CHAPTERS = 16       # a val video's clips: one generate call of 16 clips x 4 beams
+VC_METRICS = ("CIDEr", "METEOR", "Bleu_4", "ROUGE_L")
+
+
+def _write_vc_dataset(root: Path, n_train: int, n_val: int, val_chapters: int,
+                      seed: int = 0) -> Path:
+    """Features at one frame a second (``[T, 768]``, T the duration), an ASR
+    pickle of a 4-second segment every 6 s, ``train.json`` of ``n_train``
+    videos of 3-8 chapters of 15-40 s and ``val.json`` of ``n_val`` videos
+    of ``val_chapters`` chapters, each with its title."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    (root / "features").mkdir()
+    splits, asr = ({}, {}), {}
+    words = ("whisk", "eggs", "flour", "dough", "knead", "rest", "bake", "oven", "slice",
+             "serve", "intro", "sauce")
+    for i in range(n_train + n_val):
+        vid = f"vcvid{i:06d}"
+        n_ch = int(rng.integers(3, 9)) if i < n_train else val_chapters
+        bounds = np.concatenate([[0.0], np.cumsum(rng.uniform(15.0, 40.0, n_ch))])
+        dur = float(bounds[-1])
+        np.save(root / "features" / f"{vid}.npy",
+                rng.standard_normal((int(dur), 768)).astype(np.float32))
+        splits[int(i >= n_train)][vid] = {
+            "duration": dur,
+            "timestamps": [[float(a), float(b)] for a, b in zip(bounds[:-1], bounds[1:])],
+            "sentences": [f"Step {j}: " + " ".join(rng.choice(words, int(rng.integers(2, 6))))
+                          for j in range(n_ch)]}
+        st = np.arange(0.0, dur - 4.0, 6.0)
+        asr[vid] = {"text": [" ".join(rng.choice(words, 8)) for _ in st],
+                    "start": st.tolist(), "end": (st + 4.0).tolist()}
+    for name, ann in zip(("train", "val"), splits):
+        (root / f"{name}.json").write_text(json.dumps(ann))
+    with open(root / "asr.pkl", "wb") as f:
+        pickle.dump(asr, f)
+    return root
+
+
+def vc_fused_per_pass(mcfg, data, out_len: int = 0) -> int:
+    """Fused-attention forward launches of one VC forward pass (route of
+    ``models/t5.T5Attention``, as ``fused_per_step`` counts it): the
+    encoder's self-attention over ``max_input_tokens`` padded to
+    SEQ_PAD_BLOCK, and, for a train step (``out_len`` the batch's title
+    bucket), the decoder's self- and cross-attention. A generate call's
+    decoder runs on the decode kernel (``out_len`` 0)."""
+    from vidchapters_tpu_torch.models.t5 import CHUNK, SEQ_PAD_BLOCK
+
+    def pad(n):
+        return -(-n // SEQ_PAD_BLOCK) * SEQ_PAD_BLOCK
+
+    def fused(lq, lk):
+        return int(lq > CHUNK and lq * lk > 512 * 512)
+
+    lin = pad(data.max_input_tokens)
+    n = mcfg.t5.num_layers * fused(lin, lin)
+    if out_len:
+        n += mcfg.t5.num_decoder_layers * (
+            fused(out_len, out_len) + fused(out_len, pad(data.max_feats + data.max_input_tokens)))
+    return n
+
+
+def vc_fp32_token_check(mcfg, data, ds):
+    """Beam-4 tokens at max_length 32 of one generate call of 16 clips (the
+    first val video's), fp32 at 2+2 layers (ViT depth 2) with seeded
+    weights: the kernels on the card against the plain versions on the CPU
+    (repetition penalty 3.0, so that the random model's 32 decisions a
+    hypothesis are distinct)."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from vidchapters_tpu_torch.config import GenerationConfig
+    from vidchapters_tpu_torch.data.tokenizer import build_tokenizer
+    from vidchapters_tpu_torch.models.vid2seq import Vid2Seq
+    from vidchapters_tpu_torch.train.vc_train import tokenize_batch
+
+    small = dataclasses.replace(mcfg, t5=dataclasses.replace(mcfg.t5, num_layers=2,
+                                                             num_decoder_layers=2),
+                                vit=dataclasses.replace(mcfg.vit, depth=2))
+    state = Vid2Seq(small).init_weights(torch.Generator().manual_seed(9)).state_dict()
+    ex = ds[0]
+    videos = np.asarray(ex["video"][:16], np.float32)
+    tokens = tokenize_batch(ex["input_text"][:16], build_tokenizer(""), data.max_input_tokens)
+    gen = GenerationConfig(num_beams=4, max_length=32, repetition_penalty=3.0)
+    cfg = types.SimpleNamespace(model=small)
+    out = {label: _fp32_tokens(cfg, state, gen, dev, videos, tokens, f"VC beam 4, {label}")
+           for label, dev in (("kernels", DEVICE), ("plain", "cpu"))}
+    _same_tokens(out["kernels"], out["plain"], "VC beam 4, card vs CPU", cfg, state, videos,
+                 tokens)
+    say(f"[vc-fp32] beam-4 tokens identical card vs CPU over {list(out['plain'].shape)}")
+    return {"identical": True, "shape": list(out["plain"].shape), "depth": "2+2, ViT 2"}
+
+
+def phase_vc(card: str, phase5_weights, mcfg=None, n_train: int = VC_TRAIN_VIDEOS,
+             n_val: int = VC_VAL_VIDEOS, val_chapters: int = VC_VAL_CHAPTERS):
+    """VC at T5-base width (``ExperimentConfig()``'s model, bf16 compute)
+    through ``train/vc_main.main``: one epoch at vc_main's batch 16 over a
+    synthetic set (``n_train`` videos: 3 steps), the val eval and the final
+    eval (``best``) at beam 4 / max_length 32, 16 clips a generate call
+    (64 decode rows). Checks ``best`` / ``last`` / ``log.txt`` and finite
+    CIDEr / METEOR / BLEU / ROUGE-L; the launches exactly: the fused
+    attention's forward ``vc_fused_per_pass`` a train step (each with one
+    backward) and 12 a generate call (the encoder), the top-k and the
+    decode kernel once a decode step (the steps counted as the beam search
+    runs them: 32 a call unless every beam finishes early). Then fp32
+    beam tokens card vs CPU, ``strip_time_tokens`` of phase 5's ``best``
+    weights into a text-only-vocab VC model, and ``--eval --model-type
+    random``."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from vidchapters_tpu_torch.config import DataConfig, ExperimentConfig, GenerationConfig
+    from vidchapters_tpu_torch.data.vc_dataset import VideoCaptioningDataset
+    from vidchapters_tpu_torch.models.vid2seq import Vid2Seq
+    from vidchapters_tpu_torch.ops import decode_megakernel, decoding, fused_attention
+    from vidchapters_tpu_torch.train import dvc_train, vc_main, vc_train
+    from vidchapters_tpu_torch.train.vc_train import strip_time_tokens
+
+    mcfg = mcfg or ExperimentConfig().model
+    data = DataConfig()
+    gen = GenerationConfig(num_beams=4, max_length=32)
+    kernels = {"fused_attention_fwd": fused_attention.KERNEL,
+               "fused_attention_bwd": fused_attention.BWD_KERNEL,
+               "topk": decoding.TOPK_KERNEL, "decode_megakernel": decode_megakernel.KERNEL}
+    steps, evals, decode_steps, calls = [], [], [], []
+    real = (vc_main.make_vc_train_step, vc_main.evaluate_vc, dvc_train._pick_decode_fns,
+            vc_train.make_generate_fn)
+
+    def timed_make_step(*a, **k):
+        step = real[0](*a, **k)
+
+        def timed(state, batch, seed):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            m = step(state, batch, seed)
+            torch.cuda.synchronize()
+            steps.append({"ms": (time.time() - t0) * 1e3,
+                          "out_len": int(batch["output_tokens"].shape[1])})
+            return m
+
+        return timed
+
+    def timed_evaluate(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = real[1](*a, **k)
+        torch.cuda.synchronize()
+        evals.append({"clips": len(out[0]), "wall_s": time.time() - t0})
+        return out
+
+    def counted_pick(*a, **k):  # one entry per decode step the beam search runs
+        fns = real[2](*a, **k)
+
+        def step(*sa, **sk):
+            decode_steps.append(1)
+            return fns.step(*sa, **sk)
+
+        return fns._replace(step=step)
+
+    def counted_generate_fn(*a, **k):  # one entry per generate call
+        generate = real[3](*a, **k)
+
+        def call(*ga, **gk):
+            calls.append(ga[0].shape[0])
+            return generate(*ga, **gk)
+
+        return call
+
+    summary = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = _write_vc_dataset(Path(tmp), n_train, n_val, val_chapters)
+        save = Path(tmp) / "ckpt"
+        vc_main.make_vc_train_step, vc_main.evaluate_vc = timed_make_step, timed_evaluate
+        dvc_train._pick_decode_fns, vc_train.make_generate_fn = counted_pick, counted_generate_fn
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for kern in kernels.values():
+                kern.launches = 0
+            t0 = time.time()
+            metrics = vc_main.main(str(root / "train.json"), str(root / "val.json"),
+                                   str(root / "features"), mcfg, data, str(save),
+                                   subtitles_path=str(root / "asr.pkl"), n_epochs=1,
+                                   batch_size=16, generation=gen, device=DEVICE)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = {n: k.launches for n, k in kernels.items()}
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            (vc_main.make_vc_train_step, vc_main.evaluate_vc, dvc_train._pick_decode_fns,
+             vc_train.make_generate_fn) = real
+        log = (save / "log.txt").read_text().splitlines()
+        check(len(log) == 1 and json.loads(log[0])["epoch"] == 0, f"log.txt: {log}")
+        for name in ("best", "last"):
+            check((save / name).exists(), f"vc_main wrote no {name}")
+        bad = [m for m in VC_METRICS if not np.isfinite(metrics.get(m, float("nan")))]
+        check(not bad, f"vc_main: metrics missing or not finite: {bad} in {metrics}")
+        n_steps = n_train // 16
+        check(len(steps) == n_steps, f"{len(steps)} VC train steps, expected {n_steps}")
+        n_clips = n_val * val_chapters
+        want_calls = 2 * n_val * -(-val_chapters // 16)  # the val eval and the final eval
+        check(len(evals) == 2 and all(e["clips"] == n_clips for e in evals),
+              f"evals {evals}: expected 2 of {n_clips} clips")
+        check(len(calls) == want_calls and max(calls) == min(16, val_chapters),
+              f"{len(calls)} generate calls of {sorted(set(calls))} clips, expected "
+              f"{want_calls} of up to 16")
+        train_fwd = sum(vc_fused_per_pass(mcfg, data, s["out_len"]) for s in steps)
+        want = {"fused_attention_fwd": train_fwd + want_calls * vc_fused_per_pass(mcfg, data),
+                "fused_attention_bwd": train_fwd, "topk": len(decode_steps),
+                "decode_megakernel": len(decode_steps)}
+        check(launches == want, f"VC launches {launches}, expected {want} (decode steps "
+                                f"{len(decode_steps)} in {want_calls} calls)")
+        check(0 < len(decode_steps) <= want_calls * gen.max_length,
+              f"{len(decode_steps)} decode steps in {want_calls} calls")
+        val_ds = VideoCaptioningDataset(str(root / "val.json"), str(root / "features"),
+                                        training=False, cfg=data,
+                                        subtitles_path=str(root / "asr.pkl"))
+        step_ms = [s["ms"] for s in steps]
+        timed = step_ms[1:] or step_ms
+        final = evals[-1]
+        summary.update(
+            steps=steps, step_ms_mean_after_first=sum(timed) / len(timed),
+            eval_clips_per_s=[e["clips"] / e["wall_s"] for e in evals],
+            eval_wall_s=[e["wall_s"] for e in evals], generate_calls=len(calls),
+            decode_steps=len(decode_steps), decode_rows=max(calls) * gen.num_beams,
+            wall_s=wall, peak_memory_bytes=peak, launches=launches, expected_launches=want,
+            metrics=metrics, checkpoint_bytes=(save / "last").stat().st_size)
+        say(f"[vc] {json.dumps(summary)}")
+        say(f"[vc] {summary['step_ms_mean_after_first']:.1f} ms a train step (batch 16), eval "
+            f"{n_clips / final['wall_s']:.2f} clips/s (beam 4, max_length 32, 16 clips a "
+            f"call), peak {peak} B on {card}")
+        torch.cuda.empty_cache()
+        summary["fp32_tokens"] = vc_fp32_token_check(mcfg, data, val_ds)
+
+        # a DVC checkpoint of phase 5, stripped of its time tokens, loads into a
+        # VC model of the text-only vocab (vc.py:304-308)
+        stripped = strip_time_tokens(phase5_weights, mcfg.num_bins)
+        vc_cfg = dataclasses.replace(mcfg, t5=dataclasses.replace(
+            mcfg.t5, vocab_size=mcfg.t5.vocab_size - mcfg.num_bins))
+        with torch.device("meta"):
+            vc_model = Vid2Seq(vc_cfg)
+        vc_model.load_state_dict(stripped, assign=True)
+        summary["stripped_embedding"] = list(stripped["t5.shared.weight"].shape)
+        del stripped, vc_model
+
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            vc_main._cli(["--val-json", str(root / "val.json"), "--features-path",
+                          str(root / "features"), "--save-dir", str(save), "--subtitles-path",
+                          str(root / "asr.pkl"), "--eval", "--model-type", "random"])
+        random_metrics = json.loads(out.getvalue().strip().splitlines()[-1])
+        bad = [m for m in VC_METRICS if not np.isfinite(random_metrics.get(m, float("nan")))]
+        check(not bad, f"--eval --model-type random: not finite: {bad} in {random_metrics}")
+        summary["random_eval"] = random_metrics
+    say(f"[vc] stripped embedding {summary['stripped_embedding']} loads into a VC model; "
+        f"--model-type random: {random_metrics}")
+    return summary, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: Moment-DETR chapter grounding through grounding_main
+# ---------------------------------------------------------------------------
+
+GROUNDING_RECIPE = "configs/chapters_momentdetr.json"
+GROUNDING_BATCHES = (256, 128, 64, 32)  # the recipe's batch, then the powers of two below it
+GROUNDING_VIDEOS = 32                   # x 24 chapters: 768 train queries, 3 steps of 256
+GROUNDING_CHAPTERS = 24
+GROUNDING_EVAL_ROWS = 64                # val and test queries
+GROUNDING_METRICS = ("MR-full-mAP", "MR-full-R1@0.5", "MR-full-R1@0.7", "MR-full-R1@10s")
+
+
+def _write_vmr_dataset(root: Path, n_videos: int, chapters: int, n_eval: int,
+                       seed: int = 0) -> Path:
+    """Per-video CLIP features ``[T, 768]`` at one a second (T the duration,
+    600-3600 s, the first 3600 s: the recipe's clip_length 3 keeps every
+    third, at most max_v_l 1200 clips), ``train.jsonl`` of one query a chapter (its title
+    and window), ``val.jsonl`` and ``test.jsonl`` of ``n_eval`` of them, and
+    an ASR pickle of a 6-second segment every 10 s."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    (root / "features").mkdir()
+    rows, asr = [], {}
+    words = ("whisk", "eggs", "flour", "dough", "knead", "rest", "bake", "oven", "slice",
+             "serve", "intro", "sauce", "review", "unboxing", "setup", "final")
+    for i in range(n_videos):
+        vid = f"mdvid{i:06d}"
+        dur = 3600.0 if i == 0 else float(rng.integers(600, 3601))  # video 0 fills max_v_l
+        np.save(root / "features" / f"{vid}.npy",
+                rng.standard_normal((int(dur), 768), dtype=np.float32))
+        bounds = np.linspace(0.0, dur, chapters + 1)
+        for j in range(chapters):
+            title = " ".join(rng.choice(words, int(rng.integers(2, 7))))
+            rows.append({"qid": len(rows), "query": f"chapter {j}: {title}", "vid": vid,
+                         "duration": dur,
+                         "relevant_windows": [[float(bounds[j]), float(bounds[j + 1])]]})
+        st = np.arange(0.0, dur - 6.0, 10.0)
+        asr[vid] = {"text": [" ".join(rng.choice(words, 10)) for _ in st],
+                    "start": st.tolist(), "end": (st + 6.0).tolist()}
+    picks = rng.permutation(len(rows))
+    for name, part in (("train", rows), ("val", [rows[k] for k in picks[:n_eval]]),
+                       ("test", [rows[k] for k in picks[n_eval:2 * n_eval]])):
+        (root / f"{name}.jsonl").write_text("\n".join(json.dumps(r) for r in part) + "\n")
+    with open(root / "asr.pkl", "wb") as f:
+        pickle.dump(asr, f)
+    return root
+
+
+def _write_clip_text_checkpoint(path: Path, seed: int = 0):
+    """A state dict of CLIP ViT-L/14's text tower (12 layers of width 768, 12
+    heads, context 77, vocab 49,408) under OpenAI's names, with seeded
+    random weights (the text tower's init laws) and the model's
+    ``logit_scale``: the form ``torch.load`` reads."""
+    import torch
+
+    from vidchapters_tpu_torch.models.clip import TEXT_L14, CLIPTextEncoder
+
+    tower = CLIPTextEncoder(TEXT_L14).init_weights(torch.Generator().manual_seed(seed))
+    names = {"token_embedding": "token_embedding.weight",
+             "positional_embedding": "positional_embedding",
+             "text_projection": "text_projection"}
+    parts = {"ln_1": "ln_1", "ln_2": "ln_2", "attn_in": "attn.in_proj_", "attn_out":
+             "attn.out_proj", "mlp_fc": "mlp.c_fc", "mlp_proj": "mlp.c_proj"}
+    sd = {"logit_scale": torch.tensor(4.6052)}
+    for name, t in tower.state_dict().items():
+        if name in names:
+            sd[names[name]] = t
+        elif name.startswith("ln_final."):
+            sd[name] = t
+        else:  # blocks.{i}.{part}.{leaf}
+            _, i, part, leaf = name.split(".")
+            oa = parts[part]
+            sd[f"transformer.resblocks.{i}." + (oa + leaf if oa.endswith("_")
+                                                 else f"{oa}.{leaf}")] = t
+    torch.save(sd, path)
+    return tower.state_dict()
+
+
+def _grounding_batch_that_fits(cfg, text_encoder, ds, tokenizer, candidates):
+    """The first of ``candidates`` (the recipe's batch 256, then the powers
+    of two below it) at which one train step fits on the card: (batch,
+    {batch: outcome})."""
+    import numpy as np
+    import torch
+
+    from vidchapters_tpu_torch.models.grounding import MomentDETR
+    from vidchapters_tpu_torch.train import grounding_main as gm
+    from vidchapters_tpu_torch.train.grounding_train import (
+        GroundingTrainState,
+        build_grounding_optimizer,
+        grounding_batch_to_device,
+        make_grounding_train_step,
+    )
+
+    model = MomentDETR(cfg).init_weights(torch.Generator().manual_seed(0)).to(DEVICE)
+    state = GroundingTrainState(model, build_grounding_optimizer(model.parameters()))
+    step = make_grounding_train_step(model, text_encoder, cfg)
+    tok = lambda qs: np.asarray(tokenizer(qs))  # noqa: E731
+    tried, chosen = {}, None
+    for bs in candidates:
+        batch = next(gm.batches(ds, bs, cfg.max_v_l, 5, False, 0, tok, max_q_l=cfg.max_q_l))
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            step(state, grounding_batch_to_device(batch, DEVICE), 0)
+            torch.cuda.synchronize()
+            tried[bs] = {"fits": True, "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+            chosen = bs
+        except torch.cuda.OutOfMemoryError as e:
+            tried[bs] = {"fits": False, "error": str(e).splitlines()[0][:160]}
+        model.zero_grad(set_to_none=True)
+        torch.cuda.empty_cache()
+        say(f"[grounding] batch {bs}: {tried[bs]}")
+        if chosen is not None:
+            break
+    del model, state, step
+    torch.cuda.empty_cache()
+    check(chosen is not None, f"no batch of {candidates} fits: {tried}")
+    return chosen, tried
+
+
+def grounding_fp32_grad_check(cfg, host_batch):
+    """One train step's losses and gradients in fp32 at a narrow width
+    (hidden 64, d_ff 256, the recipe's 8 heads, 2+2 layers, 10 queries, TEF,
+    max_v_l 1200) with dropout 0, on 4 queries with seeded text features:
+    the CPU, then the card, from the same weights. The matcher's
+    assignments are compared first; where they differ the card's costs
+    under the CPU's cost matrix must be a near-tie (within 2 x targets x
+    1e-4), and the card's loss takes the CPU's assignments, so that the
+    gradients compare one function. The loss within 1e-5 relative and every
+    gradient within 1e-4 of its norm (+1e-6 for the key biases' gradients,
+    0 up to rounding)."""
+    import torch
+
+    from vidchapters_tpu_torch.models import grounding as gr
+    from vidchapters_tpu_torch.train.grounding_train import grounding_batch_to_device
+
+    cfg0 = dataclasses.replace(cfg, hidden_dim=64, dim_feedforward=256, dtype="float32",
+                               dropout=0.0, input_dropout=0.0)
+    weights = gr.MomentDETR(cfg0).init_weights(torch.Generator().manual_seed(2)).state_dict()
+    g = torch.Generator().manual_seed(3)
+    txt = torch.randn(4, 77, cfg0.t_feat_dim, generator=g)
+    txt_mask = torch.from_numpy(host_batch["query_tokens"] != 0).to(torch.int32)
+    res, matching = {}, {}
+    real_match = gr.match_layers
+    for path, dev in (("plain", "cpu"), ("kernels", DEVICE)):
+        model = gr.MomentDETR(cfg0)
+        model.load_state_dict(weights)
+        model.to(dev)
+        b = grounding_batch_to_device(host_batch, dev)
+        t0 = time.time()
+        out = model(txt.to(dev), txt_mask.to(dev), b["video_feat"], b["video_mask"])
+        layers = [(out["pred_logits"], out["pred_spans"])] + [
+            (a["pred_logits"], a["pred_spans"]) for a in out["aux_outputs"]]
+        assigns = [a.cpu() for a in real_match(layers, b["spans"], b["span_valid"], cfg0)]
+        if path == "plain":
+            costs = [gr.match_cost(lg, sp, b["spans"], cfg0) for lg, sp in layers]
+        else:
+            valid = b["span_valid"].cpu() > 0
+            for lid, (ak, ap) in enumerate(zip(assigns, res["plain"][2])):
+                if torch.equal(ak, ap):
+                    continue
+                gap = 0.0
+                for i in range(ak.shape[0]):
+                    t_idx = torch.arange(valid.shape[1])[valid[i]]
+                    gap += float(costs[lid][i][ak[i, valid[i]], t_idx].sum()
+                                 - costs[lid][i][ap[i, valid[i]], t_idx].sum())
+                tol = 2 * int(valid.sum()) * 1e-4
+                matching[f"layer_{lid}"] = {"card": ak.tolist(), "cpu": ap.tolist(),
+                                            "cost_gap_under_cpu_cost": gap}
+                say(f"[grounding-fp32-grad] assignments differ card vs CPU at decoder layer "
+                    f"{lid}; the card's cost {gap:.3e} more under the CPU's (tol {tol:.1e})")
+                check(abs(gap) <= tol, f"grounding fp32 check: assignments differ at layer "
+                                       f"{lid} by a cost of {gap}")
+            forced = [a.to(DEVICE) for a in res["plain"][2]]
+            gr.match_layers = lambda *a, **k: forced
+        try:
+            targets = {k: b[k] for k in ("spans", "span_valid", "saliency_pos_labels",
+                                         "saliency_neg_labels")}
+            total, _ = gr.grounding_loss(out, targets, cfg0)
+        finally:
+            gr.match_layers = real_match
+        total.backward()
+        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu()
+                 for n, p in model.named_parameters()}
+        res[path] = (float(total.detach()), grads, assigns)
+        say(f"[grounding-fp32-grad] {path} on {dev}: {time.time() - t0:.1f} s, total "
+            f"{res[path][0]:.6f}")
+        del model, out, total
+    loss_k, g_k, _ = res["kernels"]
+    loss_p, g_p, _ = res["plain"]
+    rel = {n: float((g_k[n] - g_p[n]).norm()) / max(float(g_p[n].norm()), 1e-30) for n in g_p}
+    over = {n: float((g_k[n] - g_p[n]).norm()) - (1e-4 * float(g_p[n].norm()) + 1e-6)
+            for n in g_p}
+    worst = max(over, key=over.get)
+    worst_rel = max((n for n in g_p if float(g_p[n].norm()) > 1e-3), key=rel.get)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    say(f"[grounding-fp32-grad] assignments {'identical' if not matching else matching}; "
+        f"loss rel diff {loss_rel:.2e} (tol 1e-5); worst gradient {worst_rel} at "
+        f"{rel[worst_rel]:.2e} of its norm (tol 1e-4)")
+    check(loss_rel <= 1e-5, f"grounding fp32 loss card {loss_k} vs CPU {loss_p}")
+    check(over[worst] <= 0, f"grounding fp32 gradient {worst}: {rel[worst]:.2e} of its norm")
+    return {"loss_kernels": loss_k, "loss_plain": loss_p, "loss_rel_diff": loss_rel,
+            "assignments": matching or "identical", "n_gradients": len(rel),
+            "worst_gradient": worst_rel, "worst_rel_err": rel[worst_rel],
+            "shape": "hidden 64, 8 heads, 2+2 layers, 10 queries, 4 queries of max_v_l 1200"}
+
+
+def grounding_speech_step(cfg, ds, tokenizer, bs: int = 16):
+    """One train step of the recipe with ``use_speech`` on the card: the
+    smoke-mode BERT speech tower (one layer at 768, a hash tokenizer) over
+    each query's ASR (``speech_max_l`` tokens) beside a one-layer text
+    tower; the loss finite and ``speech_proj`` given a gradient."""
+    import numpy as np
+    import torch
+
+    from vidchapters_tpu_torch.models.clip import CLIPTextConfig, CLIPTextEncoder
+    from vidchapters_tpu_torch.models.grounding import MomentDETR
+    from vidchapters_tpu_torch.train import grounding_main as gm
+    from vidchapters_tpu_torch.train.grounding_train import (
+        GroundingTrainState,
+        build_grounding_optimizer,
+        grounding_batch_to_device,
+        make_grounding_train_step,
+    )
+
+    scfg = dataclasses.replace(cfg, use_speech=True)
+    tower, sp_tok = gm.smoke_speech_tower(scfg)
+    tower.to(DEVICE).requires_grad_(False)
+    text = CLIPTextEncoder(CLIPTextConfig(layers=1)).init_weights(
+        torch.Generator().manual_seed(0)).to(DEVICE).requires_grad_(False)
+    model = MomentDETR(scfg).init_weights(torch.Generator().manual_seed(0)).to(DEVICE)
+    state = GroundingTrainState(model, build_grounding_optimizer(model.parameters()))
+    batch = next(gm.batches(ds, bs, scfg.max_v_l, 5, False, 0,
+                            lambda qs: np.asarray(tokenizer(qs)),
+                            speech_featurizer=lambda t: sp_tok(t, max_length=scfg.speech_max_l),
+                            max_q_l=scfg.max_q_l))
+    check("speech_tokens" in batch and (batch["speech_tokens"] != 0).any(),
+          "the speech batch holds no ASR tokens")
+    m = make_grounding_train_step(model, text, scfg, tower)(
+        state, grounding_batch_to_device(batch, DEVICE), 0)
+    total = float(m["total"])
+    grad = float(model.speech_proj.weight.grad.norm())
+    check(np.isfinite(total) and grad > 0,
+          f"speech step: loss {total}, speech_proj gradient norm {grad}")
+    out = {"batch": bs, "speech_tokens": list(batch["speech_tokens"].shape), "total": total,
+           "speech_proj_grad_norm": grad,
+           "device": str(next(model.parameters()).device)}
+    say(f"[grounding] use_speech step on {out['device']}: {out}")
+    del model, state, tower, text
+    return out
+
+
+def phase_grounding(card: str, cfg=None, n_videos: int = GROUNDING_VIDEOS,
+                    chapters: int = GROUNDING_CHAPTERS, n_eval: int = GROUNDING_EVAL_ROWS,
+                    batches=GROUNDING_BATCHES):
+    """Moment-DETR at ``configs/chapters_momentdetr.json`` (hidden 256, 8
+    heads, 2+2 layers, 10 queries, max_v_l 1200, TEF, bf16 compute) with the
+    12-layer CLIP ViT-L/14 text tower from a synthetic OpenAI-named state
+    dict, through ``grounding_main``'s CLI (``--clip-text-ckpt``, the
+    recipe's defaults with its data paths and batch replaced): the
+    recipe's batch 256 if a step fits (else the largest power of two that
+    does), one epoch over ``n_videos`` x ``chapters`` queries, the val eval,
+    ``best`` / ``last`` / ``log.txt``, the final eval with ``best`` and the
+    test split's ``test_preds.jsonl``; the brief metrics finite; ms a step
+    and peak memory. Then an fp32 gradient check at a narrow width, card
+    against CPU, and one ``use_speech`` step on the card."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from vidchapters_tpu_torch.config import GroundingConfig
+    from vidchapters_tpu_torch.data.clip_tokenizer import CLIPTokenizer
+    from vidchapters_tpu_torch.data.grounding_dataset import GroundingDataset
+    from vidchapters_tpu_torch.models.clip import TEXT_L14, CLIPTextEncoder
+    from vidchapters_tpu_torch.train import grounding_main as gm
+
+    recipe = json.loads((ROOT / GROUNDING_RECIPE).read_text())
+    cfg = cfg or dataclasses.replace(GroundingConfig(), **recipe["model"])
+    steps = []
+    real_make_step = gm.make_grounding_train_step
+
+    def timed_make_step(*a, **k):
+        step = real_make_step(*a, **k)
+
+        def timed(state, batch, seed):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            m = step(state, batch, seed)
+            torch.cuda.synchronize()
+            steps.append((time.time() - t0) * 1e3)
+            return m
+
+        return timed
+
+    summary = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.time()
+        _write_vmr_dataset(root, n_videos, chapters, n_eval)
+        tower_sd = _write_clip_text_checkpoint(root / "clip_text.pt")
+        say(f"[grounding] synthetic VMR set ({n_videos * chapters} train, {n_eval} val, "
+            f"{n_eval} test queries) and a ViT-L/14 text checkpoint in {time.time() - t0:.1f} s")
+        ds_kw = dict(max_v_l=cfg.max_v_l, clip_len=cfg.clip_length)
+        train_ds = GroundingDataset(str(root / "train.jsonl"), [str(root / "features")],
+                                    **ds_kw)
+        lens = [train_ds[i]["video_feat"].shape for i in range(0, len(train_ds), chapters)]
+        check(max(s[0] for s in lens) == cfg.max_v_l and all(s[1] == cfg.v_feat_dim
+                                                              for s in lens),
+              f"video features {sorted(set(lens))}: expected up to {cfg.max_v_l} x "
+              f"{cfg.v_feat_dim}")
+        tokenizer = CLIPTokenizer()
+        text = CLIPTextEncoder(TEXT_L14)  # as the CLI builds it
+        text.load_state_dict(tower_sd)
+        text.to(DEVICE).requires_grad_(False)
+        bs, tried = _grounding_batch_that_fits(cfg, text, train_ds, tokenizer, batches)
+        del text
+        torch.cuda.empty_cache()
+        run = dict(recipe, train=dict(recipe["train"], batch_size=bs, epochs=1),
+                   data={"train_jsonl": str(root / "train.jsonl"),
+                         "val_jsonl": str(root / "val.jsonl"),
+                         "test_jsonl": str(root / "test.jsonl"),
+                         "v_feat_dirs": [str(root / "features")]},
+                   model=dataclasses.asdict(cfg))
+        (root / "recipe.json").write_text(json.dumps(run))
+        save = root / "ckpt"
+        gm.make_grounding_train_step = timed_make_step
+        tee = _Tee(sys.stdout)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            with contextlib.redirect_stdout(tee):
+                gm._cli(["--recipe", str(root / "recipe.json"), "--save-dir", str(save),
+                         "--clip-text-ckpt", str(root / "clip_text.pt"), "--device", DEVICE])
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            gm.make_grounding_train_step = real_make_step
+        metrics = json.loads("".join(tee.parts).strip().splitlines()[-1])
+        n_steps = n_videos * chapters // bs
+        check(len(steps) == n_steps, f"{len(steps)} grounding steps, expected {n_steps}")
+        for name in ("best", "last", "log.txt", "test_preds.jsonl"):
+            check((save / name).exists(), f"grounding_main wrote no {name}")
+        log = [json.loads(line) for line in (save / "log.txt").read_text().splitlines()]
+        check(len(log) == 1 and np.isfinite(log[0]["loss"]), f"log.txt: {log}")
+        preds = (save / "test_preds.jsonl").read_text().splitlines()
+        check(len(preds) == n_eval, f"test_preds.jsonl holds {len(preds)} rows, not {n_eval}")
+        want = list(GROUNDING_METRICS) + [f"test_{m}" for m in GROUNDING_METRICS]
+        bad = [m for m in want if not np.isfinite(metrics.get(m, float("nan")))]
+        check(not bad, f"grounding metrics missing or not finite: {bad} in {metrics}")
+        timed = steps[1:] or steps
+        summary.update(batch=bs, batch_trials=tried, steps=n_steps, step_ms=steps,
+                       step_ms_mean_after_first=sum(timed) / len(timed),
+                       queries_per_s=bs * len(timed) / (sum(timed) / 1e3), wall_s=wall,
+                       peak_memory_bytes=peak, metrics=metrics,
+                       checkpoint_bytes=(save / "last").stat().st_size)
+        say(f"[grounding] {json.dumps(summary)}")
+        say(f"[grounding] {summary['step_ms_mean_after_first']:.1f} ms a step at batch {bs} "
+            f"({summary['queries_per_s']:.1f} queries/s), peak {peak} B on {card}")
+        host_batch = next(gm.batches(train_ds, 4, cfg.max_v_l, 5, False, 0,
+                                     lambda qs: np.asarray(tokenizer(qs))))
+        torch.cuda.empty_cache()
+        summary["fp32_grad_check"] = grounding_fp32_grad_check(cfg, host_batch)
+        speech_ds = GroundingDataset(str(root / "train.jsonl"), [str(root / "features")],
+                                     use_speech=True, subtitles_path=str(root / "asr.pkl"),
+                                     **ds_kw)
+        summary["speech_step"] = grounding_speech_step(cfg, speech_ds, tokenizer)
+    torch.cuda.empty_cache()
+    return summary
+
+
 def main() -> int:
     try:
         import torch
@@ -3729,7 +4477,8 @@ def main() -> int:
                 f"{row['bound_by']}) on {card}")
         train, train_launches = phase_train(card)
         e2e, serve_launches, fp32, (fp32_state, fp32_inputs) = phase_end_to_end(card)
-        evaluation, eval_launches = phase_train_and_evaluate(card, fp32_state, fp32_inputs)
+        evaluation, eval_launches, phase5_weights = phase_train_and_evaluate(
+            card, fp32_state, fp32_inputs)
         del fp32_state, fp32_inputs
         torch.cuda.empty_cache()
         pdvc, pdvc_launches = phase_pdvc(card)
@@ -3739,6 +4488,11 @@ def main() -> int:
         pretrain, pretrain_launches = phase_pretrain(card)
         torch.cuda.empty_cache()
         reference, reference_launches = phase_reference_checkpoint(card)
+        torch.cuda.empty_cache()
+        vc, vc_launches = phase_vc(card, phase5_weights)
+        del phase5_weights
+        torch.cuda.empty_cache()
+        grounding = phase_grounding(card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
@@ -3758,6 +4512,9 @@ def main() -> int:
     table[0]["launches_serving"] = serve_launches["fused_attention_fwd"]
     for row in table[:2]:  # rows 1-2 on the pretraining path (phase 8a)
         row["launches_pretrain"] = pretrain_launches[row["name"]]
+    for row in table:  # rows 1-4 on VC's training and eval (phase 9)
+        if row["name"] in vc_launches:
+            row["launches_vc"] = vc_launches[row["name"]]
     say(f"[summary] serving {e2e['videos_per_s']:.3f} videos/s (megakernel, beam 4); eval "
         f"{evaluation['eval_videos_per_s_beam4_standard']:.3f} videos/s (standard, beam 4), "
         f"{evaluation['eval_videos_per_s_nucleus']:.3f} videos/s (nucleus); training "
@@ -3768,10 +4525,13 @@ def main() -> int:
         f"{asr_run['sweep']['audio_s_per_s']:.2f} audio-s/s (large-v2, batch 8); pretraining "
         f"{pretrain['step_ms_mean_timed']:.1f} ms/step at batch {pretrain['batch']} "
         f"({pretrain['videos_per_s']:.2f} videos/s, peak {pretrain['peak_memory_bytes']} B); "
-        f"reference .pth served with launches {reference_launches}")
+        f"reference .pth served with launches {reference_launches}; VC "
+        f"{vc['step_ms_mean_after_first']:.1f} ms/step, eval {vc['eval_clips_per_s'][-1]:.2f} "
+        f"clips/s; grounding {grounding['step_ms_mean_after_first']:.1f} ms/step at batch "
+        f"{grounding['batch']} (peak {grounding['peak_memory_bytes']} B)")
     record = {"kernels": table, "train": train, "end_to_end": e2e, "fp32_tokens": fp32,
               "evaluation": evaluation, "pdvc": pdvc, "asr": asr_run, "pretrain": pretrain,
-              "reference_checkpoint": reference, "card": card}
+              "reference_checkpoint": reference, "vc": vc, "grounding": grounding, "card": card}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -51,6 +51,13 @@ def test_package_imports_with_jax_blocked():
         "import vidchapters_tpu_torch.ops.probes, vidchapters_tpu_torch.models.torch_import\n"
         "import vidchapters_tpu_torch.data.native_spm, vidchapters_tpu_torch.data.native_loader\n"
         "import vidchapters_tpu_torch.data.features, vidchapters_tpu_torch.data.tokenizer\n"
+        "import vidchapters_tpu_torch.data.vc_dataset, vidchapters_tpu_torch.train.vc_train\n"
+        "import vidchapters_tpu_torch.train.vc_main, vidchapters_tpu_torch.evals.captioning\n"
+        "import vidchapters_tpu_torch.evals.para, vidchapters_tpu_torch.evals.moment\n"
+        "import vidchapters_tpu_torch.train.postprocessing, vidchapters_tpu_torch.data.clip_tokenizer\n"
+        "import vidchapters_tpu_torch.data.grounding_dataset, vidchapters_tpu_torch.models.clip\n"
+        "import vidchapters_tpu_torch.models.bert, vidchapters_tpu_torch.models.grounding\n"
+        "import vidchapters_tpu_torch.train.grounding_train, vidchapters_tpu_torch.train.grounding_main\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'vidchapters_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

@@ -10,6 +10,13 @@ Entry points:
   nucleus on the standard cached decode, DVC / SODA metrics), and
   HowTo100M pretraining (``htm``: ``data/dvc_dataset.YTPretrainDataset``,
   bf16 Adam moments);
+- ``train/vc_main``: chapter titles from ground-truth boundaries (VC):
+  Vid2Seq trained on clips and evaluated per clip (beam search on the
+  decode kernel, the COCO captioning metrics), and the ``random``
+  zero-shot evaluator;
+- ``train/grounding_main``: chapter grounding with Moment-DETR and its
+  frozen CLIP text tower (``configs/chapters_momentdetr.json``), with the
+  optional BERT speech tower;
 - ``train/pdvc_main``: the PDVC baseline;
 - ``factory/asr``: the Whisper ASR factory.
 

@@ -82,13 +82,21 @@ class FeatureSource:
             path = os.path.join(self.dir_path, video_id + ".npy")
         return path
 
-    def raw(self, video_id: str) -> np.ndarray:
-        """The video's features as stored, ``[T, D]`` float32."""
-        if self.features is not None:
-            if video_id not in self.features:
-                raise KeyError(f"no features for video {video_id!r}")
-            return np.asarray(self.features[video_id], dtype=np.float32)
-        return np.load(self._path(video_id)).astype(np.float32)
+    def raw(self, video_id: str, strict: bool = True) -> np.ndarray:
+        """The video's features as stored, ``[T, D]`` float32. With
+        ``strict=False`` a missing or unreadable video gives one zero frame
+        ``[1, features_dim]`` instead of raising (the reference's
+        broken-video fallback, vc_dataset.py:47-48)."""
+        try:
+            if self.features is not None:
+                if video_id not in self.features:
+                    raise KeyError(f"no features for video {video_id!r}")
+                return np.asarray(self.features[video_id], dtype=np.float32)
+            return np.load(self._path(video_id)).astype(np.float32)
+        except Exception:
+            if strict:
+                raise
+            return np.zeros((1, self.features_dim), np.float32)
 
     def prefetch(self, video_ids) -> None:
         """Warm the native cache for upcoming ids (nothing without it)."""

@@ -1,7 +1,7 @@
-"""The DVC / SODA / captioning metric stack of dense video captioning and
-chapter generation: the port's own copy of ``vidchapters_tpu/evals`` (pure
-Python and numpy there too), changed only in its imports. The VC
-(``captioning``), moment and paragraph evaluators are not copied yet."""
+"""The metric stack of dense video captioning, chapter generation, chapter
+titles (``captioning``), paragraphs (``para``) and chapter grounding
+(``moment``): the port's own copy of ``vidchapters_tpu/evals`` (pure Python
+and numpy there too), changed only in its imports."""
 
 from vidchapters_tpu_torch.evals.ptb import PTBTokenizer
 from vidchapters_tpu_torch.evals.bleu import Bleu
@@ -10,6 +10,9 @@ from vidchapters_tpu_torch.evals.cider import Cider
 from vidchapters_tpu_torch.evals.meteor import Meteor
 from vidchapters_tpu_torch.evals.dvc import eval_dvc
 from vidchapters_tpu_torch.evals.soda import eval_soda
+from vidchapters_tpu_torch.evals.captioning import COCOEvalCap, eval_vc
+from vidchapters_tpu_torch.evals.moment import eval_submission
+from vidchapters_tpu_torch.evals.para import eval_para
 
 __all__ = [
     "PTBTokenizer",
@@ -19,4 +22,8 @@ __all__ = [
     "Meteor",
     "eval_dvc",
     "eval_soda",
+    "COCOEvalCap",
+    "eval_vc",
+    "eval_submission",
+    "eval_para",
 ]

@@ -17,6 +17,15 @@ the port has no place for, or a port parameter that no leaf fills, raises.
   ``class_heads.{i}``, ... The caption heads' explicit matrices
   (``embedding``, ``w_x``, ``logit_w``, ...) keep their names and their
   ``[in, out]`` orientation.
+- ``grounding_from_jax_params``: Moment-DETR; ``enc_{i}`` / ``dec_{i}`` map to
+  ``enc_layers.{i}`` / ``dec_layers.{i}`` as PDVC's do; ``query_embed``
+  keeps its name.
+- ``clip_text_from_jax_params``: CLIP's text tower (``block_{i}`` ->
+  ``blocks.{i}``); the raw ``token_embedding``, ``positional_embedding``
+  and ``text_projection`` (``[width, output_dim]``, as there) keep names
+  and orientation.
+- ``bert_from_jax_params``: BERT (``layer_{i}`` -> ``layers.{i}``); the
+  three embedding tables keep their names.
 """
 
 from __future__ import annotations
@@ -196,3 +205,24 @@ def whisper_from_hf_state_dict(sd: Mapping[str, Any], model: nn.Module
         raise ValueError(f"whisper_from_hf_state_dict: HF names without a port parameter: "
                          f"{leftover}; port parameters without an HF name: {missing}")
     return out
+
+
+def grounding_from_jax_params(params: Mapping[str, Any], model: nn.Module
+                              ) -> Dict[str, torch.Tensor]:
+    """JAX ``MomentDETR`` params -> the port's ``MomentDETR`` ``model``'s
+    state_dict."""
+    return _import(params, model, _pdvc_port_name, "grounding_from_jax_params")
+
+
+def clip_text_from_jax_params(params: Mapping[str, Any], model: nn.Module
+                              ) -> Dict[str, torch.Tensor]:
+    """JAX ``CLIPTextEncoder`` params -> the port's ``CLIPTextEncoder``
+    ``model``'s state_dict."""
+    return _import(params, model, _port_name, "clip_text_from_jax_params")
+
+
+def bert_from_jax_params(params: Mapping[str, Any], model: nn.Module
+                         ) -> Dict[str, torch.Tensor]:
+    """JAX ``BertModel`` params -> the port's ``BertModel`` ``model``'s
+    state_dict."""
+    return _import(params, model, _whisper_port_name, "bert_from_jax_params")

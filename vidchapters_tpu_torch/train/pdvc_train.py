@@ -20,7 +20,7 @@ from vidchapters_tpu_torch.config import PDVCConfig
 from vidchapters_tpu_torch.models.pdvc import PDVC
 from vidchapters_tpu_torch.models.pdvc_loss import pdvc_criterion, pdvc_postprocess
 from vidchapters_tpu_torch.runtime.rng import StepRng
-from vidchapters_tpu_torch.train.schedules import ClipAdamW
+from vidchapters_tpu_torch.train.schedules import ClipAdamW, staircase_decay
 
 # the collated fields the model and the criterion read, and their dtypes
 PDVC_BATCH_FIELDS = {"video": torch.float32, "video_mask": torch.int32,
@@ -39,15 +39,8 @@ class PDVCTrainState:
 
 def build_pdvc_schedule(lr: float = 1e-4, lr_drop_step: int = 8, gamma: float = 0.5
                         ) -> Callable[[int], float]:
-    """optax's ``exponential_decay(lr, lr_drop_step, gamma, staircase=True)``
-    in float32: ``lr * gamma ** floor(count / lr_drop_step)``."""
-    f32 = np.float32
-
-    def schedule(count: int) -> float:
-        p = np.floor(f32(count) / f32(lr_drop_step))
-        return float(f32(lr) * np.power(f32(gamma), p, dtype=np.float32))
-
-    return schedule
+    """optax's ``exponential_decay(lr, lr_drop_step, gamma, staircase=True)``."""
+    return staircase_decay(lr, lr_drop_step, gamma)
 
 
 def build_pdvc_optimizer(params: Iterable[torch.nn.Parameter], lr: float = 1e-4,

@@ -56,6 +56,19 @@ def build_schedule(cfg: OptimConfig, num_training_steps: int) -> Callable[[int],
     return schedule
 
 
+def staircase_decay(lr: float, transition_steps: int, gamma: float) -> Callable[[int], float]:
+    """optax's ``exponential_decay(lr, transition_steps, gamma,
+    staircase=True)`` in float32: ``lr * gamma ** floor(count /
+    transition_steps)`` (the reference's StepLR by steps)."""
+    f32 = np.float32
+
+    def schedule(count: int) -> float:
+        p = np.floor(f32(count) / f32(transition_steps))
+        return float(f32(lr) * np.power(f32(gamma), p, dtype=np.float32))
+
+    return schedule
+
+
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """``sqrt(sum ||t||^2)`` over all tensors, in float32 (optax.global_norm)."""
     return torch.sqrt(torch.stack([(t.float() * t.float()).sum() for t in tensors]).sum())

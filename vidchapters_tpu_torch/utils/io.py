@@ -7,7 +7,7 @@ from __future__ import annotations
 import json
 import pickle
 from pathlib import Path
-from typing import Any
+from typing import Any, List
 
 
 def load_json(path: str | Path) -> Any:
@@ -24,3 +24,8 @@ def save_pickle(obj: Any, path: str | Path) -> None:
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     with open(path, "wb") as f:
         pickle.dump(obj, f)
+
+
+def load_jsonl(path: str | Path) -> List[Any]:
+    with open(path, "r") as f:
+        return [json.loads(line) for line in f if line.strip()]
