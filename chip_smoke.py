@@ -116,16 +116,48 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    finite metrics; ms a step and peak memory; an fp32 gradient check at
    hidden 64, card vs CPU; one use_speech step with the smoke-mode BERT
    tower on the card.
+11. A raw video to chapters and moments. (a) The CLIP ViT-L/14 feature
+   factory (factory/features.py over models/clip.CLIPImageEncoder, its
+   attention on the fused kernel) from a synthetic OpenAI-named state dict
+   through convert_openai_clip_visual: 4 synthetic 360 x 640 videos of
+   120-900 frames (ffmpeg-encoded .mp4 files decoded by decode_video_1fps
+   where ffmpeg exists, else the frames handed in as decode_fn, and the
+   run says which) through extract_features_sharded on the kernel route
+   and on the plain route (USE_FUSED_ATTENTION False): frames/s of each,
+   row 1 launched exactly 24 x ceil(T/64) a video, the tower's device time
+   a batch on both routes and a profiled batch, preprocessing ms a frame on
+   the host and on the card, peak memory; fp32 features at 2 layers card
+   vs CPU. (b) demo_vid2seq.main at T5-base (an untied LM head: random
+   tied weights repeat the start token) from the 900-frame video with
+   that checkpoint (--clip_ckpt), a reference .pth (--ckpt_path) and phase
+   7's ASR pickle, beam 4: chapters JSON inside the duration, rows 1, 3 and
+   4 launched exactly; fp32 ids and chapters at 2+2 layers card vs CPU.
+   (c) run_on_video's MomentDETRPredictor at configs/chapters_momentdetr.
+   json with ViT-B/32 image and text towers (one OpenAI-named checkpoint):
+   one video, 4 queries, the schema and the ranking, row 1's launches;
+   fp32 windows and saliency at hidden 64 card vs CPU. (d) Whisper word
+   alignment (factory/align.align_words_batch) at large-v2 width over 24
+   segments of phase 7's audio in chunks of 8: word times finite, monotone
+   and inside their segments, seconds and peak memory; align_segments on
+   phase 7's pickle read back by merge_and_process; fp32 word times at 4+4
+   layers card vs CPU, identical. Phase 2 also holds row 1 at the image
+   towers' forms, ViT-L/14's [64, 16, 257, 64] (keys padded to 320) and
+   ViT-B/32's [64, 12, 50, 64] and [8, 12, 50, 64] (keys padded to 64),
+   fp32 and bf16, against its plain version, and times each beside SDPA
+   and the bound (ViT-L/14's also beside the 384-key form); the decode
+   kernel at demo_vid2seq's 1 x 4 rows and the top-k at [1, 4*32200].
 
 The kernels' launch counts are zeroed just before each main path (phases
-3, 4, 6, 7, 8 and each run of 5) and read just after it; the kernel line
+3, 4, 6, 7, 8, 11 and each run of 5) and read just after it; the kernel line
 reports each kernel's count from its own path (training for the fused
 attention, serving for top-k and the decode kernel, phase 5's first run for
 the decode-attention kernels, phase 6's pdvc_main run for the deformable
 attention, phase 7's sweep for the Whisper kernel); rows 1-2 also carry
 ``launches_pretrain`` from phase 8's dvc_main run and rows 1-4
-``launches_vc`` from phase 9's vc_main run. The probes lie on no
-path: their count is phase 2's.
+``launches_vc`` from phase 9's vc_main run; row 1 carries
+``launches_features`` from phase 11(a) and rows 1, 3 and 4
+``launches_demo`` from phase 11(b). The probes lie on no path: their
+count is phase 2's.
 
 The last lines are the kernel table as one JSON object, the nvidia-smi
 line, and {"ok": true, "device": {...}}. The full record also goes to
@@ -417,6 +449,130 @@ def check_fused_attention(gen):
             "ptxas": _ptxas_lines("fused_attention_fwd")}
 
 
+VISION_FORM = (64, 16, 257, 64)  # ViT-L/14 at 224 px: a batch of 64 frames, 16 heads, 1 + 256 tokens
+# ViT-B/32 at 224 px (run_on_video, phase 11c): 12 heads, 1 + 49 tokens (keys
+# padded to 64: one key tile, 14 keys masked; 50 query rows, less than a
+# query tile), a batch of 64 frames and the tail batch of 8 of a 200-clip video
+VISION_B32_FORMS = ((64, 12, 50, 64), (8, 12, 50, 64))
+
+
+def _vision_check(gen, frames: int, h: int, l: int, d: int, dtype, tol: float):
+    """Row 1 on the image tower's route (``models/clip.fused_self_attention``)
+    at [frames, h, l, d] in ``dtype``: one launch, against the plain version
+    on the route's own inputs within ``tol``. Returns (qkv, q, k, v, mask,
+    max_abs_err)."""
+    import torch
+
+    from vidchapters_tpu_torch.models import clip
+    from vidchapters_tpu_torch.ops import fused_attention as fa
+
+    qkv = torch.randn(frames, l, 3 * h * d, generator=gen).to("cuda", dtype)
+    q, k, v, mask = clip.vision_attention_inputs(qkv, h)
+    lk = -(-l // 64) * 64
+    check(tuple(k.shape) == (frames, h, lk, d) and int(mask.sum()) == frames * l,
+          f"vision form: keys {tuple(k.shape)}, mask sum {int(mask.sum())}")
+    before = fa.KERNEL.launches
+    got = clip.fused_self_attention(qkv, h)
+    torch.cuda.synchronize()
+    check(fa.KERNEL.launches == before + 1, "the vision route launched no kernel")
+    ref = fa.fused_attention_plain(q, k, v, None, mask).transpose(1, 2).reshape(
+        frames, l, h * d)
+    err = (got.float() - ref.float()).abs().max().item()
+    say(f"[check] fused_attention vision form [{frames},{h},{l},{d}] {dtype}: "
+        f"max_abs_err {err:.3e} (tol {tol})")
+    check(err <= tol, f"fused_attention vision form [{frames},{h},{l},{d}] {dtype}: "
+                      f"err {err} > {tol}")
+    return qkv, q, k, v, mask, err
+
+
+def _vision_times(qkv, q, k, v, mask, h: int, graph: bool = False):
+    """Times of row 1 at an image tower's form (bf16 inputs of
+    ``_vision_check``): the kernel on the route's inputs, the plain version,
+    SDPA on the unpadded q, k, v with scale 1/sqrt(d), the whole fused route
+    of a block (input preparation included) and the block's plain einsum
+    route; the bound counts q, k, v and the output at the unpadded length.
+    By CUDA events over eager calls, or with ``graph`` by CUDA-graph replay
+    (``time_ms_graph``: calls of tens of microseconds, which eager calls
+    would time by the host), the eager times of the kernel and SDPA beside."""
+    import torch
+
+    from vidchapters_tpu_torch.models import clip
+    from vidchapters_tpu_torch.ops import fused_attention as fa
+
+    b, l, w3 = qkv.shape
+    d = w3 // (3 * h)
+    scale = 1.0 / d ** 0.5
+    unscaled = qkv[..., :h * d].reshape(b, l, h, d).transpose(1, 2)
+    ku, vu = k[:, :, :l], v[:, :, :l]
+
+    def plain_route():  # the block's einsum route (USE_FUSED_ATTENTION False)
+        qs, ks, vs = (t.reshape(b, l, h, d).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+        probs = torch.softmax(torch.matmul(qs, ks.transpose(-1, -2)).float() * scale, dim=-1)
+        return torch.matmul(probs.to(qkv.dtype), vs).transpose(1, 2).reshape(b, l, h * d)
+
+    def kernel():
+        return fa.fused_attention(q, k, v, None, mask)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(unscaled, ku, vu, scale=scale)
+
+    timer = time_ms_graph if graph else time_ms
+    bms, by = bound(4 * b * h * l * d * 2, 4 * b * h * l * l * d, H100_BF16_FLOPS)
+    out = {"ms": timer(kernel),
+           "plain_ms": timer(lambda: fa.fused_attention_plain(q, k, v, None, mask), 5),
+           "library_ms": timer(library),
+           "route_ms": timer(lambda: clip.fused_self_attention(qkv, h)),
+           "plain_route_ms": timer(plain_route, 5), "bound_ms": bms, "bound_by": by}
+    if graph:
+        out["timing"] = TIMING_GRAPH
+        out["eager_ms"] = {"kernel": time_ms(kernel, 50), "library": time_ms(library, 50)}
+    return out
+
+
+def check_fused_attention_vision(gen):
+    """Row 1 at the CLIP image towers' forms (no bias, no dropout) on the
+    towers' own route (``models/clip.vision_attention_inputs``: q scaled by
+    1/sqrt(d), keys padded to a multiple of 64 under a mask, the query rows
+    as they are), each against the plain version on the same inputs:
+    ViT-L/14's [64, 16, 257, 64] (fp32 at 4 frames, bf16 at 64; keys padded
+    to 320), and ViT-B/32's [64, 12, 50, 64] and tail [8, 12, 50, 64] (fp32
+    and bf16 at each). Each bf16 form timed (``_vision_times``: ViT-B/32's
+    by CUDA-graph replay); ViT-L/14's also with the kernel at
+    ``fused_attention_padded``'s lengths (264 queries, 384 keys). Returns the numbers for row 1: ViT-L/14's keyed
+    ``*_vision_form``, ViT-B/32's under ``vision_b32_forms``."""
+    import torch
+
+    from vidchapters_tpu_torch.ops import fused_attention as fa
+
+    b, h, l, d = VISION_FORM
+    out = {}
+    for dtype, frames, tol in ((torch.float32, 4, 1e-4), (torch.bfloat16, b, 2e-2)):
+        qkv, q, k, v, mask, err = _vision_check(gen, frames, h, l, d, dtype, tol)
+        out["max_abs_err_vision_form" + ("_fp32" if dtype == torch.float32 else "")] = err
+    qp, kp, vp, _, maskp, _ = _pad_as_wrapper(q[:, :, :l], k[:, :, :l], v[:, :, :l], None,
+                                              mask[:, :l])
+    check(tuple(kp.shape[2:]) == (384, d) and qp.shape[2] == 264,
+          f"fused_attention_padded's lengths {qp.shape[2]} x {kp.shape[2]}")
+    t = _vision_times(qkv, q, k, v, mask, h)
+    out.update({f"{key}_vision_form": val for key, val in t.items()})
+    out.update(
+        ms_vision_form_padded_384=time_ms(lambda: fa.fused_attention(qp, kp, vp, None, maskp)),
+        shape_vision_form="q [64,16,257,64] bf16 (scaled by 1/8), k/v padded to 320 keys "
+                          "under a key mask, no bias, no dropout")
+    b32 = []
+    for b, h, l, d in VISION_B32_FORMS:
+        row = {"shape": f"q [{b},{h},{l},{d}] bf16 (scaled by 1/8), k/v padded to "
+                        f"{-(-l // 64) * 64} keys under a key mask, no bias, no dropout"}
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            qkv, q, k, v, mask, err = _vision_check(gen, b, h, l, d, dtype, tol)
+            row["max_abs_err" + ("_fp32" if dtype == torch.float32 else "")] = err
+        row.update(_vision_times(qkv, q, k, v, mask, h, graph=True))
+        b32.append(row)
+    out["vision_b32_forms"] = b32
+    say(f"[time] fused_attention vision forms: {json.dumps(out)}")
+    return out
+
+
 # the bf16 shapes beside the main one: head widths 32 and 128, and the
 # ragged lengths of a train step (the encoder's 1100 tokens pad to 1152, the
 # denoising cross-attention's 304 queries over 904 keys pad to 1024)
@@ -656,13 +812,15 @@ TOPK_SHAPES = ((8, 4 * 32200, 8, "float32"),    # serving: 8 examples x 2K of 4 
                (1, 5 * 51865, 5, "float32"),    # Whisper beam 5, the one-file transcribe
                (8, 5 * 51865, 5, "float32"),    # Whisper beam 5 at batch 8
                (8, 51865, 5, "float32"),        # Whisper's first beam step
-               (16, 4 * 32200, 8, "float32"))   # VC's eval: 16 clips x 2K of 4 beams
+               (16, 4 * 32200, 8, "float32"),   # VC's eval: 16 clips x 2K of 4 beams
+               (1, 4 * 32200, 8, "float32"))    # demo_vid2seq: one video x 2K of 4 beams
 
 
 def check_topk(gen):
     """The top-k kernel against its plain version, values and indices
     exactly, at the serving shape (f32 and bf16, k 8, with forced ties and
-    beam-search start rows) and the Whisper beam's shapes (k 5, odd rows),
+    beam-search start rows), VC's and demo_vid2seq's (16 and 1 rows) and
+    the Whisper beam's shapes (k 5, odd rows),
     each with the rows on which the plain version re-picks an entry at
     finfo.min appended. Each shape timed by CUDA-graph replay (device time),
     the kernel beside torch.topk and the plain version, and eagerly."""
@@ -771,7 +929,9 @@ def megakernel_inputs(gen, b0: int = MEGA_SHAPE["b0"], length: int = MEGA_SHAPE[
     return stacked, x, kc, vc, kx, vx, bias_all, mask, src
 
 
-MEGA_FORMS = ((8, 4), (8, 1), (2, 4))  # serving's 8 x 4 beams, greedy 8 x 1, the short bucket
+# serving's 8 x 4 beams, greedy 8 x 1, the short bucket, and demo_vid2seq's one
+# video x 4 beams (phase 11b)
+MEGA_FORMS = ((8, 4), (8, 1), (2, 4), (1, 4))
 MEGA_PHASES = ("set-up", "qkv", "self-attention", "self out", "cross q", "cross-attention",
                "cross out", "wi", "wo_ff", "final norm")
 
@@ -980,10 +1140,11 @@ def _mega_check(st, ts, m, s, bias_all, idxs, dtype, g: int, label: str):
 def check_megakernel(gen):
     """The T5 decode kernel against its plain version at T5-base width (12
     layers, d 768, 12 heads, d_ff 3072, L 256, 1152 encoder keys), fp32 and
-    bf16, at 8 examples x 4 beams (serving), greedy 8 x 1 and 2 x 4 (the
-    short bucket), each at cache indices 0, 1, 127, 128 and 255: hidden and
-    k/v new within ``decode_kernel_tol``, the permuted cache rows bit for
-    bit, row idx the new k/v (greedy: written in place). Two bf16 calls at
+    bf16, at 8 examples x 4 beams (serving), greedy 8 x 1, 2 x 4 (the
+    short bucket) and 1 x 4 (demo_vid2seq), each at cache indices 0, 1,
+    127, 128 and 255: hidden and k/v new within ``decode_kernel_tol``, the
+    permuted cache rows bit for bit, row idx the new k/v (greedy: written
+    in place). Two bf16 calls at
     8 x 4 bit-identical. Timed at idx 128 in bf16 by CUDA-graph replay (the
     eager time beside it), with the kernel's timeline per phase, the grid
     barrier alone and the SASS's HMMA count."""
@@ -1073,7 +1234,8 @@ def check_megakernel(gen):
             "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "library_ms": None, "library": "none (no single call)",
             "eager_ms": main["eager_ms"], "phases_ms": main["phases_ms"],
-            "greedy_8x1": times["8x1"], "beam_2x4": times["2x4"], "vc_16x4_L32": vc_form,
+            "greedy_8x1": times["8x1"], "beam_2x4": times["2x4"], "beam_1x4": times["1x4"],
+            "vc_16x4_L32": vc_form,
             "bit_identical_8x4_bf16": identical, "barrier_us": barrier_us,
             "hmma_per_kernel": hmma, "ptxas": _ptxas_lines("decode_megakernel"),
             "timing": TIMING_GRAPH,
@@ -2938,6 +3100,7 @@ def phase_pdvc(card: str, cfg=None, n_train: int = 16, n_val: int = 8):
 
 
 ASR_SECONDS = (20.0, 26.5, 33.0, 39.5, 46.0, 52.5, 59.0, 65.0)  # the 8 synthetic videos
+ASR_PICKLES = {}  # the sweep's pickles by video id, kept for phase 11
 ASR_STEPS = 223  # decoder steps per decode call: max_decode_len 224, less 1
 
 
@@ -3125,6 +3288,7 @@ def phase_asr(card: str, cfg=None, seconds=ASR_SECONDS):
         for p in paths:
             with open(out_dir / (Path(p).stem + ".pkl"), "rb") as f:
                 pickles[Path(p).stem] = pickle.load(f)
+        ASR_PICKLES.update(pickles)  # phase 11's demo and alignment read them
         for vid, res in pickles.items():
             check(set(res) == {"text", "start", "end", "language"}
                   and len(res["text"]) == len(res["start"]) == len(res["end"])
@@ -4114,6 +4278,25 @@ def _write_vmr_dataset(root: Path, n_videos: int, chapters: int, n_eval: int,
     return root
 
 
+_OPENAI_TOP = {"token_embedding": "token_embedding.weight", "patch_embed.weight": "conv1.weight"}
+_OPENAI_PARTS = {"ln_1": "ln_1", "ln_2": "ln_2", "attn_in": "attn.in_proj_",
+                 "attn_out": "attn.out_proj", "mlp_fc": "mlp.c_fc", "mlp_proj": "mlp.c_proj"}
+
+
+def _openai_clip_names(state, prefix: str = ""):
+    """A port CLIP tower's ``state_dict`` under OpenAI's ``clip`` names
+    (``prefix`` "visual." for the image tower)."""
+    out = {}
+    for name, t in state.items():
+        if name.startswith("blocks."):  # blocks.{i}.{part}.{leaf}
+            _, i, part, leaf = name.split(".")
+            oa = _OPENAI_PARTS[part]
+            name = f"transformer.resblocks.{i}." + (oa + leaf if oa.endswith("_")
+                                                     else f"{oa}.{leaf}")
+        out[prefix + _OPENAI_TOP.get(name, name)] = t
+    return out
+
+
 def _write_clip_text_checkpoint(path: Path, seed: int = 0):
     """A state dict of CLIP ViT-L/14's text tower (12 layers of width 768, 12
     heads, context 77, vocab 49,408) under OpenAI's names, with seeded
@@ -4124,23 +4307,8 @@ def _write_clip_text_checkpoint(path: Path, seed: int = 0):
     from vidchapters_tpu_torch.models.clip import TEXT_L14, CLIPTextEncoder
 
     tower = CLIPTextEncoder(TEXT_L14).init_weights(torch.Generator().manual_seed(seed))
-    names = {"token_embedding": "token_embedding.weight",
-             "positional_embedding": "positional_embedding",
-             "text_projection": "text_projection"}
-    parts = {"ln_1": "ln_1", "ln_2": "ln_2", "attn_in": "attn.in_proj_", "attn_out":
-             "attn.out_proj", "mlp_fc": "mlp.c_fc", "mlp_proj": "mlp.c_proj"}
-    sd = {"logit_scale": torch.tensor(4.6052)}
-    for name, t in tower.state_dict().items():
-        if name in names:
-            sd[names[name]] = t
-        elif name.startswith("ln_final."):
-            sd[name] = t
-        else:  # blocks.{i}.{part}.{leaf}
-            _, i, part, leaf = name.split(".")
-            oa = parts[part]
-            sd[f"transformer.resblocks.{i}." + (oa + leaf if oa.endswith("_")
-                                                 else f"{oa}.{leaf}")] = t
-    torch.save(sd, path)
+    torch.save({"logit_scale": torch.tensor(4.6052), **_openai_clip_names(tower.state_dict())},
+               path)
     return tower.state_dict()
 
 
@@ -4439,6 +4607,628 @@ def phase_grounding(card: str, cfg=None, n_videos: int = GROUNDING_VIDEOS,
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 11: a raw video to chapters and moments
+# ---------------------------------------------------------------------------
+
+VIDEO_FRAMES = (120, 300, 600, 900)  # 4 synthetic videos, one frame a second
+VIDEO_HW = (360, 640)
+FEATURE_BATCH = 64                   # CLIPFeatureExtractor's frames a tower call
+MOMENT_QUERIES = ("mixing the dough", "the oven is hot", "slicing the bread", "tasting")
+ALIGN_CUTS = 3                       # segments per phase-7 audio file (24 in all)
+ALIGN_PREFIX = (50258, 50259, 50359, 50363)  # SOT, <|en|>, transcribe, no timestamps
+
+
+def _synthetic_videos(counts, hw, seed: int = 0):
+    """Seeded uint8 videos [T, H, W, 3] of random 8 x 8-pixel blocks (an
+    encoder compresses them quickly)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for i, t in enumerate(counts):
+        low = torch.randint(0, 256, (t, hw[0] // 8, hw[1] // 8, 3), generator=g,
+                            dtype=torch.uint8)
+        out[f"rawvid{i:05d}"] = low.repeat_interleave(8, 1).repeat_interleave(8, 2).numpy()
+    return out
+
+
+def _video_files(root: Path, videos):
+    """``.mp4`` files of ``videos`` at 1 FPS when ffmpeg exists (decoded back
+    by ``factory/features.decode_video_1fps``), else placeholder paths and a
+    decode that hands the frames in. Returns (paths, decode_fn, route)."""
+    import shutil
+
+    from vidchapters_tpu_torch.factory import features
+
+    paths = [str(root / f"{vid}.mp4") for vid in videos]
+    if shutil.which("ffmpeg") and shutil.which("ffprobe"):
+        for path, frames in zip(paths, videos.values()):
+            _, h, w, _ = frames.shape
+            subprocess.run(["ffmpeg", "-y", "-loglevel", "error", "-f", "rawvideo",
+                            "-pix_fmt", "rgb24", "-s", f"{w}x{h}", "-r", "1", "-i", "-",
+                            "-c:v", "mpeg4", "-q:v", "3", "-pix_fmt", "yuv420p", path],
+                           input=frames.tobytes(), check=True)
+        return paths, features.decode_video_1fps, "ffmpeg: .mp4 files through decode_video_1fps"
+    by_path = dict(zip(paths, videos.values()))
+    return paths, by_path.__getitem__, "no ffmpeg: the frames handed in as decode_fn"
+
+
+def _patched_decode(decode, route: str):
+    """A context in which ``factory/features.decode_video_1fps`` hands the
+    synthetic frames in, where there is no ffmpeg to decode files."""
+    import contextlib
+
+    from vidchapters_tpu_torch.factory import features
+
+    @contextlib.contextmanager
+    def cm():
+        real = features.decode_video_1fps
+        if not route.startswith("ffmpeg"):
+            features.decode_video_1fps = decode
+        try:
+            yield
+        finally:
+            features.decode_video_1fps = real
+
+    return cm()
+
+
+def _vision_tower(cfg, seed: int, device: str):
+    """A CLIP image tower of ``cfg`` with seeded random weights, under
+    OpenAI's names and back through ``convert_openai_clip_visual`` (every
+    tensor equal): (tower on ``device``, the OpenAI-named state dict)."""
+    import torch
+
+    from vidchapters_tpu_torch.models.clip import CLIPImageEncoder, convert_openai_clip_visual
+
+    src = CLIPImageEncoder(cfg).init_weights(torch.Generator().manual_seed(seed))
+    sd = _openai_clip_names(src.state_dict(), "visual.")
+    tower = CLIPImageEncoder(cfg)
+    tower.load_state_dict(convert_openai_clip_visual(sd))
+    for name, t in src.state_dict().items():
+        check(torch.equal(tower.state_dict()[name], t), f"convert_openai_clip_visual: {name}")
+    return tower.to(device).eval(), sd
+
+
+def _batches(frames: int) -> int:
+    return -(-frames // FEATURE_BATCH)
+
+
+def video_features(card: str, root: Path, vit, counts=VIDEO_FRAMES):
+    """(a) The feature factory at ViT-L/14 on 4 synthetic 360 x 640 videos
+    of 120-900 frames through ``extract_features_sharded``: on the kernel
+    route (row 1 launched exactly once a layer a batch of 64), then on the
+    plain route (``USE_FUSED_ATTENTION`` False); frames/s of each, the
+    tower's device time a batch on both routes, preprocessing ms a frame on
+    the host (numpy) and on the card, peak memory; an fp32 check at 2
+    layers, card against CPU."""
+    import numpy as np
+    import torch
+
+    from vidchapters_tpu_torch.factory import features
+    from vidchapters_tpu_torch.models import clip
+    from vidchapters_tpu_torch.ops import fused_attention as fa
+
+    t0 = time.time()
+    videos = _synthetic_videos(counts, VIDEO_HW)
+    paths, decode, route = _video_files(root, videos)
+    tower, sd = _vision_tower(vit, seed=11, device=DEVICE)
+    torch.save(sd, root / "clip_vit.pt")
+    say(f"[video] {len(videos)} videos of {list(counts)} frames at {VIDEO_HW} and a "
+        f"{vit.layers} x {vit.width} image tower in {time.time() - t0:.1f} s; decode: {route}")
+    lens = {}
+
+    def counted(path):
+        frames = decode(path)
+        lens[path] = len(frames)
+        return frames
+
+    ext = features.CLIPFeatureExtractor(tower, DEVICE, batch_size=FEATURE_BATCH)
+    summary = {"card": card, "decode": route, "frames": list(counts),
+               "frame_hw": list(VIDEO_HW)}
+    for fused in (True, False):
+        key = "kernel" if fused else "plain"
+        out_dir = root / f"features_{key}"
+        clip.USE_FUSED_ATTENTION = fused
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fa.KERNEL.launches = 0
+            t0 = time.time()
+            n = features.extract_features_sharded(paths, str(out_dir), ext, counted)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches, peak = fa.KERNEL.launches, torch.cuda.max_memory_allocated()
+        finally:
+            clip.USE_FUSED_ATTENTION = True
+        total = sum(lens.values())
+        want = sum(vit.layers * _batches(t) for t in lens.values()) if fused else 0
+        check(n == len(paths), f"extract_features_sharded encoded {n} of {len(paths)} videos")
+        check(launches == want, f"fused launches {launches} on the {key} route, expected {want}")
+        for path in paths:
+            f = np.load(out_dir / (Path(path).stem + ".npy"))
+            check(f.shape == (lens[path], vit.output_dim) and f.dtype == np.float32
+                  and np.isfinite(f).all(), f"features of {path}: {f.shape} {f.dtype}")
+        summary[key] = {"wall_s": wall, "frames": total, "frames_per_s": total / wall,
+                        "launches": launches, "expected_launches": want,
+                        "peak_memory_bytes": peak}
+        say(f"[video] features, {key} route: {total} frames in {wall:.2f} s = "
+            f"{total / wall:.1f} frames/s, row 1 launches {launches} (expected {want}), "
+            f"peak {peak} B on {card}")
+    stem = Path(paths[-1]).stem
+    a, b = (np.load(root / f"features_{k}" / f"{stem}.npy") for k in ("kernel", "plain"))
+    summary["routes_max_abs_diff_over_max"] = float(np.abs(a - b).max() / np.abs(b).max())
+
+    # the tower alone on one batch, both routes; preprocessing alone
+    frames = videos[stem][:FEATURE_BATCH]
+    dev = torch.from_numpy(np.ascontiguousarray(frames)).to(DEVICE)
+    pixels = features.preprocess_frames_torch(dev)
+    with torch.inference_mode():
+        for fused in (True, False):
+            key = "kernel" if fused else "plain"
+            clip.USE_FUSED_ATTENTION = fused
+            try:
+                ms = time_ms(lambda: tower(pixels), 5)
+            finally:
+                clip.USE_FUSED_ATTENTION = True
+            summary[f"tower_ms_per_batch_{key}"] = ms
+            summary[f"tower_frames_per_s_{key}"] = FEATURE_BATCH / ms * 1e3
+        summary["device_preprocess_ms_per_frame"] = time_ms(
+            lambda: features.preprocess_frames_torch(dev), 5) / FEATURE_BATCH
+        summary["tower_profile_kernel"] = _profile_step(
+            lambda *_: tower(pixels), None, None, summary["tower_ms_per_batch_kernel"])
+    t0 = time.time()
+    features.preprocess_frames(frames[:16])
+    summary["host_preprocess_ms_per_frame"] = (time.time() - t0) * 1e3 / 16
+    say(f"[video] the tower alone, batch {FEATURE_BATCH}: kernel route "
+        f"{summary['tower_ms_per_batch_kernel']:.2f} ms "
+        f"({summary['tower_frames_per_s_kernel']:.1f} frames/s), plain route "
+        f"{summary['tower_ms_per_batch_plain']:.2f} ms "
+        f"({summary['tower_frames_per_s_plain']:.1f} frames/s); preprocessing "
+        f"{summary['host_preprocess_ms_per_frame']:.2f} ms a frame on the host (numpy), "
+        f"{summary['device_preprocess_ms_per_frame']:.4f} on the card; routes' features "
+        f"{summary['routes_max_abs_diff_over_max']:.3e} apart (of the largest); a profiled "
+        f"batch on the kernel route, device ms by group: "
+        f"{json.dumps(summary['tower_profile_kernel']['by_group_ms'])}")
+    del tower, ext, pixels, dev
+    torch.cuda.empty_cache()
+    summary["fp32_check"] = features_fp32_check(vit, videos[stem][:70])
+    return summary, videos, paths, decode, route
+
+
+def features_fp32_check(vit, frames, layers: int = 2, tol: float = 1e-4):
+    """fp32 features of a ``layers``-deep tower of ``vit``'s width: the card
+    (row 1, preprocessing on the card) against the CPU (the plain versions,
+    numpy preprocessing), within ``tol`` of the largest feature."""
+    import numpy as np
+
+    from vidchapters_tpu_torch.factory import features
+    from vidchapters_tpu_torch.ops import fused_attention as fa
+
+    cfg = dataclasses.replace(vit, layers=layers, dtype="float32")
+    cpu, _ = _vision_tower(cfg, seed=12, device="cpu")
+    ref = features.CLIPFeatureExtractor(cpu, "cpu", batch_size=FEATURE_BATCH)(frames)
+    card, _ = _vision_tower(cfg, seed=12, device=DEVICE)
+    before = fa.KERNEL.launches
+    got = features.CLIPFeatureExtractor(card, DEVICE, batch_size=FEATURE_BATCH)(frames)
+    launches, want = fa.KERNEL.launches - before, layers * _batches(len(frames))
+    err = float(np.abs(got - ref).max() / np.abs(ref).max())
+    say(f"[video] fp32 features at {layers} layers, {len(frames)} frames, card vs CPU: "
+        f"max abs diff {err:.3e} of the largest (tol {tol}); launches {launches}")
+    check(launches == want, f"fp32 features: {launches} fused launches, expected {want}")
+    check(err <= tol, f"fp32 features card vs CPU: {err} > {tol}")
+    return {"layers": layers, "frames": len(frames), "max_abs_diff_over_max": err,
+            "tol": tol, "launches": launches}
+
+
+def _demo_args(video_path, clip_ckpt, pth, asr, out, device, extra=()):
+    return ["--video_path", video_path, "--clip_ckpt", str(clip_ckpt), "--ckpt_path", str(pth),
+            "--asr_path", str(asr), "--num_beams", "4", "--out_path", str(out),
+            "--device", device, *extra]
+
+
+def video_demo(card: str, root: Path, vit, video_path: str, frames: int, decode, route: str,
+               mcfg=None):
+    """(b) ``demo_vid2seq.main`` from the video at T5-base
+    (``Vid2SeqConfig()`` with an untied LM head, through ``--config``: with
+    random weights a tied head makes the decoder repeat its start token, 0,
+    and no chapter can come out): the synthetic image tower's checkpoint
+    (``--clip_ckpt``), a reference ``.pth`` of seeded random weights
+    (``--ckpt_path``), phase 7's ASR pickle with the most segments
+    (``--asr_path``), beam 4. The chapters JSON well-formed and inside the
+    duration; rows 1, 3 and 4 launched exactly as the shapes and decode
+    steps give; then fp32 ids and chapters at 2+2 layers and a 2-layer image
+    tower, card against CPU."""
+    import torch
+
+    from vidchapters_tpu_torch.config import (
+        DataConfig,
+        ExperimentConfig,
+        Vid2SeqConfig,
+        save_config,
+    )
+    from vidchapters_tpu_torch.demo import demo_vid2seq
+    from vidchapters_tpu_torch.models import clip
+    from vidchapters_tpu_torch.ops import decode_megakernel, decoding, fused_attention
+    from vidchapters_tpu_torch.train import dvc_train
+
+    mcfg = mcfg or Vid2SeqConfig()
+    mcfg = dataclasses.replace(mcfg, t5=dataclasses.replace(mcfg.t5, tie_word_embeddings=False))
+    data = DataConfig()
+    t0 = time.time()
+    save_config(ExperimentConfig(model=mcfg, data=data), str(root / "demo.json"))
+    _write_reference_pth(root / "vid2seq.pth", mcfg, seed=13)
+    vid = max(ASR_PICKLES, key=lambda v: len(ASR_PICKLES[v]["text"]))
+    with open(root / "asr.pkl", "wb") as f:
+        pickle.dump(ASR_PICKLES[vid], f)
+    say(f"[video] demo inputs in {time.time() - t0:.1f} s: a reference .pth and phase 7's "
+        f"ASR pickle of {vid} ({len(ASR_PICKLES[vid]['text'])} segments)")
+    kernels = {"fused_attention_fwd": fused_attention.KERNEL, "topk": decoding.TOPK_KERNEL,
+               "decode_megakernel": decode_megakernel.KERNEL}
+    steps, feat_s, seqs = [], [], []
+    real = (dvc_train._pick_decode_fns, demo_vid2seq.clip_features,
+            dvc_train.make_generate_fn, clip.VIT_L14)
+
+    def counted_pick(*a, **k):  # one entry per decode step
+        fns = real[0](*a, **k)
+
+        def step(*sa, **sk):
+            steps.append(1)
+            return fns.step(*sa, **sk)
+
+        return fns._replace(step=step)
+
+    def timed_features(*a):
+        torch.cuda.synchronize()
+        t = time.time()
+        out = real[1](*a)
+        torch.cuda.synchronize()
+        feat_s.append(time.time() - t)
+        return out
+
+    def kept_ids(*a, **k):  # the generated ids of each call
+        generate = real[2](*a, **k)
+
+        def call(*ga, **gk):
+            out = generate(*ga, **gk)
+            seqs.append(out.cpu().numpy())
+            return out
+
+        return call
+
+    dvc_train._pick_decode_fns = counted_pick
+    demo_vid2seq.clip_features = timed_features
+    dvc_train.make_generate_fn = kept_ids
+    clip.VIT_L14 = vit  # the tower the demo builds for --clip_ckpt
+    out = root / "chapters.json"
+    try:
+        with _patched_decode(decode, route):
+            for kern in kernels.values():
+                kern.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            chapters = demo_vid2seq.main(_demo_args(video_path, root / "clip_vit.pt",
+                                                    root / "vid2seq.pth", root / "asr.pkl",
+                                                    out, DEVICE,
+                                                    ("--config", str(root / "demo.json"))))
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = {n: k.launches for n, k in kernels.items()}
+            peak = torch.cuda.max_memory_allocated()
+        want = {"fused_attention_fwd": vit.layers * _batches(frames)
+                + vc_fused_per_pass(mcfg, data),
+                "topk": len(steps), "decode_megakernel": len(steps)}
+        check(launches == want, f"demo launches {launches}, expected {want}")
+        check(0 < len(steps) <= data.max_output_tokens,
+              f"{len(steps)} decode steps, at most {data.max_output_tokens}")
+        check(json.loads(out.read_text()) == chapters, "--out_path differs from the chapters")
+        for ch in chapters:
+            st, ed = ch["timestamp"]
+            check(0.0 <= st <= ed <= frames and isinstance(ch["sentence"], str),
+                  f"chapter {ch} outside [0, {frames}] s")
+        summary = {"card": card, "frames": frames, "wall_s": wall, "feature_s": feat_s[0],
+                   "decode_steps": len(steps), "launches": launches, "expected_launches": want,
+                   "chapters": chapters, "ids": int((seqs[0] != 0).sum()),
+                   "peak_memory_bytes": peak}
+        say(f"[video] demo_vid2seq: {frames} frames -> {len(chapters)} chapters in {wall:.2f} s "
+            f"(features {feat_s[0]:.2f} s), {len(steps)} decode steps, launches {launches} "
+            f"(expected {want}), peak {peak} B on {card}")
+        summary["fp32_check"] = demo_fp32_check(root, vit, video_path, decode, route, mcfg,
+                                                seqs)
+    finally:
+        (dvc_train._pick_decode_fns, demo_vid2seq.clip_features,
+         dvc_train.make_generate_fn, clip.VIT_L14) = real
+    torch.cuda.empty_cache()
+    return summary, launches
+
+
+def demo_fp32_check(root: Path, vit, video_path: str, decode, route: str, mcfg, seqs,
+                    max_out: int = 64):
+    """The demo in fp32 at 2+2 T5 layers (a 2-deep ViT) with a 2-layer
+    image tower of ``vit``'s width, on the card and on the CPU (``--device
+    cpu``): identical ids and chapters."""
+    import torch
+
+    from vidchapters_tpu_torch.config import ExperimentConfig, save_config
+    from vidchapters_tpu_torch.demo import demo_vid2seq
+    from vidchapters_tpu_torch.models import clip
+
+    small = dataclasses.replace(
+        mcfg, t5=dataclasses.replace(mcfg.t5, num_layers=2, num_decoder_layers=2,
+                                     dtype="float32"),
+        vit=dataclasses.replace(mcfg.vit, depth=2, dtype="float32"))
+    save_config(ExperimentConfig(model=small), str(root / "small.json"))
+    _write_reference_pth(root / "small.pth", small, seed=14)
+    clip.VIT_L14 = dataclasses.replace(vit, layers=2, dtype="float32")
+    _, sd = _vision_tower(clip.VIT_L14, seed=15, device="cpu")
+    torch.save(sd, root / "clip_small.pt")
+    chapters = {}
+    with _patched_decode(decode, route):
+        for device in (DEVICE, "cpu"):
+            chapters[device] = demo_vid2seq.main(_demo_args(
+                video_path, root / "clip_small.pt", root / "small.pth", root / "asr.pkl",
+                root / f"small_{device}.json", device,
+                ("--config", str(root / "small.json"), "--max_output_tokens", str(max_out))))
+    card_ids, cpu_ids = seqs[-2], seqs[-1]
+    same = card_ids.shape == cpu_ids.shape and bool((card_ids == cpu_ids).all())
+    say(f"[video] fp32 demo at 2+2 layers, card vs CPU: ids identical {same} "
+        f"({int((cpu_ids != 0).sum())} ids), {len(chapters['cpu'])} chapters")
+    check(same and chapters[DEVICE] == chapters["cpu"],
+          f"fp32 demo: card and CPU differ ({chapters[DEVICE]} vs {chapters['cpu']})")
+    check(int((cpu_ids != 0).sum()) > max_out // 2, "fp32 demo: the ids are mostly padding")
+    return {"ids_identical": same, "ids": int((cpu_ids != 0).sum()),
+            "chapters": len(chapters["cpu"]), "max_output_tokens": max_out}
+
+
+def _moment_predictor(root: Path, gcfg, device: str, small: bool, seed: int):
+    """A ``MomentDETRPredictor`` on ``device`` with ViT-B/32's image and
+    text towers (2 layers in fp32 when ``small``), both from one
+    OpenAI-named checkpoint of seeded random weights read back through
+    ``load_openai_clip`` and the two converters; Moment-DETR of ``gcfg``."""
+    import torch
+
+    from vidchapters_tpu_torch.data.clip_tokenizer import CLIPTokenizer
+    from vidchapters_tpu_torch.demo.run_on_video import MomentDETRPredictor
+    from vidchapters_tpu_torch.factory.features import CLIPFeatureExtractor
+    from vidchapters_tpu_torch.models import clip
+    from vidchapters_tpu_torch.models.grounding import MomentDETR
+
+    vcfg, tcfg = clip.VIT_B32, clip.TEXT_B32
+    if small:
+        vcfg = dataclasses.replace(vcfg, layers=2, dtype="float32")
+        tcfg = dataclasses.replace(tcfg, layers=2, dtype="float32")
+    text = clip.CLIPTextEncoder(tcfg).init_weights(torch.Generator().manual_seed(seed))
+    _, vsd = _vision_tower(vcfg, seed, "cpu")
+    path = root / f"clip_b32{'_small' if small else ''}.pt"
+    torch.save({**vsd, **_openai_clip_names(text.state_dict())}, path)
+    sd = clip.load_openai_clip(str(path))
+    vision, text = clip.CLIPImageEncoder(vcfg), clip.CLIPTextEncoder(tcfg)
+    vision.load_state_dict(clip.convert_openai_clip_visual(sd))
+    text.load_state_dict(clip.convert_openai_clip_text(sd))
+    model = MomentDETR(gcfg).init_weights(torch.Generator().manual_seed(seed)).to(device).eval()
+    return MomentDETRPredictor(model, text.to(device).eval(), CLIPTokenizer(),
+                               CLIPFeatureExtractor(vision, device), clip_len=gcfg.clip_length,
+                               max_v_l=gcfg.max_v_l, v_feat_dim=gcfg.v_feat_dim)
+
+
+def _check_moments(rows, n_windows: int, ctx: int, duration: float):
+    import numpy as np
+
+    check(len(rows) == len(MOMENT_QUERIES), f"{len(rows)} rows for {len(MOMENT_QUERIES)} queries")
+    for row, q in zip(rows, MOMENT_QUERIES):
+        check(set(row) == {"query", "vid", "pred_relevant_windows", "pred_saliency_scores"}
+              and row["query"] == q, f"moment row keys {sorted(row)}")
+        w = np.asarray(row["pred_relevant_windows"])
+        check(w.shape == (n_windows, 3) and np.isfinite(w).all()
+              and (np.diff(w[:, 2]) <= 0).all()
+              and (w[:, :2] >= 0).all() and (w[:, :2] <= duration + 1e-3).all(),
+              f"windows of {q!r}: {w.shape}, not ranked or outside [0, {duration}]")
+        check(len(row["pred_saliency_scores"]) == ctx
+              and np.isfinite(row["pred_saliency_scores"]).all(),
+              f"saliency of {q!r}: {len(row['pred_saliency_scores'])} for {ctx} clips")
+
+
+def video_moments(card: str, root: Path, video_path: str, frames: int, decode, route: str,
+                  gcfg=None, tol: float = 1e-3):
+    """(c) ``MomentDETRPredictor`` at ``configs/chapters_momentdetr.json``
+    (v_feat_dim 514 and t_feat_dim 512 for ViT-B/32's features) with
+    ViT-B/32's image and text towers: one video at the recipe's clip_length
+    (3 s) and 4 queries. The run.py schema, windows ranked by score and
+    inside the video, a saliency score per clip, row 1 launched 12 a batch;
+    then fp32 windows and saliency at hidden 64 with 2-layer towers, card
+    against CPU, within ``tol`` (seconds and scores)."""
+    import numpy as np
+    import torch
+
+    from vidchapters_tpu_torch.config import GroundingConfig
+    from vidchapters_tpu_torch.models.clip import VIT_B32
+    from vidchapters_tpu_torch.ops import fused_attention as fa
+
+    recipe = json.loads((ROOT / GROUNDING_RECIPE).read_text())
+    gcfg = gcfg or dataclasses.replace(GroundingConfig(), **recipe["model"])
+    gcfg = dataclasses.replace(gcfg, v_feat_dim=514, t_feat_dim=512)
+    pred = _moment_predictor(root, gcfg, DEVICE, small=False, seed=16)
+    clips = -(-frames // max(int(gcfg.clip_length), 1))
+    ctx = min(clips, gcfg.max_v_l)
+    with _patched_decode(decode, route):
+        fa.KERNEL.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.time()
+        rows = pred.localize_moment(video_path, list(MOMENT_QUERIES))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = fa.KERNEL.launches
+    want = VIT_B32.layers * _batches(clips)
+    check(launches == want, f"moments: fused launches {launches}, expected {want}")
+    _check_moments(rows, gcfg.num_queries, ctx, ctx * gcfg.clip_length)
+    summary = {"card": card, "clips": ctx, "queries": len(rows), "wall_s": wall,
+               "launches": launches, "top_window": rows[0]["pred_relevant_windows"][0]}
+    say(f"[video] run_on_video: {ctx} clips x {len(rows)} queries in {wall:.2f} s, launches "
+        f"{launches} (expected {want}); top window {summary['top_window']} on {card}")
+    del pred
+    small = dataclasses.replace(gcfg, hidden_dim=64, nheads=4, dim_feedforward=128,
+                                dtype="float32")
+    out = {}
+    for device in (DEVICE, "cpu"):
+        p = _moment_predictor(root, small, device, small=True, seed=17)
+        with _patched_decode(decode, route):
+            out[device] = p.localize_moment(video_path, list(MOMENT_QUERIES))
+    _check_moments(out[DEVICE], small.num_queries, ctx, ctx * gcfg.clip_length)
+    err = max(max(float(np.abs(np.asarray(g["pred_relevant_windows"])
+                               - np.asarray(r["pred_relevant_windows"])).max()),
+                  float(np.abs(np.asarray(g["pred_saliency_scores"])
+                               - np.asarray(r["pred_saliency_scores"])).max()))
+              for g, r in zip(out[DEVICE], out["cpu"]))
+    say(f"[video] fp32 moments at hidden 64, card vs CPU: max abs diff {err:.3e} (tol {tol})")
+    check(err <= tol, f"fp32 moments card vs CPU: {err} > {tol}")
+    summary["fp32_max_abs_diff"] = err
+    torch.cuda.empty_cache()
+    return summary
+
+
+def _align_inputs(seconds, seed: int = 0):
+    """Phase 7's synthetic audio (the same seeded files) cut into
+    ``ALIGN_CUTS`` segments each (at most 30 s), each with seeded random
+    token ids (2.5 a second) and their words (every third token a
+    continuation): (mels, ids, words, seconds)."""
+    import numpy as np
+
+    from vidchapters_tpu_torch.factory.audio import load_audio, log_mel_spectrogram
+
+    rng = np.random.default_rng(seed)
+    mels, ids, words, secs = [], [], [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        for path in _write_asr_wavs(Path(tmp), seconds):
+            audio = load_audio(path)
+            n = len(audio) // ALIGN_CUTS
+            for c in range(ALIGN_CUTS):
+                piece = audio[c * n:min((c + 1) * n, c * n + 480000)]
+                mels.append(log_mel_spectrogram(piece))
+                toks = rng.integers(0, 50257, max(1, int(len(piece) / 16000 * 2.5))).tolist()
+                ids.append(toks)
+                words.append(["" if i % 3 == 2 else f"w{t}" for i, t in enumerate(toks)])
+                secs.append(len(piece) / 16000)
+    return mels, ids, words, secs
+
+
+def video_align(card: str, wcfg=None, seconds=ASR_SECONDS, chunk: int = 8):
+    """(d) ``align_words_batch`` at Whisper large-v2 width (phase 7's seeded
+    random weights, bf16) over 24 segments of phase 7's synthetic audio in
+    chunks of 8: word times finite, monotone and inside their segments;
+    seconds and peak memory. ``align_segments`` turns phase 7's pickle with
+    the most segments into whisperx segments that ``merge_and_process``
+    reads back. Then fp32 word times at 4+4 layers, card against CPU,
+    identical."""
+    import numpy as np
+    import torch
+
+    from vidchapters_tpu_torch.factory import align, asr
+    from vidchapters_tpu_torch.factory.audio import load_audio
+    from vidchapters_tpu_torch.models.whisper import LARGE_V2
+
+    wcfg = wcfg or LARGE_V2
+    mels, ids, words, secs = _align_inputs(seconds)
+    model = _whisper_model(wcfg, DEVICE, seed=7).to(DEVICE)  # its buffers too
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    out = align.align_words_batch(model, mels, ids, words, secs, prefix_ids=ALIGN_PREFIX,
+                                  chunk_size=chunk)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    for seg, s, w in zip(out, secs, words):
+        starts = [x["start"] for x in seg]
+        check(len(seg) == sum(1 for x in w if x) and starts == sorted(starts)
+              and all(np.isfinite([x["start"], x["end"]]).all()
+                      and 0.0 <= x["start"] <= x["end"] <= s + 1e-6 for x in seg),
+              f"aligned words not finite, monotone and inside [0, {s}]: {seg[:3]}")
+    summary = {"card": card, "segments": len(out), "audio_s": sum(secs),
+               "words": sum(len(s) for s in out), "chunk": chunk, "wall_s": wall,
+               "peak_memory_bytes": peak}
+    say(f"[video] align_words_batch at d {wcfg.d_model}, {wcfg.encoder_layers}+"
+        f"{wcfg.decoder_layers} layers: {len(out)} segments ({sum(secs):.1f} s of "
+        f"audio), {summary['words']} words in {wall:.2f} s, chunks of {chunk}, peak {peak} B "
+        f"on {card}")
+    vid = max(ASR_PICKLES, key=lambda v: len(ASR_PICKLES[v]["text"]))
+    res = ASR_PICKLES[vid]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = next(p for p in _write_asr_wavs(Path(tmp), seconds) if Path(p).stem == vid)
+        aligned = align.align_segments(
+            model, load_audio(path), res,
+            lambda text: ([int(t) for t in text.split()], [f"w{t}" for t in text.split()]),
+            prefix_ids=ALIGN_PREFIX)
+        out_dir = Path(tmp) / "aligned"
+        out_dir.mkdir()
+        with open(out_dir / f"{vid}.pkl", "wb") as f:
+            pickle.dump(aligned, f)
+        merged = asr.merge_and_process(str(out_dir), str(Path(tmp) / "proc.pkl"))
+    kept = [t.strip() for t in res["text"] if t.strip()]
+    check(merged[asr.normalize_video_id(vid)]["text"] == kept,
+          "merge_and_process of the aligned pickle lost segments")
+    summary["aligned_pickle"] = {"video": vid, "segments": len(aligned["segments"]),
+                                 "words": sum(len(s["words"]) for s in aligned["segments"])}
+    say(f"[video] align_segments on phase 7's {vid}: {summary['aligned_pickle']}; "
+        f"merge_and_process reads its {len(kept)} texts back")
+    del model
+    torch.cuda.empty_cache()
+    summary["fp32_check"] = align_fp32_check(wcfg, mels[:4], ids[:4], words[:4], secs[:4])
+    return summary
+
+
+def align_fp32_check(wcfg, mels, ids, words, secs, layers: int = 4):
+    """fp32 word times at ``layers``+``layers`` layers of ``wcfg``'s width,
+    card against CPU: identical."""
+    import copy
+
+    from vidchapters_tpu_torch.factory import align
+
+    cfg = dataclasses.replace(wcfg, encoder_layers=layers, decoder_layers=layers,
+                              dtype="float32")
+    cpu = _whisper_model(cfg, "cpu", seed=8)
+    card = copy.deepcopy(cpu).to(DEVICE)
+    got = align.align_words_batch(card, mels, ids, words, secs, prefix_ids=ALIGN_PREFIX)
+    ref = align.align_words_batch(cpu, mels, ids, words, secs, prefix_ids=ALIGN_PREFIX)
+    same = got == ref
+    say(f"[video] fp32 word times at {layers}+{layers} layers, {len(mels)} segments, card vs "
+        f"CPU: identical {same}")
+    check(same, "fp32 word times differ between the card and the CPU")
+    return {"layers": layers, "segments": len(mels), "identical": same,
+            "words": sum(len(s) for s in ref)}
+
+
+def phase_video(card: str, vit=None, counts=VIDEO_FRAMES, mcfg=None, gcfg=None, wcfg=None):
+    """Phase 11, a raw video to chapters and moments: (a) the ViT-L/14
+    feature factory, (b) ``demo_vid2seq`` at T5-base, (c) ``run_on_video``'s
+    predictor, (d) Whisper word alignment at large-v2. Returns (summary,
+    row 1's launches in (a), the demo's launches of rows 1, 3 and 4)."""
+    import torch
+
+    from vidchapters_tpu_torch.models.clip import VIT_L14
+
+    vit = vit or VIT_L14
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        feats, videos, paths, decode, route = video_features(card, root, vit, counts)
+        frames = {p: len(decode(p)) if route.startswith("ffmpeg") else len(videos[Path(p).stem])
+                  for p in paths}
+        longest = max(paths, key=frames.get)
+        demo, demo_launches = video_demo(card, root, vit, longest, frames[longest], decode,
+                                         route, mcfg)
+        mid = sorted(paths, key=frames.get)[len(paths) // 2]
+        moments = video_moments(card, root, mid, frames[mid], decode, route, gcfg)
+        del videos
+    torch.cuda.empty_cache()
+    align = video_align(card, wcfg)
+    summary = {"card": card, "features": feats, "demo": demo, "moments": moments,
+               "align": align, "wall_s": time.time() - t_phase}
+    say(f"[video] phase 11 in {summary['wall_s']:.1f} s on {card}")
+    return summary, feats["kernel"]["launches"], demo_launches
+
+
 def main() -> int:
     try:
         import torch
@@ -4459,6 +5249,7 @@ def main() -> int:
         gen = torch.Generator().manual_seed(1)
         table = [check_fused_attention(gen), check_fused_attention_bwd(gen)]
         table[0]["hmma_per_kernel"] = check_tensor_cores()
+        table[0].update(check_fused_attention_vision(gen))
         gen = serving_checks_generator()
         table += [check_topk(gen), check_megakernel(gen)]
         gen = torch.Generator().manual_seed(2)
@@ -4493,6 +5284,8 @@ def main() -> int:
         del phase5_weights
         torch.cuda.empty_cache()
         grounding = phase_grounding(card)
+        torch.cuda.empty_cache()
+        video, feature_launches, demo_launches = phase_video(card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
@@ -4515,6 +5308,10 @@ def main() -> int:
     for row in table:  # rows 1-4 on VC's training and eval (phase 9)
         if row["name"] in vc_launches:
             row["launches_vc"] = vc_launches[row["name"]]
+    table[0]["launches_features"] = feature_launches  # phase 11(a)
+    for row in table:  # rows 1, 3 and 4 in demo_vid2seq (phase 11b)
+        if row["name"] in demo_launches:
+            row["launches_demo"] = demo_launches[row["name"]]
     say(f"[summary] serving {e2e['videos_per_s']:.3f} videos/s (megakernel, beam 4); eval "
         f"{evaluation['eval_videos_per_s_beam4_standard']:.3f} videos/s (standard, beam 4), "
         f"{evaluation['eval_videos_per_s_nucleus']:.3f} videos/s (nucleus); training "
@@ -4528,10 +5325,14 @@ def main() -> int:
         f"reference .pth served with launches {reference_launches}; VC "
         f"{vc['step_ms_mean_after_first']:.1f} ms/step, eval {vc['eval_clips_per_s'][-1]:.2f} "
         f"clips/s; grounding {grounding['step_ms_mean_after_first']:.1f} ms/step at batch "
-        f"{grounding['batch']} (peak {grounding['peak_memory_bytes']} B)")
+        f"{grounding['batch']} (peak {grounding['peak_memory_bytes']} B); video features "
+        f"{video['features']['kernel']['frames_per_s']:.1f} frames/s (plain route "
+        f"{video['features']['plain']['frames_per_s']:.1f}), demo_vid2seq "
+        f"{video['demo']['wall_s']:.2f} s, alignment {video['align']['wall_s']:.2f} s")
     record = {"kernels": table, "train": train, "end_to_end": e2e, "fp32_tokens": fp32,
               "evaluation": evaluation, "pdvc": pdvc, "asr": asr_run, "pretrain": pretrain,
-              "reference_checkpoint": reference, "vc": vc, "grounding": grounding, "card": card}
+              "reference_checkpoint": reference, "vc": vc, "grounding": grounding, "video": video,
+              "card": card}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -588,3 +588,92 @@ def test_fused_attention_refuses_other_dtypes_on_the_card(dtype):
     q = torch.zeros(1, 1, 64, 64, device="cuda", dtype=dtype)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.fused_attention(q, q, q, None, torch.ones(1, 64, dtype=torch.int32, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol,frames", [(torch.float32, 1e-4, 2), (torch.bfloat16, 2e-2, 8)])
+@pytest.mark.parametrize("heads,tokens", [(16, 257), (12, 50)])  # ViT-L/14; ViT-B/32
+def test_fused_attention_vision_form_matches_plain(dtype, tol, frames, heads, tokens):
+    """Row 1 at the CLIP image towers' forms: the query rows as they are
+    (ViT-B/32's 50 are less than one query tile), keys padded to a multiple
+    of 64 under a mask (320 for 257 tokens; one tile with 14 keys masked for
+    50), q scaled by 1/8, no bias."""
+    require_cuda()
+    from vidchapters_tpu_torch.models import clip
+    from vidchapters_tpu_torch.ops import fused_attention as fa
+
+    width = heads * 64
+    qkv = torch.randn(frames, tokens, 3 * width, generator=_gen()).cuda().to(dtype)
+    q, k, v, mask = clip.vision_attention_inputs(qkv, heads)
+    assert tuple(k.shape) == (frames, heads, -(-tokens // 64) * 64, 64)
+    assert int(mask.sum()) == frames * tokens
+    before = fa.KERNEL.launches
+    got = clip.fused_self_attention(qkv, heads)
+    torch.cuda.synchronize()
+    assert fa.KERNEL.launches == before + 1
+    ref = fa.fused_attention_plain(q, k, v, None, mask).transpose(1, 2).reshape(frames, tokens,
+                                                                                width)
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_clip_image_tower_on_the_card_matches_cpu():
+    """Two fp32 layers at ViT-L/14's width: the card (row 1, one launch a
+    layer) against the CPU (the plain version), within 1e-4 of the largest
+    feature."""
+    require_cuda()
+    import copy
+
+    from vidchapters_tpu_torch.models import clip
+    from vidchapters_tpu_torch.ops import fused_attention as fa
+
+    cfg = clip.CLIPVisionConfig(layers=2, dtype="float32")
+    cpu = clip.CLIPImageEncoder(cfg).init_weights(_gen()).eval()
+    card = copy.deepcopy(cpu).cuda()
+    pixels = torch.randn(3, 224, 224, 3, generator=_gen())
+    with torch.no_grad():
+        ref = cpu(pixels)
+        before = fa.KERNEL.launches
+        got = card(pixels.cuda())
+        torch.cuda.synchronize()
+    assert fa.KERNEL.launches == before + 2
+    assert (got.cpu() - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_feature_extractor_waits_for_weights_copied_on_the_callers_stream():
+    """CLIPFeatureExtractor runs the tower on a stream of its own. Weights
+    copied to the card with non_blocking copies on the caller's stream,
+    queued behind a long kernel there, are in place before the tower reads
+    them: the features equal the CPU's (numpy preprocessing, plain
+    attention) within 1e-4 of the largest, over 3 batches, the last one
+    partial. The pinned weights are made first and a call on the initial
+    weights (features of zeros) warms the extractor, so that its second
+    call allocates no pinned host memory (which may synchronize the device
+    and so order the streams for it)."""
+    require_cuda()
+    import copy
+    import dataclasses
+
+    import numpy as np
+
+    from vidchapters_tpu_torch.factory.features import CLIPFeatureExtractor
+    from vidchapters_tpu_torch.models import clip
+
+    cfg = dataclasses.replace(clip.VIT_B32, width=64, layers=2, heads=1, output_dim=32,
+                              dtype="float32")
+    src = clip.CLIPImageEncoder(cfg).init_weights(_gen()).eval()
+    frames = np.random.default_rng(0).integers(0, 256, (10, 96, 128, 3), dtype=np.uint8)
+    ref = CLIPFeatureExtractor(copy.deepcopy(src), "cpu", batch_size=4)(frames)
+    pinned = {name: t.pin_memory() for name, t in src.state_dict().items()}
+    ext = CLIPFeatureExtractor(clip.CLIPImageEncoder(cfg), "cuda", batch_size=4)
+    stale = ext(frames)
+    assert np.abs(stale - ref).max() > 0.5 * np.abs(ref).max()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # about 0.1 s of the caller's stream ahead of the copies
+    with torch.no_grad():
+        for name, t in ext.module.state_dict().items():
+            t.copy_(pinned[name], non_blocking=True)
+    got = ext(frames)
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()

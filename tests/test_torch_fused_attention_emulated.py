@@ -92,6 +92,29 @@ def test_emulated_kernels_match_plain(kernels, b, h, lq, lk, d, bias, rate, dtyp
         assert err <= tol, f"{name}: max abs err {err} > {tol}"
 
 
+@pytest.mark.parametrize("tokens,dtype", [
+    (50, torch.bfloat16),   # ViT-B/32: 50 query rows, one 64-key tile with 14 keys masked
+    (50, torch.float32),
+    (257, torch.bfloat16),  # ViT-L/14: 257 query rows over 320 keys
+])
+def test_emulated_forward_at_the_image_towers_forms(kernels, tokens, dtype):
+    """Row 1 on the CLIP image towers' route (``models/clip.
+    vision_attention_inputs``: q scaled by 1/8, keys padded to a multiple of
+    64 under a mask, the query rows as they are), 2 frames and 2 heads of
+    64, against the plain version: fp32 within 1e-4, bf16 within 2e-2."""
+    from vidchapters_tpu_torch.models import clip
+
+    g = torch.Generator().manual_seed(4)
+    qkv = torch.randn(2, tokens, 3 * 2 * 64, generator=g).to(dtype)
+    q, k, v, mask = clip.vision_attention_inputs(qkv, 2)
+    assert k.shape[2] == -(-tokens // 64) * 64
+    out, _ = fa._launch_forward(q, k, v, None, mask, 0, 0.0, False)
+    ref = fa.fused_attention_plain(q, k, v, None, mask)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert kernels["KERNEL"].launches == 1
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
 @pytest.mark.parametrize("lk", [64, 128])  # one key tile; two
 def test_emulated_forward_keep_mask_is_the_plain_one(kernels, lk):
     """With V the identity, out holds each row's dropped probabilities: it is

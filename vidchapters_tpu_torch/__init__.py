@@ -18,7 +18,13 @@ Entry points:
   frozen CLIP text tower (``configs/chapters_momentdetr.json``), with the
   optional BERT speech tower;
 - ``train/pdvc_main``: the PDVC baseline;
-- ``factory/asr``: the Whisper ASR factory.
+- ``factory/asr``: the Whisper ASR factory, with word alignment
+  (``factory/align``);
+- ``factory/features``: CLIP ViT-L/14 frame features (the datasets'
+  features); ``factory/chapters`` and ``factory/preproc``: chapters mined
+  from descriptions and the DVC / VMR annotations;
+- ``demo/demo_vid2seq`` and ``demo/run_on_video``: chapters and moments
+  from one raw video.
 
 The kernels are hand-written CUDA C++ for ``sm_90a`` under ``csrc/``,
 built at first use by ``ops/_build.py``. Each kernel's wrapper launches the

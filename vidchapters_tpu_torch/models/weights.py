@@ -4,7 +4,8 @@ Both importers take the JAX parameter tree as nested dicts of numpy arrays
 (``jax.device_get(params)``) and return a ``state_dict`` of the port's
 model. Dense kernels ``[in, out]`` become ``nn.Linear`` weights
 ``[out, in]``, Flax ``Conv`` kernels ``[k, in, out]`` become ``Conv1d``
-weights ``[out, in, k]``, and norm ``scale`` leaves become ``weight``. A leaf
+weights ``[out, in, k]`` and ``[kh, kw, in, out]`` become ``Conv2d`` weights
+``[out, in, kh, kw]``, and norm ``scale`` leaves become ``weight``. A leaf
 the port has no place for, or a port parameter that no leaf fills, raises.
 
 - ``from_jax_params``: Vid2Seq in its default unscanned layout
@@ -24,6 +25,8 @@ the port has no place for, or a port parameter that no leaf fills, raises.
   ``blocks.{i}``); the raw ``token_embedding``, ``positional_embedding``
   and ``text_projection`` (``[width, output_dim]``, as there) keep names
   and orientation.
+- ``clip_vision_from_jax_params``: CLIP's image tower, named as the text
+  tower's (``patch_embed``, ``class_embedding``, ``proj``, ...).
 - ``bert_from_jax_params``: BERT (``layer_{i}`` -> ``layers.{i}``); the
   three embedding tables keep their names.
 """
@@ -92,10 +95,11 @@ def _import(params: Mapping[str, Any], model: nn.Module, name_of: Callable[[tupl
             leftover.append("/".join(path))
             continue
         if path[-1] == "kernel":
-            if arr.ndim not in (2, 3):
+            if arr.ndim not in (2, 3, 4):
                 leftover.append("/".join(path))
                 continue
-            arr = arr.T if arr.ndim == 2 else arr.transpose(2, 1, 0)
+            # Dense [in, out], Conv1d [k, in, out], Conv2d [kh, kw, in, out]
+            arr = arr.transpose({2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}[arr.ndim])
         t = torch.from_numpy(np.array(arr, dtype=np.float32, order="C"))
         if tuple(t.shape) != tuple(target[name].shape):
             raise ValueError(f"{'/'.join(path)}: shape {tuple(t.shape)} does not "
@@ -219,6 +223,14 @@ def clip_text_from_jax_params(params: Mapping[str, Any], model: nn.Module
     """JAX ``CLIPTextEncoder`` params -> the port's ``CLIPTextEncoder``
     ``model``'s state_dict."""
     return _import(params, model, _port_name, "clip_text_from_jax_params")
+
+
+def clip_vision_from_jax_params(params: Mapping[str, Any], model: nn.Module
+                                ) -> Dict[str, torch.Tensor]:
+    """JAX ``CLIPImageEncoder`` params -> the port's ``CLIPImageEncoder``
+    ``model``'s state_dict (the patch embedding's Flax kernel [kh, kw, in,
+    out] becomes the torch layout [out, in, kh, kw])."""
+    return _import(params, model, _port_name, "clip_vision_from_jax_params")
 
 
 def bert_from_jax_params(params: Mapping[str, Any], model: nn.Module

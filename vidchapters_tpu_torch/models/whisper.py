@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -106,16 +106,22 @@ class WhisperAttention(nn.Module):
         return self._split(_linear(hidden, self.q, _dtype(self.cfg))) * (d_head ** -0.5)
 
     @staticmethod
-    def _attend(q, k, v, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _attend(q, k, v, mask: Optional[torch.Tensor] = None,
+                probs_sink: Optional[Callable[[torch.Tensor], None]] = None) -> torch.Tensor:
         scores = torch.einsum("bhqd,bhkd->bhqk", q, k).float()
         if mask is not None:
             scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
         probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        if probs_sink is not None:
+            probs_sink(probs)
         return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
     def forward(self, hidden: torch.Tensor, kv: torch.Tensor, causal: bool = False,
-                key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Full-sequence attention of ``hidden`` over ``kv``."""
+                key_mask: Optional[torch.Tensor] = None,
+                probs_sink: Optional[Callable[[torch.Tensor], None]] = None) -> torch.Tensor:
+        """Full-sequence attention of ``hidden`` over ``kv``. When asked,
+        ``probs_sink`` receives the probabilities [B, H, Lq, Lk] in the
+        compute dtype (what the JAX module ``sow``s as ``attn_probs``)."""
         dt = _dtype(self.cfg)
         q = self._q(hidden)
         k = self._split(_linear(kv, self.k, dt))
@@ -127,7 +133,7 @@ class WhisperAttention(nn.Module):
         if key_mask is not None:
             km = key_mask[:, None, None, :].bool()
             mask = km if mask is None else mask & km
-        return self._merge(self._attend(q, k, v, mask))
+        return self._merge(self._attend(q, k, v, mask, probs_sink))
 
     def precompute_kv(self, kv: torch.Tensor) -> Dict[str, torch.Tensor]:
         dt = _dtype(self.cfg)
@@ -183,11 +189,12 @@ class WhisperLayer(nn.Module):
         dt = _dtype(self.cfg)
         return _linear(F.gelu(_linear(self.ff_norm(x), self.fc1, dt)), self.fc2, dt)
 
-    def forward(self, x: torch.Tensor, enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, enc_out: Optional[torch.Tensor] = None,
+                cross_sink: Optional[Callable[[torch.Tensor], None]] = None) -> torch.Tensor:
         normed = self.self_attn_norm(x)
         x = x + self.self_attn(normed, normed, causal=self.is_decoder)
         if self.is_decoder and enc_out is not None:
-            x = x + self.cross_attn(self.cross_attn_norm(x), enc_out)
+            x = x + self.cross_attn(self.cross_attn_norm(x), enc_out, probs_sink=cross_sink)
         return x + self._ff(x)
 
     def decode(self, x: torch.Tensor, cache: dict, cache_index: int) -> torch.Tensor:
@@ -252,6 +259,29 @@ class WhisperDecoder(nn.Module):
         for layer in self.layers:
             x = layer(x, enc_out=enc)
         return self.logits(self.ln(x))
+
+    def cross_attention_mean(self, tokens: torch.Tensor, enc_out: torch.Tensor
+                             ) -> torch.Tensor:
+        """The teacher-forced pass of ``forward`` -> the mean over layers and
+        heads of the cross-attention probabilities, float32 [B, T_tok,
+        T_aud]: the pooling of word alignment (``factory/align``). Each
+        layer's [B, H, T_tok, T_aud] is added into one float32 sum as it
+        comes, head by head, layer by layer (numpy's order for
+        ``mean(axis=(0, 1))`` of the stacked maps), so no [B, layers, heads,
+        ...] stack is kept; the final norm and the logits are skipped."""
+        x = self.embed(tokens)
+        enc = enc_out.to(_dtype(self.cfg))
+        total = None
+
+        def add(probs: torch.Tensor) -> None:
+            nonlocal total
+            for h in range(probs.shape[1]):
+                p = probs[:, h].float()
+                total = p.clone() if total is None else total.add_(p)
+
+        for layer in self.layers:
+            x = layer(x, enc_out=enc, cross_sink=add)
+        return total / float(len(self.layers) * self.cfg.num_heads)
 
     # ops/decoding cache API -------------------------------------------
 

@@ -26,7 +26,6 @@ process; ROADMAP.md §1 item 9).
 from __future__ import annotations
 
 import json
-import zipfile
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -172,20 +171,11 @@ def main(train_jsonl: str, val_jsonl: str, v_feat_dirs: List[str], cfg: Groundin
 
 def load_clip_text_checkpoint(path: str):
     """The text tower's state dict from OpenAI's released TorchScript
-    archive (``torch.jit.load(...).state_dict()``) or from a plain state
-    dict under its names (``torch.load(weights_only=True)``); nothing is
-    unpickled beyond tensors."""
-    from vidchapters_tpu_torch.models.clip import convert_openai_clip_text
+    archive or from a plain state dict under its names
+    (``models/clip.load_openai_clip``)."""
+    from vidchapters_tpu_torch.models.clip import convert_openai_clip_text, load_openai_clip
 
-    scripted = False
-    if zipfile.is_zipfile(path):
-        with zipfile.ZipFile(path) as z:
-            scripted = any(n.split("/", 1)[-1].startswith("code/") for n in z.namelist())
-    if scripted:
-        sd = torch.jit.load(path, map_location="cpu").state_dict()
-    else:
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-    return convert_openai_clip_text(sd)
+    return convert_openai_clip_text(load_openai_clip(path))
 
 
 def smoke_speech_tower(cfg: GroundingConfig):
