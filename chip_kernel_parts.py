@@ -58,6 +58,14 @@
    profiled train step's device ms by kernel group (the deformable
    attention's among them).
 
+    python3 chip_kernel_parts.py --zeroshot-steps
+
+8. The zero-shot towers' decode steps at full width (bf16, seeded random
+   weights): LLaMA-7B at batch 1 over a 512-token prompt's cache, and
+   BLIP-2 Flan-T5-XL's greedy step at 8 frames (the standard cached decode,
+   rows 5 and 6): wall ms by CUDA events and one profiled step's device
+   busy ms by kernel group.
+
 Prints one JSON object; needs the card (exits 1 without one).
 """
 
@@ -230,6 +238,54 @@ def pdvc_times(root: str) -> dict:
             "train_step_profiled_wall_ms": prof["wall_ms"], "launches": launches}
 
 
+def zeroshot_steps() -> dict:
+    """Section 8: LLaMA-7B's and BLIP-2's decode steps, timed and profiled."""
+    import dataclasses
+
+    import torch
+
+    import chip_smoke as cs
+    from vidchapters_tpu_torch.models import blip2, llama
+    from vidchapters_tpu_torch.ops import decoding as dec
+
+    out = {}
+    cfg = dataclasses.replace(llama.LLAMA_7B, dtype="bfloat16")
+    model = llama.init_llama(cfg, "cuda", seed=21)
+    p_len, new = cs.LLAMA_PROMPT_LEN, cs.LLAMA_NEW_TOKENS
+    cache = llama.init_cache(cfg, 1, p_len + new, device="cuda")
+    ones = torch.ones((1, p_len + new), dtype=torch.int32, device="cuda")
+    tok = torch.ones((1, 1), dtype=torch.int32, device="cuda")
+    pos = torch.full((1, 1), p_len, device="cuda")
+
+    def step():
+        return model(tok, position_ids=pos, cache=cache, cache_index=p_len, kv_pad_mask=ones)
+
+    with torch.no_grad():
+        ms = cs.time_ms(step, 10)
+        out["llama_step_ms"] = ms
+        out["llama_step_profile"] = cs._profile_step(lambda *_: step(), None, None, ms)
+    del model, cache
+    torch.cuda.empty_cache()
+    base = blip2.Blip2Config()
+    bcfg = blip2.Blip2Config(vision=dataclasses.replace(base.vision, dtype="bfloat16"),
+                             qformer=dataclasses.replace(base.qformer, dtype="bfloat16"),
+                             t5=dataclasses.replace(base.t5, dtype="bfloat16"))
+    model = blip2.init_blip2(bcfg, "cuda", seed=22)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    px = torch.randn(8, 3, 224, 224, generator=g, device="cuda")
+    ids = torch.randint(3, 32000, (8, 22), generator=g, device="cuda")
+    with torch.no_grad():
+        enc, enc_mask = model.encode(px, ids, torch.ones_like(ids))
+        fns = dec.make_decode_fns(model.t5, new)
+        bcache = fns.init_cache(8, enc)
+        toks = torch.zeros(8, dtype=torch.int32, device="cuda")
+        bstep = lambda: fns.step(toks, bcache, 5, enc_mask)  # noqa: E731
+        ms = cs.time_ms(bstep, 10)
+        out["blip2_step_ms"] = ms
+        out["blip2_step_profile"] = cs._profile_step(lambda *_: bstep(), None, None, ms)
+    return out
+
+
 def ab(other: str, what: str) -> dict:
     """``what`` ("whisper", "t5", "cross", "deform" or "pdvc") times of
     ``other`` and of this tree, each in a process of its own, in turns
@@ -262,6 +318,10 @@ def main() -> int:
         return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
+    if sys.argv[1:] == ["--zeroshot-steps"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(json.dumps({"card": card, **zeroshot_steps()}, indent=1), flush=True)
+        return 0
     if len(sys.argv) == 3 and sys.argv[1] in ("--whisper-ab", "--t5-ab", "--cross-ab",
                                               "--deform-ab", "--pdvc-ab"):
         what = sys.argv[1][2:-3]

@@ -146,9 +146,38 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    fp32 and bf16, against its plain version, and times each beside SDPA
    and the bound (ViT-L/14's also beside the 384-key form); the decode
    kernel at demo_vid2seq's 1 x 4 rows and the top-k at [1, 4*32200].
+12. The paper's zero-shot baselines at full width, seeded random weights,
+   bf16, each tower freed before the next. (a) Speech chapters at LLaMA-7B
+   (13.5 GB, built on the card): run_speech_vcg over 8 synthetic videos of
+   four topics with make_llm_titler(make_llama_generate_fn(...)) (a
+   synthetic word-hash tokenizer stands in for LLaMA's, which the port
+   cannot read; prompts padded to 512, 20 greedy tokens), the prefill's and
+   a decode step's ms against their bounds, titles/s, peak memory, finite
+   DVC / SODA metrics; evaluate_vc_llama over a VC val set; two bf16 calls
+   identical. (b) BLIP-2 with ViT-g / Q-Former / Flan-T5-XL (7.9 GB): the
+   ViT-g, Q-Former, encode and greedy-step ms at a batch of 8 frames;
+   caption_fn on 8 frames with BLIP2_PROMPT, rows 5 and 6 launched exactly
+   24 x its decode steps; two bf16 calls bit-identical; one num_beams=2
+   call (row 3 once a step); run_visual_vcg over CLIP-width features with
+   planted shots, the frames handed in to make_blip2_captioner;
+   evaluate_vc_blip2 over a VC val set built with videos_path (decoded by
+   ffmpeg where it exists, else the zero-frame fallback, and the run says
+   which). (c) run_vcgr in clip mode with the CLIP ViT-L/14 text tower over
+   phase 11's features, and in random mode. (d) vc_main --eval
+   --model-type blip2 and zeroshot.run visual from a synthetic HF BLIP-2
+   directory (config.json, pytorch_model.bin, spiece.model; 2 layers a
+   tower at full width); vc_main --model-type llama raises with its
+   loader's message. (e) fp32 tokens card vs CPU: LLaMA at 2 layers, d 256,
+   GQA 8/2, and BLIP-2 at 2 + 2 + 2 + 2 layers (greedy and beam 2). Phase 2
+   also holds rows 5 and 6 at every form (b) launches, 32 heads x 64 (self:
+   8, 16, 2 and 1 rows, L 20, idx 0/10/19; cross: 8 x 1, 8 x 2, 2 x 1 and
+   1 x 1 over the path's 54 keys, 8 x 1 and 8 x 2 with the last masked, and
+   Flan-T5's own tokenizer's 46 and 45), and row 3 at beam 2's [8, 2 x
+   32128], k 4; fp32 and bf16, timed beside SDPA / torch.topk and the
+   bound. (b) fails unless its calls ran at those forms.
 
 The kernels' launch counts are zeroed just before each main path (phases
-3, 4, 6, 7, 8, 11 and each run of 5) and read just after it; the kernel line
+3, 4, 6, 7, 8, 11, each BLIP-2 call of 12 and each run of 5) and read just after it; the kernel line
 reports each kernel's count from its own path (training for the fused
 attention, serving for top-k and the decode kernel, phase 5's first run for
 the decode-attention kernels, phase 6's pdvc_main run for the deformable
@@ -156,8 +185,9 @@ attention, phase 7's sweep for the Whisper kernel); rows 1-2 also carry
 ``launches_pretrain`` from phase 8's dvc_main run and rows 1-4
 ``launches_vc`` from phase 9's vc_main run; row 1 carries
 ``launches_features`` from phase 11(a) and rows 1, 3 and 4
-``launches_demo`` from phase 11(b). The probes lie on no path: their
-count is phase 2's.
+``launches_demo`` from phase 11(b); rows 3, 5 and 6 carry
+``launches_zeroshot`` from phase 12(b)'s BLIP-2 calls. The probes lie on no
+path: their count is phase 2's.
 
 The last lines are the kernel table as one JSON object, the nvidia-smi
 line, and {"ok": true, "device": {...}}. The full record also goes to
@@ -813,14 +843,15 @@ TOPK_SHAPES = ((8, 4 * 32200, 8, "float32"),    # serving: 8 examples x 2K of 4 
                (8, 5 * 51865, 5, "float32"),    # Whisper beam 5 at batch 8
                (8, 51865, 5, "float32"),        # Whisper's first beam step
                (16, 4 * 32200, 8, "float32"),   # VC's eval: 16 clips x 2K of 4 beams
-               (1, 4 * 32200, 8, "float32"))    # demo_vid2seq: one video x 2K of 4 beams
+               (1, 4 * 32200, 8, "float32"),    # demo_vid2seq: one video x 2K of 4 beams
+               (8, 2 * 32128, 4, "float32"))    # BLIP-2 Flan-T5-XL: 8 frames x 2K of 2 beams
 
 
 def check_topk(gen):
     """The top-k kernel against its plain version, values and indices
     exactly, at the serving shape (f32 and bf16, k 8, with forced ties and
-    beam-search start rows), VC's and demo_vid2seq's (16 and 1 rows) and
-    the Whisper beam's shapes (k 5, odd rows),
+    beam-search start rows), VC's and demo_vid2seq's (16 and 1 rows),
+    BLIP-2's beam 2 (k 4) and the Whisper beam's shapes (k 5, odd rows),
     each with the rows on which the plain version re-picks an entry at
     finfo.min appended. Each shape timed by CUDA-graph replay (device time),
     the kernel beside torch.topk and the plain version, and eagerly."""
@@ -1487,6 +1518,169 @@ def check_decode_cross_attention(gen):
             "library": "SDPA (scale 1) over K/V expanded across beams",
             "shape": f"q [{b0 * 4},{h},1,{d}] over k/v [{b0},{h},{lk},{d}] bf16, g 4, "
                      f"{live} live keys"}
+
+
+BLIP2_DEC = dict(heads=32, length=20, d=64)  # Flan-T5-XL's decode, 20 new tokens
+BLIP2_REAL_KEYS = 46  # 32 query tokens + BLIP2_PROMPT's 13 ids and </s> under Flan-T5's spiece.model
+# self-attention rows of phase 12(b): caption_fn's 8 frames, beam 2's 8 x 2,
+# evaluate_vc_blip2's 2 clips a video, run_visual_vcg's one shot a call
+BLIP2_SELF_ROWS = (8, 16, 2, 1)
+BLIP2_CROSS_GROUPS = ((8, 1), (8, 2), (2, 1), (1, 1))  # (examples, beams), the same calls
+
+
+def blip2_path_keys(root: Path, num_query_tokens: int = 32) -> int:
+    """Cross keys of phase 12(b)'s BLIP-2 decode: the query tokens and
+    ``BLIP2_PROMPT``'s ids with ``</s>`` under the synthetic
+    ``spiece.model`` (written into ``root`` unless it is there)."""
+    from vidchapters_tpu_torch.data.tokenizer import SentencePieceUnigramTokenizer
+    from vidchapters_tpu_torch.models import blip2
+    from vidchapters_tpu_torch.zeroshot.visual_vcg import BLIP2_PROMPT
+
+    path = root / "spiece.model"
+    if not path.exists():
+        _write_spm_model(path)
+    tok = SentencePieceUnigramTokenizer(str(path), num_bins=0)
+    return num_query_tokens + blip2.encode_prompts(tok, [BLIP2_PROMPT])[0].shape[1]
+
+
+def blip2_cross_forms(path_keys: int):
+    """(examples, beams, keys, live keys) of row 6 in phase 12(b), all live,
+    and two with the last key masked; then the same decode under Flan-T5's
+    own tokenizer (46 keys, and 45 with the last masked)."""
+    forms = [(b0, g, path_keys, path_keys) for b0, g in BLIP2_CROSS_GROUPS]
+    forms += [(8, g, path_keys, path_keys - 1) for g in (1, 2)]
+    return forms + [(8, 1, BLIP2_REAL_KEYS, BLIP2_REAL_KEYS),
+                    (8, 1, BLIP2_REAL_KEYS - 1, BLIP2_REAL_KEYS - 2)]
+
+
+def check_decode_attention_blip2(gen):
+    """Rows 5 and 6 at every form BLIP-2 Flan-T5-XL's decode launches in
+    phase 12(b), 32 heads x 64: the self kernel at ``BLIP2_SELF_ROWS`` rows,
+    L 20, cache indices 0 / 10 / 19; the cross kernel at
+    ``blip2_cross_forms`` of the path's key count (``blip2_path_keys``);
+    fp32 and bf16 against the plain versions (caches bit for bit). Each form
+    timed in bf16 (idx 19) by CUDA-graph replay beside its plain version,
+    SDPA and its bound. Returns (row 5's entries, row 6's entries)."""
+    import torch
+
+    from vidchapters_tpu_torch.ops import decode_attention as da
+    from vidchapters_tpu_torch.ops._build import sm_count
+
+    h, length, d = (BLIP2_DEC[k] for k in ("heads", "length", "d"))
+    with tempfile.TemporaryDirectory() as tmp:
+        path_keys = blip2_path_keys(Path(tmp))
+    cross_forms = blip2_cross_forms(path_keys)
+    rmax = max(BLIP2_SELF_ROWS)
+    q, k_new, v_new = (torch.randn(rmax, h, 1, d, generator=gen) for _ in range(3))
+    kc, vc = (torch.randn(rmax, h, length, d, generator=gen) for _ in range(2))
+    bias_all = torch.randn(1, h, 1, length, generator=gen)
+    kmax = max(f[2] for f in cross_forms)
+    ck, cv = (torch.randn(8, h, kmax, d, generator=gen) for _ in range(2))
+
+    def self_inputs(r, idx, dtype):
+        bias = bias_all.clone()
+        bias[..., idx + 1:] = da.NEG_INF
+        return tuple(t.to("cuda", dtype) for t in (q[:r], k_new[:r], v_new[:r], kc[:r], vc[:r],
+                                                     bias))
+
+    def cross_inputs(b0, g, lk, live, dtype):
+        mask = torch.ones(b0, lk, dtype=torch.int32)
+        mask[:, live:] = 0
+        kk, vv = (t[:b0, :, :lk].contiguous().to("cuda", dtype) for t in (ck, cv))
+        return q[:b0 * g].to("cuda", dtype), kk, vv, mask.cuda()
+
+    errs = {"self": {}, "cross": {}}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        worst = 0.0
+        for r in BLIP2_SELF_ROWS:
+            for idx in (0, 10, length - 1):
+                qq, kn, vn, kk, vv, bb = self_inputs(r, idx, dtype)
+                k2, v2 = kk.clone(), vv.clone()
+                out, _, _ = da.decode_self_attention(qq, kn, vn, kk, vv, bb, idx)
+                ref, k_ref, v_ref = da.decode_self_attention_plain(qq, kn, vn, k2, v2, bb, idx)
+                torch.cuda.synchronize()
+                check(torch.equal(kk, k_ref) and torch.equal(vv, v_ref),
+                      f"decode_self_attention BLIP-2 {dtype} {r} rows idx {idx}: caches differ "
+                      f"from plain")
+                err = (out.float() - ref.float()).abs().max().item()
+                check(within(out, ref, tol), f"decode_self_attention BLIP-2 {dtype} {r} rows "
+                                             f"idx {idx}: err {err}")
+                worst = max(worst, err)
+        errs["self"][str(dtype)] = worst
+        worst = 0.0
+        for b0, g, lk, live in cross_forms:
+            qq, kk, vv, mm = cross_inputs(b0, g, lk, live, dtype)
+            check(da.cross_live_ends(mm).tolist() == [live] * b0,
+                  f"cross_live_ends at BLIP-2's {b0} x {g} over {lk} keys, {live} live")
+            got = da.decode_cross_attention(qq, kk, vv, mm)
+            ref = da.decode_cross_attention_plain(qq, kk, vv, mm)
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            check(within(got, ref, tol), f"decode_cross_attention BLIP-2 {dtype} {b0} x {g} over "
+                                         f"{lk} keys, {live} live: err {err}")
+            worst = max(worst, err)
+        errs["cross"][str(dtype)] = worst
+    say(f"[check] BLIP-2 forms: decode_self_attention {BLIP2_SELF_ROWS} rows x {h} heads over L "
+        f"{length}, idx 0/10/19, max_abs_err {errs['self']}, caches bit-identical; "
+        f"decode_cross_attention (examples, beams, keys, live) {cross_forms} (the path's "
+        f"{path_keys} keys): {errs['cross']}")
+
+    idx = length - 1
+    self_forms = []
+    for r in BLIP2_SELF_ROWS:
+        qq, kn, vn, kk, vv, bb = self_inputs(r, idx, torch.bfloat16)
+        where = torch.tensor([idx], device="cuda")
+
+        def self_library():
+            kk.index_copy_(2, where, kn)
+            vv.index_copy_(2, where, vn)
+            return torch.nn.functional.scaled_dot_product_attention(qq, kk, vv, attn_mask=bb,
+                                                                    scale=1.0)
+
+        # read: q, k_new, v_new, the idx live cache rows of k and v, the bias
+        # row; written: out and the new cache rows (bf16)
+        nbytes = 2 * (3 * r * h * d + 2 * r * h * idx * d + h * length + r * h * d
+                      + 2 * r * h * d)
+        bms, by = bound(nbytes, 4 * r * h * length * d, H100_BF16_FLOPS)
+        self_forms.append({
+            "rows": r, "heads": h, "length": length, "idx": idx,
+            "splits": da.self_splits(r * h, idx + 1, sm_count(0))[0],
+            "ms": time_ms_graph(lambda: da.decode_self_attention(qq, kn, vn, kk, vv, bb, idx)),
+            "plain_ms": time_ms_graph(lambda: da.decode_self_attention_plain(
+                qq, kn, vn, kk, vv, bb, idx)),
+            "library_ms": time_ms_graph(self_library), "bound_ms": bms, "bound_by": by})
+    cross_out = []
+    for b0, g, lk, live in cross_forms:
+        qq, kk, vv, mm = cross_inputs(b0, g, lk, live, torch.bfloat16)
+        ends = da.cross_live_ends(mm)  # once per decode call, as T5Stack.decode_step
+        ke, ve = (t.repeat_interleave(g, dim=0) for t in (kk, vv))
+        fmask = ((mm.repeat_interleave(g, dim=0)[:, None, None, :] - 1) * 1e9).to(torch.bfloat16)
+        # the live keys' K/V rows, q and out (bf16), the live ends and the
+        # live keys' mask entries (int32), each read once
+        nbytes = 2 * (2 * b0 * h * live * d + 2 * b0 * g * h * d) + 4 * (b0 * live + b0)
+        bms, by = bound(nbytes, 4 * b0 * g * h * live * d, H100_BF16_FLOPS)
+        cross_out.append({
+            "examples": b0, "beams": g, "heads": h, "keys": lk, "live_keys": live,
+            "path": lk == path_keys,
+            "ms": time_ms_graph(lambda: da.decode_cross_attention(qq, kk, vv, mm, ends)),
+            "plain_ms": time_ms_graph(lambda: da.decode_cross_attention_plain(qq, kk, vv, mm)),
+            "library_ms": time_ms_graph(lambda: torch.nn.functional.scaled_dot_product_attention(
+                qq, ke, ve, attn_mask=fmask, scale=1.0)),
+            "bound_ms": bms, "bound_by": by})
+    for f in self_forms:
+        say(f"[check] decode_self_attention at BLIP-2's {f['rows']} rows: {f['ms']:.4f} ms (plain "
+            f"{f['plain_ms']:.4f}, SDPA {f['library_ms']:.4f}, bound {f['bound_ms']:.4f} by "
+            f"{f['bound_by']})")
+    for f in cross_out:
+        say(f"[check] decode_cross_attention at BLIP-2's {f['examples']} x {f['beams']} over "
+            f"{f['keys']} keys ({f['live_keys']} live): {f['ms']:.4f} ms (plain "
+            f"{f['plain_ms']:.4f}, SDPA {f['library_ms']:.4f}, bound {f['bound_ms']:.4f} by "
+            f"{f['bound_by']})")
+    torch.cuda.synchronize()
+    return ({"blip2_form": self_forms[0], "blip2_forms": self_forms,
+             "blip2_max_abs_err": errs["self"]},
+            {"blip2_form": cross_out[0], "blip2_forms": cross_out, "blip2_path_keys": path_keys,
+             "blip2_max_abs_err": errs["cross"]})
 
 
 PDVC_LEVELS = (100, 50, 25, 13)  # 100 frames through three stride-2 convs
@@ -4614,6 +4808,7 @@ def phase_grounding(card: str, cfg=None, n_videos: int = GROUNDING_VIDEOS,
 VIDEO_FRAMES = (120, 300, 600, 900)  # 4 synthetic videos, one frame a second
 VIDEO_HW = (360, 640)
 FEATURE_BATCH = 64                   # CLIPFeatureExtractor's frames a tower call
+VIDEO_FEATURES = {}                  # the kernel route's features by video id, kept for phase 12
 MOMENT_QUERIES = ("mixing the dough", "the oven is hot", "slicing the bread", "tasting")
 ALIGN_CUTS = 3                       # segments per phase-7 audio file (24 in all)
 ALIGN_PREFIX = (50258, 50259, 50359, 50363)  # SOT, <|en|>, transcribe, no timestamps
@@ -4756,6 +4951,8 @@ def video_features(card: str, root: Path, vit, counts=VIDEO_FRAMES):
         say(f"[video] features, {key} route: {total} frames in {wall:.2f} s = "
             f"{total / wall:.1f} frames/s, row 1 launches {launches} (expected {want}), "
             f"peak {peak} B on {card}")
+    VIDEO_FEATURES.update({Path(p).stem: np.load(root / "features_kernel" / f"{Path(p).stem}.npy")
+                           for p in paths})
     stem = Path(paths[-1]).stem
     a, b = (np.load(root / f"features_{k}" / f"{stem}.npy") for k in ("kernel", "plain"))
     summary["routes_max_abs_diff_over_max"] = float(np.abs(a - b).max() / np.abs(b).max())
@@ -5229,6 +5426,578 @@ def phase_video(card: str, vit=None, counts=VIDEO_FRAMES, mcfg=None, gcfg=None, 
     return summary, feats["kernel"]["launches"], demo_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the zero-shot baselines
+# ---------------------------------------------------------------------------
+
+
+def _fresh_peak() -> int:
+    """Collect garbage (a model caught in a reference cycle stays on the
+    card until the cyclic collector runs), reset the peak-memory counter,
+    and return the bytes still allocated on the card, which every peak read
+    after it includes."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+ZS_VIDEOS = 8              # phase 12(a)'s speech videos
+ZS_TOPICS = (("pasta", "boil", "salt", "sauce", "noodle", "simmer", "garlic", "basil"),
+             ("engine", "race", "track", "tyre", "brake", "gear", "lap", "pit"),
+             ("canvas", "brush", "paint", "colour", "sketch", "easel", "oil", "shade"),
+             ("guitar", "chord", "string", "tune", "strum", "fret", "melody", "amp"))
+ZS_LINES = 20              # ASR lines a topic, 5 s each
+ZS_VISUAL_SHOTS = (3, 4, 5, 4)  # planted shots of phase 12(b)'s four visual videos
+LLAMA_PROMPT_LEN = 512     # the reference's max_length (zs_speechvcg.py:131-133)
+LLAMA_NEW_TOKENS = 20
+
+
+class _WordIds:
+    """A stand-in for LLaMA's SentencePiece-BPE tokenizer (which the port
+    cannot read yet): one id in [3, vocab) a word, by CRC32; ids decode to
+    ``t<id>``. HF's ``encode`` / ``decode`` signatures."""
+
+    def __init__(self, vocab: int):
+        self.vocab = vocab
+
+    def encode(self, text: str, add_special_tokens: bool = False):
+        import zlib
+
+        return [3 + zlib.crc32(w.encode()) % (self.vocab - 3) for w in text.split()]
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        return " ".join(f"t{i}" for i in ids if i > 2)
+
+
+def _zs_speech_data(root: Path, n_videos: int, seed: int = 0):
+    """Annotation json and ASR pickle of ``n_videos`` videos, each four
+    topics of ``ZS_LINES`` ten-word lines (5 s a line), and a VC val split of
+    two of them (one clip a topic)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ann, asr = {}, {}
+    for v in range(n_videos):
+        vid = f"zsspeech{v:03d}"
+        order = rng.permutation(len(ZS_TOPICS))
+        text = [" ".join(rng.choice(ZS_TOPICS[t] + ("the", "and", "we"), 10))
+                for t in order for _ in range(ZS_LINES)]
+        n = len(text)
+        asr[vid] = {"text": text, "start": [5.0 * i for i in range(n)],
+                    "end": [5.0 * i + 4.5 for i in range(n)]}
+        span = 5.0 * ZS_LINES
+        ann[vid] = {"duration": 5.0 * n,
+                    "timestamps": [[span * i, span * (i + 1)] for i in range(len(order))],
+                    "sentences": [f"all about {ZS_TOPICS[t][0]}" for t in order]}
+    (root / "zs_ann.json").write_text(json.dumps(ann))
+    (root / "zs_vc_val.json").write_text(json.dumps(dict(list(ann.items())[:2])))
+    with open(root / "zs_asr.pkl", "wb") as f:
+        pickle.dump(asr, f)
+    return root / "zs_ann.json", root / "zs_asr.pkl", root / "zs_vc_val.json"
+
+
+def _finite_metrics(metrics, what: str):
+    import math
+
+    check(bool(metrics) and all(math.isfinite(float(v)) for v in metrics.values()),
+          f"{what}: metrics not finite: {metrics}")
+
+
+def zeroshot_speech(card: str, root: Path, cfg=None, n_videos: int = ZS_VIDEOS):
+    """(a) Speech chapters at LLaMA-7B, bf16, seeded random weights:
+    ``run_speech_vcg`` with ``make_llm_titler(make_llama_generate_fn(...))``
+    (prompts padded to 512, 20 greedy tokens), the prefill's and a decode
+    step's time against their bounds, titles/s, peak memory; then
+    ``evaluate_vc_llama`` over a VC val set of two videos; two generate
+    calls bit-identical."""
+    import numpy as np
+    import torch
+
+    from vidchapters_tpu_torch.data.vc_dataset import VideoCaptioningDataset
+    from vidchapters_tpu_torch.models import llama
+    from vidchapters_tpu_torch.train.vc_train import evaluate_vc_llama
+    from vidchapters_tpu_torch.zeroshot.run import run_speech_vcg
+    from vidchapters_tpu_torch.zeroshot.speech_vcg import make_llm_titler
+
+    cfg = cfg or dataclasses.replace(llama.LLAMA_7B, dtype="bfloat16")
+    ann, asr, vc_val = _zs_speech_data(root, n_videos)
+    held = _fresh_peak()
+    t0 = time.time()
+    model = llama.init_llama(cfg, DEVICE, seed=21)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    say(f"[zeroshot] LLaMA {cfg.num_layers} x {cfg.hidden_size} ({weight_bytes / 1e9:.2f} GB "
+        f"in {cfg.dtype}) built on the card in {build_s:.1f} s; tokenizer: a synthetic "
+        f"word-hash stand-in (ids below {cfg.vocab_size}), not LLaMA's")
+
+    # the prefill of one padded prompt and one decode step, timed alone
+    p_len, new = LLAMA_PROMPT_LEN, LLAMA_NEW_TOKENS
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    ids = torch.randint(3, cfg.vocab_size, (1, p_len), generator=g, device=DEVICE)
+    ones = torch.ones((1, p_len + new), dtype=torch.int32, device=DEVICE)
+    cache = llama.init_cache(cfg, 1, p_len + new, device=DEVICE)
+    with torch.no_grad():
+        prefill_ms = time_ms(lambda: model(ids, cache=cache, cache_index=0, kv_pad_mask=ones), 3)
+        tok = ids[:, -1:]
+        pos = torch.full((1, 1), p_len, device=DEVICE)
+        step_ms = time_ms(lambda: model(tok, position_ids=pos, cache=cache, cache_index=p_len,
+                                        kv_pad_mask=ones), 10)
+    embed = model.embed_tokens.numel() * model.embed_tokens.element_size()
+    kv_bytes = sum(t.numel() * t.element_size() for c in cache.values() for t in c.values())
+    dense = 2 * (weight_bytes - embed) // model.embed_tokens.element_size()  # 2 flops a weight
+    step_bound = bound(weight_bytes - embed + kv_bytes, dense, H100_BF16_FLOPS)
+    prefill_bound = bound(weight_bytes - embed + kv_bytes,
+                          dense * p_len + 4 * cfg.num_layers * p_len * p_len * cfg.hidden_size,
+                          H100_BF16_FLOPS)
+    del cache
+
+    gen = llama.make_llama_generate_fn(model, _WordIds(cfg.vocab_size), new, p_len)
+    calls = []
+
+    def counted(prompt: str) -> str:
+        calls.append(len(prompt))
+        return gen(prompt)
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    results, metrics = run_speech_vcg(str(ann), str(asr), titler=make_llm_titler(counted))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n_chapters = sum(len(r) for r in results.values())
+    check(len(calls) >= 2 * n_videos and n_chapters >= n_videos,
+          f"speech chapters: {len(calls)} titles, {n_chapters} chapters of {n_videos} videos")
+    _finite_metrics(metrics, "run_speech_vcg")
+    vc_ds = VideoCaptioningDataset(str(vc_val), {}, training=False, subtitles_path=str(asr))
+    t1 = time.time()
+    vc_results, vc_metrics = evaluate_vc_llama(vc_ds, gen)
+    vc_wall = time.time() - t1
+    _finite_metrics(vc_metrics, "evaluate_vc_llama")
+    prompt = "Summarize the following speech transcript in a chapter title. Transcript:" \
+             " we boil the pasta. Chapter title:"
+    check(gen(prompt) == gen(prompt), "two bf16 LLaMA generate calls differ")
+    peak = torch.cuda.max_memory_allocated()
+    out = {"config": dataclasses.asdict(cfg), "weights_bytes": weight_bytes, "build_s": build_s,
+           "tokenizer": "synthetic word-hash stand-in (LLaMA's SentencePiece BPE is not read)",
+           "prompt_tokens": p_len, "new_tokens": new,
+           "prefill_ms": prefill_ms, "prefill_bound_ms": prefill_bound[0],
+           "prefill_bound_by": prefill_bound[1], "decode_step_ms": step_ms,
+           "decode_step_bound_ms": step_bound[0], "decode_step_bound_by": step_bound[1],
+           "titles": len(calls), "chapters": n_chapters, "wall_s": wall,
+           "titles_per_s": len(calls) / wall, "metrics": metrics,
+           "vc_llama": {"titles": len(vc_results), "wall_s": vc_wall, "metrics": vc_metrics},
+           "peak_memory_bytes": peak, "held_bytes_before": held, "bit_identical_bf16": True}
+    say(f"[zeroshot] (a) speech chapters at LLaMA {cfg.num_layers} x {cfg.hidden_size}: "
+        f"{len(calls)} titles ({n_chapters} "
+        f"chapters, {n_videos} videos) in {wall:.2f} s = {len(calls) / wall:.2f} titles/s; "
+        f"prefill of {p_len} tokens {prefill_ms:.2f} ms (bound {prefill_bound[0]:.2f} by "
+        f"{prefill_bound[1]}), a decode step {step_ms:.3f} ms (bound {step_bound[0]:.3f} by "
+        f"{step_bound[1]}); evaluate_vc_llama {len(vc_results)} clips in {vc_wall:.2f} s; "
+        f"peak {peak} B ({held} B held before); soda_c {metrics.get('soda_c')} on {card}")
+    del model, gen
+    torch.cuda.empty_cache()
+    return out
+
+
+def _zs_frame(vid: str, second: float):
+    """A seeded 224 x 224 frame of ``vid`` at ``second`` (8 x 8 blocks)."""
+    import zlib
+
+    import numpy as np
+
+    rng = np.random.default_rng(zlib.crc32(f"{vid}:{int(second)}".encode()))
+    low = rng.integers(0, 256, (28, 28, 3), dtype=np.uint8)
+    return low.repeat(8, 0).repeat(8, 1)
+
+
+def _greedy_steps(toks, eos: int = 1) -> int:
+    """The decode steps ``greedy_decode`` ran for ``toks`` [B, T]: up to the
+    step where the last row first gave EOS, else all T."""
+    import numpy as np
+
+    toks = np.asarray(toks)
+    firsts = [np.flatnonzero(row == eos) for row in toks]
+    if any(len(f) == 0 for f in firsts):
+        return toks.shape[1]
+    return int(max(f[0] for f in firsts)) + 1
+
+
+def zeroshot_visual(card: str, root: Path, cfg=None, batch: int = 8):
+    """(b) Visual chapters and VC at BLIP-2 Flan-T5-XL, bf16, seeded random
+    weights: ViT-g, Q-Former, encode and a greedy step timed at a batch of
+    8 frames; ``caption_fn`` on 8 frames with rows 5 and 6 launched exactly
+    24 x its decode steps; two bf16 calls bit-identical; one
+    ``num_beams=2`` call (row 3 once a step); ``run_visual_vcg`` over
+    CLIP-width features with planted shots and ``make_blip2_captioner``
+    over frames handed in; ``evaluate_vc_blip2`` over a VC val set built
+    with ``videos_path``. Returns (summary, launches)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from vidchapters_tpu_torch.data.tokenizer import SentencePieceUnigramTokenizer
+    from vidchapters_tpu_torch.data.vc_dataset import VideoCaptioningDataset
+    from vidchapters_tpu_torch.models import blip2
+    from vidchapters_tpu_torch.ops import decode_attention as da
+    from vidchapters_tpu_torch.ops import decoding as dec
+    from vidchapters_tpu_torch.train.vc_train import evaluate_vc_blip2
+    from vidchapters_tpu_torch.zeroshot.run import run_visual_vcg
+    from vidchapters_tpu_torch.zeroshot.visual_vcg import BLIP2_PROMPT, make_blip2_captioner
+
+    if cfg is None:
+        base = blip2.Blip2Config()
+        cfg = blip2.Blip2Config(
+            vision=dataclasses.replace(base.vision, dtype="bfloat16"),
+            qformer=dataclasses.replace(base.qformer, dtype="bfloat16"),
+            t5=dataclasses.replace(base.t5, dtype="bfloat16"))
+    held = _fresh_peak()
+    t0 = time.time()
+    model = blip2.init_blip2(cfg, DEVICE, seed=22)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    _write_spm_model(root / "spiece.model")
+    tok = SentencePieceUnigramTokenizer(str(root / "spiece.model"), num_bins=0)
+    make_caption = blip2.make_blip2_caption_fn(model, tok, LLAMA_NEW_TOKENS)
+    calls = set()  # (frames, cross keys) of every caption_fn call: phase 2 checked these forms
+
+    def caption_fn(frames, prompt):
+        calls.add((frames.shape[0], cfg.num_query_tokens + blip2.encode_prompts(
+            tok, [prompt])[0].shape[1]))
+        return make_caption(frames, prompt)
+
+    say(f"[zeroshot] BLIP-2 (ViT-g {cfg.vision.num_layers} x {cfg.vision.hidden_size}, "
+        f"Q-Former {cfg.qformer.num_layers} x {cfg.qformer.hidden_size}, Flan-T5 "
+        f"{cfg.t5.num_layers}+{cfg.t5.num_decoder_layers} x {cfg.t5.d_model}; "
+        f"{weight_bytes / 1e9:.2f} GB) built on the card in {build_s:.1f} s")
+
+    frames = np.stack([_zs_frame("batch", s) for s in range(batch)])
+    px = torch.from_numpy(blip2.preprocess_frames(frames)).to(DEVICE)
+    ids, mask = (torch.from_numpy(x).to(DEVICE) for x in blip2.encode_prompts(
+        tok, [BLIP2_PROMPT] * batch))
+    with torch.no_grad():
+        img = model.vision(px)
+        queries = model.query_tokens.expand(batch, -1, -1)
+        vision_ms = time_ms(lambda: model.vision(px), 5)
+        qformer_ms = time_ms(lambda: model.qformer(queries, img), 5)
+        encode_ms = time_ms(lambda: model.encode(px, ids, mask), 5)
+        enc, enc_mask = model.encode(px, ids, mask)
+        fns = dec.make_decode_fns(model.t5, LLAMA_NEW_TOKENS)
+        cache = fns.init_cache(batch, enc)
+        step_tok = torch.zeros(batch, dtype=torch.int32, device=DEVICE)
+        step_ms = time_ms(lambda: fns.step(step_tok, cache, 5, enc_mask), 10)
+    t5 = model.t5
+    per_step = [p for n, p in t5.decoder.named_parameters()
+                if ".cross_attn.k." not in n and ".cross_attn.v." not in n]
+    per_step.append(t5.lm_head.weight)
+    step_bytes = sum(p.numel() * p.element_size() for p in per_step)
+    step_bound = bound(step_bytes, 2 * batch * sum(p.numel() for p in per_step),
+                       H100_BF16_FLOPS)
+    del cache
+
+    def counted(fn):
+        da.SELF_KERNEL.launches = da.CROSS_KERNEL.launches = dec.TOPK_KERNEL.launches = 0
+        t = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t, {"decode_self_attention": da.SELF_KERNEL.launches,
+                                      "decode_cross_attention": da.CROSS_KERNEL.launches,
+                                      "topk": dec.TOPK_KERNEL.launches}
+
+    captions, caption_s, greedy = counted(lambda: caption_fn(frames, BLIP2_PROMPT))
+    n_dec = cfg.t5.num_decoder_layers
+    toks = [blip2.blip2_generate(model, px, ids, mask, LLAMA_NEW_TOKENS).cpu() for _ in range(2)]
+    check(torch.equal(toks[0], toks[1]), "two bf16 BLIP-2 generate calls differ")
+    steps = _greedy_steps(toks[0])
+    check(captions == tok.batch_decode(toks[0].numpy(), skip_special_tokens=True),
+          "caption_fn's captions differ from blip2_generate's tokens")
+    check(greedy["decode_self_attention"] == greedy["decode_cross_attention"] == n_dec * steps
+          and greedy["topk"] == 0,
+          f"caption_fn launches {greedy}, expected {n_dec} x {steps} steps of rows 5 and 6")
+    _, beam_s, beam = counted(lambda: blip2.blip2_generate(model, px, ids, mask,
+                                                           LLAMA_NEW_TOKENS, num_beams=2))
+    check(1 <= beam["topk"] <= LLAMA_NEW_TOKENS
+          and beam["decode_self_attention"] == beam["decode_cross_attention"]
+          == n_dec * beam["topk"], f"num_beams=2 launches {beam}: row 3 once a step, rows 5 "
+                                   f"and 6 {n_dec} a step")
+
+    # run_visual_vcg over CLIP-width features with planted shots
+    rng = np.random.default_rng(23)
+    feats, ann = {}, {}
+    for v, n_shots in enumerate(ZS_VISUAL_SHOTS):
+        vid = f"zsvisual{v:03d}"
+        blocks = [np.tile(rng.normal(size=(1, 768)), (12, 1)) + 0.02 * rng.normal(size=(12, 768))
+                  for _ in range(n_shots)]
+        feats[vid] = np.concatenate(blocks).astype(np.float32)
+        dur = float(len(feats[vid]))
+        ann[vid] = {"duration": dur, "timestamps": [[0.0, dur / 2], [dur / 2, dur]],
+                    "sentences": ["the first half", "the second half"]}
+    (root / "zs_visual.json").write_text(json.dumps(ann))
+    captioners = {vid: make_blip2_captioner(caption_fn, lambda t, _v=vid: _zs_frame(_v, t))
+                  for vid in ann}
+    (results, metrics), visual_s, visual = counted(lambda: run_visual_vcg(
+        str(root / "zs_visual.json"), feats, lambda vid, t: captioners[vid](t)))
+    n_shots = sum(len(r) for r in results.values())
+    check(n_shots == sum(ZS_VISUAL_SHOTS), f"run_visual_vcg captioned {n_shots} shots, "
+                                           f"planted {sum(ZS_VISUAL_SHOTS)}")
+    check(visual["decode_self_attention"] == visual["decode_cross_attention"] > 0
+          and visual["decode_self_attention"] % n_dec == 0 and visual["topk"] == 0,
+          f"run_visual_vcg launches {visual}")
+    _finite_metrics(metrics, "run_visual_vcg")
+
+    # evaluate_vc_blip2 over a VC val set built with videos_path
+    videos = {vid: np.stack([_zs_frame(vid, s) for s in range(int(ann[vid]["duration"]))])
+              for vid in list(ann)[:2]}
+    paths, _, route = _video_files(root, videos)
+    decoded = bool(shutil.which("ffmpeg") and shutil.which("ffprobe"))
+    vc_ds = VideoCaptioningDataset(str(root / "zs_visual.json"), feats, training=False,
+                                   videos_path={vid: p for vid, p in zip(videos, paths)})
+    first = vc_ds[0]["raw_first_frames"]
+    check(first.shape[1:] == (224, 224, 3) and bool(first.any()) == decoded,
+          f"raw_first_frames {first.shape}: decoded {bool(first.any())}, ffmpeg {decoded}")
+    (vc_results, vc_metrics), vc_s, vc_launches = counted(
+        lambda: evaluate_vc_blip2(vc_ds, caption_fn))
+    _finite_metrics(vc_metrics, "evaluate_vc_blip2")
+    peak = torch.cuda.max_memory_allocated()
+    launches = {k: greedy[k] + beam[k] + visual[k] + vc_launches[k] for k in greedy}
+    path_keys = blip2_path_keys(root, cfg.num_query_tokens)
+    check(enc.shape[1] == path_keys and calls <= {(r, path_keys) for r in BLIP2_SELF_ROWS}
+          and (batch, 2) in BLIP2_CROSS_GROUPS and 2 * batch in BLIP2_SELF_ROWS,
+          f"BLIP-2 decode forms {sorted(calls)} (frames, keys), beam 2 at {batch}, encoder keys "
+          f"{enc.shape[1]}: phase 2 checked rows {BLIP2_SELF_ROWS} over {path_keys} keys")
+    out = {"config": dataclasses.asdict(cfg), "weights_bytes": weight_bytes, "build_s": build_s,
+           "batch": batch, "vision_ms": vision_ms, "qformer_ms": qformer_ms,
+           "encode_ms": encode_ms, "encoder_keys": int(enc.shape[1]),
+           "greedy_step_ms": step_ms, "greedy_step_bound_ms": step_bound[0],
+           "greedy_step_bound_by": step_bound[1], "greedy_step_bytes": step_bytes,
+           "caption_fn_forms": sorted(calls),
+           "caption_fn": {"s": caption_s, "steps": steps, "launches": greedy,
+                          "captions": captions[:2]},
+           "beam2": {"s": beam_s, "launches": beam}, "bit_identical_bf16": True,
+           "run_visual_vcg": {"s": visual_s, "shots": n_shots, "launches": visual,
+                              "metrics": metrics},
+           "vc_blip2": {"s": vc_s, "clips": len(vc_results), "launches": vc_launches,
+                        "frames": "decoded by ffmpeg" if decoded else
+                        "zero-frame fallback (no ffmpeg)", "route": route,
+                        "metrics": vc_metrics},
+           "peak_memory_bytes": peak, "held_bytes_before": held}
+    say(f"[zeroshot] (b) BLIP-2 at batch {batch}: ViT-g {vision_ms:.2f} ms, Q-Former "
+        f"{qformer_ms:.2f} ms, encode {encode_ms:.2f} ms ({enc.shape[1]} encoder keys), a greedy "
+        f"step {step_ms:.3f} ms (bound {step_bound[0]:.3f} by {step_bound[1]}); caption_fn "
+        f"{steps} steps in {caption_s:.2f} s, launches {greedy}; beam 2 {beam}; "
+        f"run_visual_vcg {n_shots} shots in {visual_s:.2f} s; evaluate_vc_blip2 "
+        f"{len(vc_results)} clips in {vc_s:.2f} s ({out['vc_blip2']['frames']}); peak {peak} B "
+        f"({held} B held before) "
+        f"on {card}")
+    del model, caption_fn, make_caption, captioners, enc, img
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def zeroshot_grounding(card: str, root: Path, text_cfg=None):
+    """(c) Zero-shot grounding over phase 11's features: ``run_vcgr`` in
+    ``clip`` mode with the port's CLIP ViT-L/14 text tower (seeded random
+    weights) as ``text_embed_fn``, and in ``random`` mode."""
+    import torch
+
+    from vidchapters_tpu_torch.data.clip_tokenizer import CLIPTokenizer
+    from vidchapters_tpu_torch.models.clip import TEXT_L14, CLIPTextEncoder
+    from vidchapters_tpu_torch.zeroshot.run import run_vcgr
+
+    check(bool(VIDEO_FEATURES), "phase 11 left no features for zero-shot grounding")
+    tower = CLIPTextEncoder(text_cfg or TEXT_L14).init_weights(
+        torch.Generator().manual_seed(24)).to(DEVICE).eval()
+    tokenizer = CLIPTokenizer()
+
+    def text_embed_fn(texts):
+        with torch.no_grad():
+            toks = torch.from_numpy(tokenizer(list(texts))).to(DEVICE)
+            return tower(toks).float().cpu().numpy()
+
+    ann, asr = {}, {}
+    for vid, f in VIDEO_FEATURES.items():
+        dur = float(len(f))
+        cuts = [0.0, dur / 4, dur / 2, dur]
+        ann[vid] = {"duration": dur, "timestamps": [[a, b] for a, b in zip(cuts, cuts[1:])],
+                    "sentences": ["mixing the dough", "the oven is hot", "slicing the bread"]}
+        asr[vid] = {"text": ["we mix", "we bake", "we slice"], "start": cuts[:3],
+                    "end": cuts[1:]}
+    (root / "zs_vcgr.json").write_text(json.dumps(ann))
+    with open(root / "zs_vcgr_asr.pkl", "wb") as f:
+        pickle.dump(asr, f)
+    t0 = time.time()
+    _, clip_metrics = run_vcgr(str(root / "zs_vcgr.json"), features_path=dict(VIDEO_FEATURES),
+                               text_embed_fn=text_embed_fn, mode="clip")
+    clip_s = time.time() - t0
+    _, random_metrics = run_vcgr(str(root / "zs_vcgr.json"),
+                                 subtitles_path=str(root / "zs_vcgr_asr.pkl"), mode="random")
+    for name, m in (("clip", clip_metrics), ("random", random_metrics)):
+        _finite_metrics(m, f"run_vcgr {name}")
+    say(f"[zeroshot] (c) run_vcgr over {len(ann)} videos of phase 11's features: clip "
+        f"{clip_metrics} in {clip_s:.2f} s, random {random_metrics} on {card}")
+    del tower
+    return {"videos": len(ann), "clip_metrics": clip_metrics, "clip_s": clip_s,
+            "random_metrics": random_metrics}
+
+
+def _small_blip2_cfg(dtype: str = "float32", layers: int = 2):
+    """Blip2Config() cut to ``layers`` layers a tower (widths kept)."""
+    from vidchapters_tpu_torch.models import blip2
+
+    base = blip2.Blip2Config()
+    return blip2.Blip2Config(
+        vision=dataclasses.replace(base.vision, num_layers=layers, dtype=dtype),
+        qformer=dataclasses.replace(base.qformer, num_layers=layers, dtype=dtype),
+        t5=dataclasses.replace(base.t5, num_layers=layers, num_decoder_layers=layers,
+                               dtype=dtype))
+
+
+def _cli_json(fn, argv):
+    """Run a CLI entry point, returning the JSON of its last stdout line."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        fn(argv)
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def _torch_test_helpers():
+    """``tests/_torch_helpers.py`` (the synthetic HF BLIP-2 writer the CPU
+    tests share), loaded from its file: a ``tests`` package installed on
+    the machine would shadow the repo's ``tests`` directory."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("_torch_helpers",
+                                                  ROOT / "tests" / "_torch_helpers.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def zeroshot_clis(card: str, root: Path, cfg=None):
+    """(d) The CLIs on the card from a synthetic HF BLIP-2 directory (2
+    layers a tower at full width, fp32 weights): ``vc_main --eval
+    --model-type blip2`` and ``zeroshot.run visual``; ``vc_main --model-type
+    llama`` raises with its loader's message."""
+    import numpy as np
+
+    from vidchapters_tpu_torch.train import vc_main
+    from vidchapters_tpu_torch.zeroshot import run as zs_run
+
+    cfg = cfg or _small_blip2_cfg()
+    t0 = time.time()
+    blip2_dir = _torch_test_helpers().write_blip2_dir(root / "blip2_hf", cfg, seed=25)
+    feats = root / "zs_cli_feats"
+    feats.mkdir()
+    ann = json.loads((root / "zs_visual.json").read_text())
+    for vid, a in ann.items():
+        np.save(feats / f"{vid}.npy", np.zeros((int(a["duration"]), 768), np.float32))
+    videos = root / "zs_cli_videos.json"
+    videos.write_text(json.dumps({vid: str(root / f"{vid}.mp4") for vid in ann}))
+    base = ["--val-json", str(root / "zs_visual.json"), "--features-path", str(feats),
+            "--save-dir", str(root / "zs_cli_out"), "--eval", "--device", DEVICE]
+    vc = _cli_json(vc_main._cli, base + ["--model-type", "blip2", "--blip2-dir", str(blip2_dir),
+                                         "--videos-path", str(videos)])
+    _finite_metrics(vc, "vc_main --model-type blip2")
+    visual = _cli_json(zs_run.main, ["visual", "--ann", str(root / "zs_visual.json"),
+                                     "--videos", str(videos), "--blip2_dir", str(blip2_dir),
+                                     "--out", str(root / "zs_visual_preds.json"),
+                                     "--device", DEVICE])
+    _finite_metrics(visual, "zeroshot.run visual")
+    preds = json.loads((root / "zs_visual_preds.json").read_text())["results"]
+    check(set(preds) == set(ann), f"zeroshot.run visual predicted {sorted(preds)}")
+    try:
+        vc_main._cli(base + ["--model-type", "llama", "--llama-dir", str(root / "llama")])
+        check(False, "vc_main --model-type llama did not raise")
+    except NotImplementedError as e:
+        llama_message = str(e)
+    check("SentencePiece BPE" in llama_message, f"llama's message: {llama_message}")
+    wall = time.time() - t0
+    say(f"[zeroshot] (d) CLIs from a synthetic HF BLIP-2 directory in {wall:.1f} s: vc_main "
+        f"blip2 CIDEr {vc.get('CIDEr')}, zeroshot.run visual soda_c {visual.get('soda_c')}; "
+        f"vc_main llama raises: {llama_message[:80]}... on {card}")
+    return {"vc_main_blip2": vc, "zeroshot_visual": visual, "llama_message": llama_message,
+            "wall_s": wall}
+
+
+def zeroshot_fp32_check(llama_cfg=None, blip2_cfg=None):
+    """(e) fp32 tokens card against CPU: LLaMA at 2 layers, d 256, GQA 8/2,
+    over ragged left-padded prompts; BLIP-2 at 2 + 2 + 2 + 2 layers (widths
+    kept), greedy and at beam 2. Identical."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from vidchapters_tpu_torch.models import blip2, llama
+
+    out = {}
+    lcfg = llama_cfg or llama.LlamaConfig(hidden_size=256, intermediate_size=512, num_layers=2,
+                                          num_heads=8, num_kv_heads=2)
+    cpu = llama.init_llama(lcfg, "cpu", seed=26)
+    card = copy.deepcopy(cpu).to(DEVICE)
+    rng = np.random.default_rng(27)
+    ids = rng.integers(3, lcfg.vocab_size, (3, 24)).astype(np.int32)
+    mask = np.ones_like(ids)
+    ids[1, :7], mask[1, :7] = 1, 0
+    ids[2, :15], mask[2, :15] = 1, 0
+    ref = llama.llama_greedy_generate(cpu, torch.from_numpy(ids), torch.from_numpy(mask), 12)
+    got = llama.llama_greedy_generate(card, torch.from_numpy(ids).to(DEVICE),
+                                      torch.from_numpy(mask).to(DEVICE), 12).cpu()
+    check(torch.equal(got, ref), f"fp32 LLaMA tokens card vs CPU differ:\n{got}\n{ref}")
+    out["llama_tokens"] = ref.tolist()
+    del cpu, card
+    bcfg = blip2_cfg or _small_blip2_cfg()
+    cpu = blip2.init_blip2(bcfg, "cpu", seed=28)
+    card = copy.deepcopy(cpu).to(DEVICE)
+    px = rng.normal(size=(2, 3, bcfg.vision.image_size, bcfg.vision.image_size))
+    px = torch.from_numpy(px.astype(np.float32))
+    bids = torch.from_numpy(rng.integers(3, 32000, (2, 14)).astype(np.int64))
+    bmask = torch.ones_like(bids)
+    for beams in (1, 2):
+        ref = blip2.blip2_generate(cpu, px, bids, bmask, 12, num_beams=beams)
+        got = blip2.blip2_generate(card, px.to(DEVICE), bids.to(DEVICE), bmask.to(DEVICE), 12,
+                                   num_beams=beams).cpu()
+        check(torch.equal(got, ref), f"fp32 BLIP-2 tokens at beam {beams} card vs CPU differ:"
+                                     f"\n{got}\n{ref}")
+        out[f"blip2_tokens_beam{beams}"] = ref.tolist()
+    say("[zeroshot] (e) fp32 tokens card vs CPU identical: LLaMA 2 layers d 256 GQA 8/2 "
+        "(3 ragged left-padded prompts, 12 tokens), BLIP-2 2+2+2+2 layers (greedy and beam 2)")
+    return out
+
+
+def phase_zeroshot(card: str, llama_cfg=None, blip2_cfg=None, cli_cfg=None, text_cfg=None,
+                   fp32_cfgs=(None, None), n_videos: int = ZS_VIDEOS):
+    """Phase 12, the paper's zero-shot baselines: (a) speech chapters at
+    LLaMA-7B, (b) visual chapters and VC at BLIP-2 Flan-T5-XL, (c) zero-shot
+    grounding, (d) the CLIs, (e) fp32 tokens card vs CPU. Returns (summary,
+    the launches of rows 3, 5 and 6 in (b))."""
+    import torch
+
+    t_phase = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        speech = zeroshot_speech(card, root, llama_cfg, n_videos)
+        visual, launches = zeroshot_visual(card, root, blip2_cfg)
+        grounding = zeroshot_grounding(card, root, text_cfg)
+        clis = zeroshot_clis(card, root, cli_cfg)
+    torch.cuda.empty_cache()
+    fp32 = zeroshot_fp32_check(*fp32_cfgs)
+    summary = {"card": card, "speech": speech, "visual": visual, "grounding": grounding,
+               "clis": clis, "fp32": fp32, "launches": launches,
+               "wall_s": time.time() - t_phase}
+    say(f"[zeroshot] phase 12 in {summary['wall_s']:.1f} s on {card}")
+    return summary, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -5254,6 +6023,8 @@ def main() -> int:
         table += [check_topk(gen), check_megakernel(gen)]
         gen = torch.Generator().manual_seed(2)
         table += [check_decode_self_attention(gen), check_decode_cross_attention(gen)]
+        for row, extra in zip(table[-2:], check_decode_attention_blip2(gen)):
+            row.update(extra)
         table += check_deformable_attention(torch.Generator().manual_seed(3))
         table.append(check_whisper_megakernel(torch.Generator(device="cuda").manual_seed(4)))
         torch.cuda.empty_cache()
@@ -5286,6 +6057,8 @@ def main() -> int:
         grounding = phase_grounding(card)
         torch.cuda.empty_cache()
         video, feature_launches, demo_launches = phase_video(card)
+        torch.cuda.empty_cache()
+        zeroshot, zeroshot_launches = phase_zeroshot(card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
@@ -5312,6 +6085,9 @@ def main() -> int:
     for row in table:  # rows 1, 3 and 4 in demo_vid2seq (phase 11b)
         if row["name"] in demo_launches:
             row["launches_demo"] = demo_launches[row["name"]]
+    for row in table:  # rows 3, 5 and 6 in BLIP-2's zero-shot paths (phase 12b)
+        if zeroshot_launches.get(row["name"]):
+            row["launches_zeroshot"] = zeroshot_launches[row["name"]]
     say(f"[summary] serving {e2e['videos_per_s']:.3f} videos/s (megakernel, beam 4); eval "
         f"{evaluation['eval_videos_per_s_beam4_standard']:.3f} videos/s (standard, beam 4), "
         f"{evaluation['eval_videos_per_s_nucleus']:.3f} videos/s (nucleus); training "
@@ -5328,11 +6104,13 @@ def main() -> int:
         f"{grounding['batch']} (peak {grounding['peak_memory_bytes']} B); video features "
         f"{video['features']['kernel']['frames_per_s']:.1f} frames/s (plain route "
         f"{video['features']['plain']['frames_per_s']:.1f}), demo_vid2seq "
-        f"{video['demo']['wall_s']:.2f} s, alignment {video['align']['wall_s']:.2f} s")
+        f"{video['demo']['wall_s']:.2f} s, alignment {video['align']['wall_s']:.2f} s; "
+        f"zero-shot: LLaMA-7B {zeroshot['speech']['titles_per_s']:.2f} titles/s, BLIP-2 "
+        f"greedy step {zeroshot['visual']['greedy_step_ms']:.3f} ms")
     record = {"kernels": table, "train": train, "end_to_end": e2e, "fp32_tokens": fp32,
               "evaluation": evaluation, "pdvc": pdvc, "asr": asr_run, "pretrain": pretrain,
               "reference_checkpoint": reference, "vc": vc, "grounding": grounding, "video": video,
-              "card": card}
+              "zeroshot": zeroshot, "card": card}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -43,7 +43,7 @@ def test_fused_attention_matches_plain(dtype, tol):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,k", [(4 * 32200, 8), (5 * 51865, 5), (51865, 5)])
+@pytest.mark.parametrize("n,k", [(4 * 32200, 8), (5 * 51865, 5), (51865, 5), (2 * 32128, 4)])
 def test_topk_matches_plain_exactly(dtype, n, k):
     require_cuda()
     from chip_smoke import topk_thin_rows
@@ -677,3 +677,115 @@ def test_feature_extractor_waits_for_weights_copied_on_the_callers_stream():
     got = ext(frames)
     assert got.shape == ref.shape
     assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("rows", [8, 16, 2, 1])  # chip_smoke.BLIP2_SELF_ROWS
+@pytest.mark.parametrize("idx", [0, 10, 19])
+def test_decode_self_attention_blip2_form_matches_plain(dtype, tol, rows, idx):
+    """Row 5 at BLIP-2 Flan-T5-XL's decode: 32 heads, L 20, at the rows of
+    the smoke's calls (8 frames, beam 2's 8 x 2, 2 clips, one shot)."""
+    require_cuda()
+    from vidchapters_tpu_torch.ops import decode_attention as da
+
+    g = _gen()
+    h, length, d = 32, 20, 64
+    q, k_new, v_new = (torch.randn(rows, h, 1, d, generator=g).to("cuda", dtype)
+                       for _ in range(3))
+    kc, vc = (torch.randn(rows, h, length, d, generator=g).to("cuda", dtype) for _ in range(2))
+    bias = torch.randn(1, h, 1, length, generator=g)
+    bias[..., idx + 1:] = da.NEG_INF
+    bias = bias.to("cuda", dtype)
+    kc2, vc2 = kc.clone(), vc.clone()
+    before = da.SELF_KERNEL.launches
+    out, _, _ = da.decode_self_attention(q, k_new, v_new, kc, vc, bias, idx)
+    ref, k_ref, v_ref = da.decode_self_attention_plain(q, k_new, v_new, kc2, vc2, bias, idx)
+    torch.cuda.synchronize()
+    assert da.SELF_KERNEL.launches == before + 1
+    assert torch.equal(kc, k_ref) and torch.equal(vc, v_ref)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("form", range(8))  # chip_smoke.blip2_cross_forms
+def test_decode_cross_attention_blip2_form_matches_plain(dtype, tol, form, tmp_path):
+    """Row 6 at BLIP-2's decode, 32 heads: (examples, beams) of the smoke's
+    calls over its 32 query tokens + prompt keys all live, and at 8 x 1 and
+    8 x 2 with the last key masked; then Flan-T5's own tokenizer's 46 keys,
+    and 45 with the last masked (fewer than a tile, not a multiple of 8)."""
+    require_cuda()
+    from chip_smoke import blip2_cross_forms, blip2_path_keys
+    from vidchapters_tpu_torch.ops import decode_attention as da
+
+    b0, beams, lk, live = blip2_cross_forms(blip2_path_keys(tmp_path))[form]
+    g = _gen()
+    h, d = 32, 64
+    q = torch.randn(b0 * beams, h, 1, d, generator=g).to("cuda", dtype)
+    k, v = (torch.randn(b0, h, lk, d, generator=g).to("cuda", dtype) for _ in range(2))
+    mask = torch.ones(b0, lk, dtype=torch.int32, device="cuda")
+    mask[:, live:] = 0
+    assert da.cross_live_ends(mask).tolist() == [live] * b0
+    before = da.CROSS_KERNEL.launches
+    got = da.decode_cross_attention(q, k, v, mask)
+    ref = da.decode_cross_attention_plain(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert da.CROSS_KERNEL.launches == before + 1
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+def test_llama_tokens_on_the_card_match_cpu():
+    """fp32 LLaMA (2 layers, d 256, GQA 8/2) greedy tokens over ragged
+    left-padded prompts, card against CPU."""
+    require_cuda()
+    import copy
+
+    from vidchapters_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig(hidden_size=256, intermediate_size=512, num_layers=2, num_heads=8,
+                            num_kv_heads=2)
+    cpu = llama.init_llama(cfg, "cpu", seed=1)
+    card = copy.deepcopy(cpu).cuda()
+    ids = torch.randint(3, cfg.vocab_size, (3, 20), generator=_gen(), dtype=torch.int32)
+    mask = torch.ones_like(ids)
+    ids[1, :6], mask[1, :6] = 1, 0
+    ref = llama.llama_greedy_generate(cpu, ids, mask, 10)
+    got = llama.llama_greedy_generate(card, ids.cuda(), mask.cuda(), 10)
+    assert torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_beams", [1, 2])
+def test_blip2_tokens_on_the_card_match_cpu(num_beams):
+    """fp32 BLIP-2 (2 + 2 + 2 + 2 layers at Flan-T5-XL's widths) tokens, card
+    against CPU; the card's decode launches rows 5 and 6 once a layer a step
+    (and row 3 once a step at beam 2)."""
+    require_cuda()
+    import copy
+    import dataclasses
+
+    from vidchapters_tpu_torch.models import blip2
+    from vidchapters_tpu_torch.ops import decode_attention as da
+    from vidchapters_tpu_torch.ops import decoding as dec
+
+    base = blip2.Blip2Config()
+    cfg = blip2.Blip2Config(
+        vision=dataclasses.replace(base.vision, num_layers=2),
+        qformer=dataclasses.replace(base.qformer, num_layers=2),
+        t5=dataclasses.replace(base.t5, num_layers=2, num_decoder_layers=2, dtype="float32"))
+    cpu = blip2.init_blip2(cfg, "cpu", seed=2)
+    card = copy.deepcopy(cpu).cuda()
+    g = _gen()
+    px = torch.randn(2, 3, 224, 224, generator=g)
+    ids = torch.randint(3, 32000, (2, 14), generator=g)
+    mask = torch.ones_like(ids)
+    ref = blip2.blip2_generate(cpu, px, ids, mask, 10, num_beams=num_beams)
+    before = (da.SELF_KERNEL.launches, da.CROSS_KERNEL.launches, dec.TOPK_KERNEL.launches)
+    got = blip2.blip2_generate(card, px.cuda(), ids.cuda(), mask.cuda(), 10, num_beams=num_beams)
+    assert torch.equal(got.cpu(), ref)
+    n_self, n_cross, n_topk = (a - b for a, b in zip(
+        (da.SELF_KERNEL.launches, da.CROSS_KERNEL.launches, dec.TOPK_KERNEL.launches), before))
+    assert n_self == n_cross > 0 and n_self % 2 == 0
+    assert n_topk == (n_self // 2 if num_beams > 1 else 0)

@@ -58,6 +58,8 @@ def test_package_imports_with_jax_blocked():
         "import vidchapters_tpu_torch.data.grounding_dataset, vidchapters_tpu_torch.models.clip\n"
         "import vidchapters_tpu_torch.models.bert, vidchapters_tpu_torch.models.grounding\n"
         "import vidchapters_tpu_torch.train.grounding_train, vidchapters_tpu_torch.train.grounding_main\n"
+        "import vidchapters_tpu_torch.zeroshot.run, vidchapters_tpu_torch.models.blip2\n"
+        "import vidchapters_tpu_torch.models.llama, vidchapters_tpu_torch.zeroshot.visual_vcg\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'vidchapters_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

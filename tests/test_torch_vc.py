@@ -10,7 +10,11 @@ the JAX package's, on the CPU in fp32 at a small width:
 - ``evaluate_vc``'s beam-4 titles equal JAX's, and ``eval_vc`` /
   ``eval_para`` scores equal JAX's on fixed texts;
 - ``vc_main`` end to end on the CPU (``best``, ``last``, ``log.txt``), and
-  its CLI's ``--eval --model-type random``.
+  its CLI's ``--eval --model-type random``, ``blip2`` (a synthetic HF
+  directory) and ``llama`` (its loader's message);
+- ``get_raw_video``'s black-frame fallback, ``raw_first_frames`` at train
+  and eval, and the BLIP-2 / LLaMA evaluators with the same callables,
+  against JAX's.
 """
 
 import dataclasses
@@ -137,11 +141,125 @@ def test_feature_source_strict(tmp_path):
     assert FeatureSource(str(tmp_path / "feats"), 8, 4).raw("vcvideo0001").shape == (40, 4)
 
 
-def test_videos_path_raises():
+def test_get_raw_video_zero_frame_fallback(tmp_path):
+    """No ffmpeg, or a file that does not decode: one black frame, as JAX's."""
+    from vidchapters_tpu.data.vc_dataset import get_raw_video as jax_get_raw_video
+    from vidchapters_tpu_torch.data.vc_dataset import get_raw_video
+
+    (tmp_path / "broken.mp4").write_bytes(b"not a video")
+    for path in (str(tmp_path / "missing.mp4"), str(tmp_path / "broken.mp4"), None):
+        for res in (224, 64):
+            got = get_raw_video(path, res)
+            assert got.shape == (1, res, res, 3) and got.dtype == np.uint8 and not got.any()
+            np.testing.assert_array_equal(got, jax_get_raw_video(path, res))
+
+
+def _fake_decode(path, resolution=224):
+    """A stand-in for the 1-FPS decode: 25 frames whose pixels are their
+    second plus the path's length (one black frame without a path)."""
+    if path is None:
+        return np.zeros((1, 8, 8, 3), np.uint8)
+    return (np.arange(25, dtype=np.uint8)[:, None, None, None] + len(path)
+            + np.zeros((1, 8, 8, 3), np.uint8))
+
+
+@pytest.mark.parametrize("training", [True, False])
+def test_raw_first_frames_equal_jax(tmp_path, monkeypatch, training):
+    """``videos_path``: the first decoded frame of each clip (clamped to the
+    video's last frame; a video without a path gives the black frame), at
+    train and eval, and ``vc_collate``'s field, against JAX's."""
+    from vidchapters_tpu.config import DataConfig as JData
+    from vidchapters_tpu.data import vc_dataset as jax_vc
+    from vidchapters_tpu_torch.config import DataConfig
+    from vidchapters_tpu_torch.data import vc_dataset as port_vc
+
+    monkeypatch.setattr(jax_vc, "get_raw_video", _fake_decode)
+    monkeypatch.setattr(port_vc, "get_raw_video", _fake_decode)
+    ann, feats, asr = _write_vc(tmp_path, d=8)
+    videos = {VIDS[0]: "a.mp4", VIDS[2]: "video_c.mp4"}   # the second has no path
+    (tmp_path / "videos.json").write_text(json.dumps(videos))
+    kw = dict(max_feats=8, features_dim=8, max_input_tokens=32, max_output_tokens=16)
+    jds = jax_vc.VideoCaptioningDataset(str(ann), str(feats), training=training,
+                                        cfg=JData(**kw), subtitles_path=str(asr),
+                                        videos_path=videos)
+    ds = port_vc.VideoCaptioningDataset(str(ann), str(feats), training=training,
+                                        cfg=DataConfig(**kw), subtitles_path=str(asr),
+                                        videos_path=str(tmp_path / "videos.json"))
+    jrng, rng = np.random.default_rng(3), np.random.default_rng(3)
+    got = [ds.__getitem__(i, rng=rng) for i in range(3) for _ in range(2)]
+    ref = [jds.__getitem__(i, rng=jrng) for i in range(3) for _ in range(2)]
+    for g, r in zip(got, ref):
+        assert g.keys() == r.keys() and "raw_first_frames" in g
+        np.testing.assert_array_equal(g["raw_first_frames"], r["raw_first_frames"])
+        assert g["output_text"] == r["output_text"]
+    if not training:
+        # video 3 (60 s, clips from 0 and 20 s) over frames of 11 + second
+        assert [int(f[0, 0, 0]) for f in got[4]["raw_first_frames"]] == [11, 31]
+    batch = got[0::2] if training else got[:1]
+    jbatch = ref[0::2] if training else ref[:1]
+    np.testing.assert_array_equal(port_vc.vc_collate(batch)["raw_first_frames"],
+                                  jax_vc.vc_collate(jbatch)["raw_first_frames"])
+    assert "raw_first_frames" not in _datasets(tmp_path, training, 8, 8)[1][0]
+
+
+def _eval_dataset(root, videos=None):
+    from vidchapters_tpu.config import DataConfig as JData
+    from vidchapters_tpu.data.vc_dataset import VideoCaptioningDataset as JDataset
+    from vidchapters_tpu_torch.config import DataConfig
     from vidchapters_tpu_torch.data.vc_dataset import VideoCaptioningDataset
 
-    with pytest.raises(NotImplementedError, match="item 8"):
-        VideoCaptioningDataset({}, {}, videos_path="videos.json")
+    ann, feats, asr = _write_vc(root, d=8)
+    kw = dict(max_feats=8, features_dim=8, max_input_tokens=32, max_output_tokens=16)
+    return (JDataset(str(ann), str(feats), training=False, cfg=JData(**kw),
+                     subtitles_path=str(asr), videos_path=videos),
+            VideoCaptioningDataset(str(ann), str(feats), training=False, cfg=DataConfig(**kw),
+                                   subtitles_path=str(asr), videos_path=videos))
+
+
+def test_evaluate_vc_blip2_equals_jax(tmp_path):
+    """The BLIP-2 dispatch over every clip's first frame (the black frame
+    here: no video decodes), with the same captioner: results and scores."""
+    from vidchapters_tpu.train import vc_train as jax_vc
+    from vidchapters_tpu_torch.train import vc_train as port_vc
+
+    assert port_vc.VC_BLIP2_PROMPT == jax_vc.VC_BLIP2_PROMPT
+    jds, ds = _eval_dataset(tmp_path, {v: str(tmp_path / "missing.mp4") for v in VIDS})
+    calls = {"port": [], "jax": []}
+
+    def captioner(key):
+        def caption_fn(frames, prompt):
+            calls[key].append((frames.shape, int(frames.sum()), prompt))
+            return [f" chapter {i} of {len(frames)} " for i in range(len(frames))]
+        return caption_fn
+
+    got = port_vc.evaluate_vc_blip2(ds, captioner("port"))
+    ref = jax_vc.evaluate_vc_blip2(jds, captioner("jax"))
+    assert got == ref and len(got[0]) == 7 and got[0][0]["sentence"] == "chapter 0 of 2"
+    assert calls["port"] == calls["jax"]
+    assert calls["port"][0] == ((2, 224, 224, 3), 0, port_vc.VC_BLIP2_PROMPT)
+
+
+def test_evaluate_vc_llama_equals_jax(tmp_path):
+    """The LLaMA dispatch over every clip's ASR prompt, with the same
+    generate function: prompts, results and scores."""
+    from vidchapters_tpu.train import vc_train as jax_vc
+    from vidchapters_tpu_torch.train import vc_train as port_vc
+
+    assert port_vc.VC_LLAMA_PROMPT == jax_vc.VC_LLAMA_PROMPT
+    jds, ds = _eval_dataset(tmp_path)
+    prompts = {"port": [], "jax": []}
+
+    def generator(key):
+        def generate_fn(prompt):
+            prompts[key].append(prompt)
+            return f" Title of {len(prompt)} characters "
+        return generate_fn
+
+    got = port_vc.evaluate_vc_llama(ds, generator("port"))
+    ref = jax_vc.evaluate_vc_llama(jds, generator("jax"))
+    assert got == ref and len(got[0]) == 7
+    assert prompts["port"] == prompts["jax"]
+    assert prompts["port"][0] == port_vc.VC_LLAMA_PROMPT.format("Hello there.")
 
 
 def test_tokenize_batch_and_strip_time_tokens_equal_jax():
@@ -337,6 +455,25 @@ def test_vc_main_end_to_end_and_random_eval(tmp_path, capsys):
     vc_main._cli(args)
     scores = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(scores) >= {"CIDEr", "Bleu_1"} and all(np.isfinite(v) for v in scores.values())
-    for model_type in ("blip2", "llama"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            vc_main._cli(args[:-1] + [model_type])
+    # --model-type blip2 from a synthetic HF directory (bfloat16 on the CPU);
+    # every clip's first frame is the black frame (no video decodes here)
+    from tests._torch_helpers import blip2_small_cfgs, write_blip2_dir
+
+    _, bcfg = blip2_small_cfgs(vocab=32128)
+    bcfg = dataclasses.replace(bcfg, vision=dataclasses.replace(bcfg.vision, image_size=224,
+                                                                patch_size=112))
+    blip2_dir = write_blip2_dir(tmp_path / "blip2", bcfg, seed=2)
+    (tmp_path / "videos.json").write_text(json.dumps({v: "missing.mp4" for v in VIDS}))
+    vc_main._cli(args[:-1] + ["blip2", "--blip2-dir", str(blip2_dir), "--videos-path",
+                              str(tmp_path / "videos.json"), "--device", "cpu"])
+    scores = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(scores) >= {"CIDEr", "Bleu_1"} and all(np.isfinite(v) for v in scores.values())
+    llama_dir = str(tmp_path / "llama")
+    message = (f"build_llama_titler({llama_dir!r}) needs an encoder for LLaMA's tokenizer.model, "
+               "a SentencePiece BPE model, which the port does not have yet (ROADMAP.md §1, "
+               "\"SentencePiece BPE encoder for LLaMA's tokenizer.model\"); "
+               "make_llama_generate_fn takes a LlamaForCausalLM and any tokenizer with "
+               "encode / decode")
+    with pytest.raises(NotImplementedError) as err:
+        vc_main._cli(args[:-1] + ["llama", "--llama-dir", llama_dir, "--device", "cpu"])
+    assert str(err.value) == message

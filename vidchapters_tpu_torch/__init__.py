@@ -25,6 +25,10 @@ Entry points:
   from descriptions and the DVC / VMR annotations;
 - ``demo/demo_vid2seq`` and ``demo/run_on_video``: chapters and moments
   from one raw video.
+- ``zeroshot/run``: the paper's zero-shot baselines (TextTiling + LLaMA
+  speech chapters, shot detection + BLIP-2 visual chapters, zero-shot
+  grounding); ``train/vc_main`` takes the same LLaMA and BLIP-2 towers as
+  its ``llama`` / ``blip2`` evaluators.
 
 The kernels are hand-written CUDA C++ for ``sm_90a`` under ``csrc/``,
 built at first use by ``ops/_build.py``. Each kernel's wrapper launches the

@@ -466,12 +466,14 @@ class T5ForConditionalGeneration(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         """Mesh-TF factor-scaled normal init (the JAX package's initializers;
-        the same distributions, not the same numbers)."""
+        the same distributions, not the same numbers), drawn on
+        ``generator``'s device in each parameter's dtype."""
         cfg = self.cfg
         inner = cfg.num_heads * cfg.d_kv
 
         def normal(p, std):
-            p.copy_(torch.randn(p.shape, generator=generator) * std)
+            p.copy_(torch.randn(p.shape, generator=generator, device=generator.device,
+                                dtype=p.dtype) * std)
 
         normal(self.shared.weight, 1.0)
         for stack in (self.encoder, self.decoder):

@@ -29,6 +29,18 @@ the port has no place for, or a port parameter that no leaf fills, raises.
   tower's (``patch_embed``, ``class_embedding``, ``proj``, ...).
 - ``bert_from_jax_params``: BERT (``layer_{i}`` -> ``layers.{i}``); the
   three embedding tables keep their names.
+- ``llama_from_jax_params``: LLaMA (``layer_{i}`` -> ``layers.{i}``); the
+  embedding, the norms and the ``[vocab, d]`` head keep their names.
+- ``blip2_from_jax_params``: BLIP-2; ViT-g's ``layer_{i}_{part}`` and the
+  Q-Former's ``layer_{i}`` map to ``layers.{i}.{part}`` / ``layers.{i}``,
+  the T5 under ``t5`` as ``from_jax_params`` maps Vid2Seq's.
+
+Two importers read HF state dicts instead, through the JAX package's HF
+converters' names (each a port copy), and raise on any name they read
+nothing from: ``llama_from_hf_state_dict`` (``convert_hf_llama``; a
+``rotary_emb.inv_freq`` buffer passes when it equals the model's) and
+``blip2_from_hf_state_dict`` (``convert_hf_blip2``; the T5's tied
+``embed_tokens`` copies pass when they equal ``shared``).
 """
 
 from __future__ import annotations
@@ -238,3 +250,143 @@ def bert_from_jax_params(params: Mapping[str, Any], model: nn.Module
     """JAX ``BertModel`` params -> the port's ``BertModel`` ``model``'s
     state_dict."""
     return _import(params, model, _whisper_port_name, "bert_from_jax_params")
+
+
+def llama_from_jax_params(params: Mapping[str, Any], model: nn.Module
+                          ) -> Dict[str, torch.Tensor]:
+    """JAX ``LlamaForCausalLM`` params -> the port's ``LlamaForCausalLM``
+    ``model``'s state_dict."""
+    return _import(params, model, _whisper_port_name, "llama_from_jax_params")
+
+
+_BLIP2_LAYER = re.compile(r"^layer_(\d+)(?:_(\w+))?$")
+
+
+def _blip2_port_name(path: tuple) -> str:
+    if path[0] == "t5":
+        return "t5." + _port_name(path[1:])
+    parts = []
+    for p in path[:-1]:
+        m = _BLIP2_LAYER.match(p)
+        parts += (["layers", m.group(1)] + [m.group(2)] * bool(m.group(2))) if m else [p]
+    return ".".join(parts + [_RENAME.get(path[-1], path[-1])])
+
+
+def blip2_from_jax_params(params: Mapping[str, Any], model: nn.Module
+                          ) -> Dict[str, torch.Tensor]:
+    """JAX ``Blip2`` params -> the port's ``Blip2`` ``model``'s state_dict."""
+    return _import(params, model, _blip2_port_name, "blip2_from_jax_params")
+
+
+def _float_arrays(sd: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    return {k: np.asarray(v.detach().cpu().float() if isinstance(v, torch.Tensor) else v,
+                          dtype=np.float32) for k, v in sd.items()}
+
+
+def _all_read(reader, what: str) -> None:
+    unread = sorted(set(reader.sd) - reader.read)
+    if unread:
+        raise ValueError(f"{what}: HF names without a port parameter: {unread}")
+
+
+def llama_from_hf_state_dict(sd: Mapping[str, Any], model: nn.Module
+                             ) -> Dict[str, torch.Tensor]:
+    """HF ``LlamaForCausalLM`` state dict -> the port's ``LlamaForCausalLM``
+    ``model``'s state_dict, through ``convert_hf_llama``'s names."""
+    from vidchapters_tpu_torch.models.llama import rope_inv_freq
+    from vidchapters_tpu_torch.models.torch_import import _Reader, _t
+
+    arr = _float_arrays(sd)
+    if any(k.startswith("model.model.") for k in arr):
+        arr = {k.removeprefix("model."): v for k, v in arr.items()}
+    r = _Reader(arr)
+    tree: Dict[str, Any] = {"embed_tokens": r["model.embed_tokens.weight"],
+                            "final_norm": r["model.norm.weight"],
+                            "lm_head": r["lm_head.weight"]}
+    parts = {"q_proj": "self_attn.q_proj", "k_proj": "self_attn.k_proj",
+             "v_proj": "self_attn.v_proj", "o_proj": "self_attn.o_proj",
+             "gate_proj": "mlp.gate_proj", "up_proj": "mlp.up_proj",
+             "down_proj": "mlp.down_proj"}
+    inv = rope_inv_freq(model.cfg.head_dim, model.cfg.rope_theta)
+    i = 0
+    while f"model.layers.{i}.input_layernorm.weight" in arr:
+        lp = f"model.layers.{i}."
+        tree[f"layer_{i}"] = {
+            "input_norm": r[lp + "input_layernorm.weight"],
+            "post_attn_norm": r[lp + "post_attention_layernorm.weight"],
+            **{ours: {"kernel": _t(r[lp + hf + ".weight"])} for ours, hf in parts.items()}}
+        rotary = lp + "self_attn.rotary_emb.inv_freq"
+        if rotary in arr:
+            if not np.allclose(r[rotary], inv, rtol=1e-6, atol=0):
+                raise ValueError(f"llama_from_hf_state_dict: {rotary} differs from the "
+                                 f"model's rope_theta {model.cfg.rope_theta}")
+        i += 1
+    _all_read(r, "llama_from_hf_state_dict")
+    return llama_from_jax_params(tree, model)
+
+
+def blip2_from_hf_state_dict(sd: Mapping[str, Any], model: nn.Module
+                             ) -> Dict[str, torch.Tensor]:
+    """HF ``Blip2ForConditionalGeneration`` (Flan-T5 variant) state dict ->
+    the port's ``Blip2`` ``model``'s state_dict, through
+    ``convert_hf_blip2``'s names."""
+    from vidchapters_tpu_torch.models.torch_import import _Reader, _t, convert_t5_state_dict
+
+    arr = _float_arrays(sd)
+    r = _Reader(arr)
+    patch = r["vision_model.embeddings.patch_embedding.weight"]            # [D, 3, p, p]
+
+    def dense(name: str) -> Dict[str, np.ndarray]:
+        return {"kernel": _t(r[name + ".weight"]), "bias": r[name + ".bias"]}
+
+    def norm(name: str) -> Dict[str, np.ndarray]:
+        return {"scale": r[name + ".weight"], "bias": r[name + ".bias"]}
+
+    vision: Dict[str, Any] = {
+        "patch_kernel": patch.reshape(patch.shape[0], -1),
+        "patch_bias": r["vision_model.embeddings.patch_embedding.bias"],
+        "class_embedding": r["vision_model.embeddings.class_embedding"].reshape(1, 1, -1),
+        "position_embedding": r["vision_model.embeddings.position_embedding"],
+        "post_layernorm": norm("vision_model.post_layernorm"),
+    }
+    i = 0
+    while f"vision_model.encoder.layers.{i}.layer_norm1.weight" in arr:
+        lp = f"vision_model.encoder.layers.{i}."
+        vision.update({f"layer_{i}_norm1": norm(lp + "layer_norm1"),
+                       f"layer_{i}_norm2": norm(lp + "layer_norm2"),
+                       f"layer_{i}_qkv": dense(lp + "self_attn.qkv"),
+                       f"layer_{i}_proj": dense(lp + "self_attn.projection"),
+                       f"layer_{i}_fc1": dense(lp + "mlp.fc1"),
+                       f"layer_{i}_fc2": dense(lp + "mlp.fc2")})
+        i += 1
+
+    def attention(lp: str, prefix: str) -> Dict[str, Any]:
+        return {f"{prefix}_q": dense(lp + "attention.query"),
+                f"{prefix}_k": dense(lp + "attention.key"),
+                f"{prefix}_v": dense(lp + "attention.value"),
+                f"{prefix}_out": dense(lp + "output.dense"),
+                f"{prefix}_norm": norm(lp + "output.LayerNorm")}
+
+    qformer: Dict[str, Any] = {"embed_norm": norm("qformer.layernorm")}
+    i = 0
+    while f"qformer.encoder.layer.{i}.attention.attention.query.weight" in arr:
+        lp = f"qformer.encoder.layer.{i}."
+        layer = attention(lp + "attention.", "self")
+        if lp + "crossattention.attention.query.weight" in arr:
+            layer.update(attention(lp + "crossattention.", "cross"))
+        layer.update({"intermediate_query": dense(lp + "intermediate_query.dense"),
+                      "output_query": dense(lp + "output_query.dense"),
+                      "ff_norm": norm(lp + "output_query.LayerNorm")})
+        qformer[f"layer_{i}"] = layer
+        i += 1
+
+    tree = {"vision": vision, "qformer": qformer, "query_tokens": r["query_tokens"],
+            "language_projection": dense("language_projection"),
+            "t5": convert_t5_state_dict(r, prefix="language_model.", gated=True)}
+    shared = arr["language_model.shared.weight"]
+    for stack in ("encoder", "decoder"):
+        key = f"language_model.{stack}.embed_tokens.weight"
+        if key in arr and np.array_equal(arr[key], shared):
+            r.read.add(key)
+    _all_read(r, "blip2_from_hf_state_dict")
+    return blip2_from_jax_params(tree, model)

@@ -20,7 +20,7 @@ random layer (smoke mode). With ``use_speech`` and no ``--bert-ckpt`` the
 speech tower is one seeded random BERT layer behind a per-process hash
 tokenizer (smoke mode). Not ported: ``--bert-ckpt`` (it needs HF's
 WordPiece tokenizer; ROADMAP.md §1) and the data-parallel mesh (one
-process; ROADMAP.md §1 item 9).
+process; ROADMAP.md §1, "More than one GPU").
 """
 
 from __future__ import annotations

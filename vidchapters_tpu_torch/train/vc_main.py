@@ -10,13 +10,18 @@ with the ``best`` weights.
         --features-path F --save-dir D [--device cuda|cpu]
     python -m vidchapters_tpu_torch.train.vc_main --eval --model-type random \\
         --val-json V --features-path F --save-dir D
+    python -m vidchapters_tpu_torch.train.vc_main --eval --model-type blip2 \\
+        --blip2-dir B --videos-path videos.json --val-json V --features-path F --save-dir D
 
 The optimizer is the JAX module's ``optax.chain(clip_by_global_norm(0.1),
 adam(lr))``: ``ClipAdamW`` with no weight decay and a constant lr. The
 examples come from the epoch's numpy generator in the JAX module's order,
 so the batches are the same for the same seed. ``--eval --model-type
-random`` scores each clip's ASR as its title (vc.py:109); the ``blip2`` and
-``llama`` evaluators wait for those towers (ROADMAP.md §1 item 8).
+random`` scores each clip's ASR as its title (vc.py:109); ``blip2`` captions
+each clip's first raw frame with the BLIP-2 checkpoint directory of
+``--blip2-dir`` (``--videos-path`` maps video ids to raw videos); ``llama``
+reaches ``models.llama.build_llama_titler``, which raises until the port
+has LLaMA's SentencePiece-BPE encoder.
 """
 
 from __future__ import annotations
@@ -39,6 +44,8 @@ from vidchapters_tpu_torch.train.dvc_train import TrainState
 from vidchapters_tpu_torch.train.schedules import ClipAdamW
 from vidchapters_tpu_torch.train.vc_train import (
     evaluate_vc,
+    evaluate_vc_blip2,
+    evaluate_vc_llama,
     evaluate_vc_with_captioner,
     make_vc_train_step,
     tokenize_batch,
@@ -109,10 +116,6 @@ def main(train_json: str, val_json: str, features_path, model_cfg: Vid2SeqConfig
     return val_eval()
 
 
-_LATER = ("--model-type {} needs the {} tower, which is not ported yet: ROADMAP.md §1 "
-          "item 8")
-
-
 def _cli(argv=None) -> None:
     import argparse
 
@@ -136,18 +139,36 @@ def _cli(argv=None) -> None:
                    help="skip training; run the chosen zero-shot evaluator on --val-json")
     p.add_argument("--model-type", default="random", choices=["random", "blip2", "llama"],
                    help="--eval captioner (vc.py model selection); random scores the ASR")
+    p.add_argument("--blip2-dir", default=None,
+                   help="HF blip2-flan-t5-xl dir for --model-type blip2")
+    p.add_argument("--llama-dir", default=None, help="HF LLaMA dir for --model-type llama")
+    p.add_argument("--videos-path", default=None,
+                   help="json mapping vid -> raw video path (blip2 eval needs first frames)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     a = p.parse_args(argv)
     model_cfg = load_config(Vid2SeqConfig, a.model_config) if a.model_config else Vid2SeqConfig()
     data_cfg = load_config(DataConfig, a.data_config) if a.data_config else DataConfig()
     if a.eval:
-        if a.model_type != "random":
-            raise NotImplementedError(_LATER.format(
-                a.model_type, {"blip2": "BLIP-2", "llama": "LLaMA"}[a.model_type]))
         ds = VideoCaptioningDataset(a.val_json, a.features_path, training=False,
-                                    cfg=data_cfg, subtitles_path=a.subtitles_path)
-        # the --random baseline scores the ASR text itself (vc.py:109)
-        _, metrics = evaluate_vc_with_captioner(ds, lambda clip, asr: asr)
+                                    cfg=data_cfg, subtitles_path=a.subtitles_path,
+                                    videos_path=a.videos_path)
+        if a.model_type == "random":
+            # the --random baseline scores the ASR text itself (vc.py:109)
+            _, metrics = evaluate_vc_with_captioner(ds, lambda clip, asr: asr)
+        elif a.model_type == "blip2":
+            if not a.blip2_dir or not a.videos_path:
+                p.error("--model-type blip2 needs --blip2-dir and --videos-path")
+            from vidchapters_tpu_torch.models.blip2 import build_blip2_captioner
+
+            _, metrics = evaluate_vc_blip2(ds, build_blip2_captioner(a.blip2_dir,
+                                                                     device=a.device))
+        else:
+            if not a.llama_dir:
+                p.error("--model-type llama needs --llama-dir")
+            from vidchapters_tpu_torch.models.llama import build_llama_titler
+
+            _, metrics = evaluate_vc_llama(ds, build_llama_titler(a.llama_dir,
+                                                                  device=a.device))
         print(json.dumps(metrics))
         return
     if not a.train_json:

@@ -12,8 +12,10 @@ Tokenization happens in the loop (vc.py:48-49).
 ``strip_time_tokens`` reproduces vc.py:304-308: a DVC checkpoint loaded for
 the VC task loses its time-token rows (the VC variant's vocab is text only).
 
-The BLIP-2 and LLaMA evaluators of the JAX module wait for those towers
-(ROADMAP.md §1 item 8).
+The zero-shot evaluators: ``evaluate_vc_with_captioner`` (any captioner,
+e.g. the ``random`` baseline that scores the ASR), ``evaluate_vc_blip2``
+(BLIP-2 on each clip's first raw frame, ``models/blip2``) and
+``evaluate_vc_llama`` (LLaMA on each clip's ASR, ``models/llama``).
 """
 
 from __future__ import annotations
@@ -97,6 +99,39 @@ def evaluate_vc_with_captioner(dataset, captioner) -> Tuple[Dict, Dict[str, floa
             results[uid] = {"sentence": captioner(clip, asr), "gt": gt}
             uid += 1
     return results, (eval_vc(results) if results else {})
+
+
+# exact reference prompts (vc.py:112, vc.py:127-128)
+VC_BLIP2_PROMPT = "Summarize the image in a chapter title. Chapter title:"
+VC_LLAMA_PROMPT = ("Summarize the following speech transcript in a chapter "
+                   "title. Transcript:{} Chapter title:")
+
+
+def evaluate_vc_blip2(dataset, caption_fn) -> Tuple[Dict, Dict[str, float]]:
+    """The BLIP-2 eval dispatch (vc.py:111-124): caption the first raw frame
+    of every clip with the fixed prompt. ``caption_fn(frames_uint8, prompt)
+    -> list[str]`` comes from ``models.blip2.build_blip2_captioner``; the
+    dataset must be built with ``videos_path`` so examples carry
+    ``raw_first_frames``."""
+    from vidchapters_tpu_torch.evals.captioning import eval_vc
+
+    results = {}
+    uid = 0
+    for idx in range(len(dataset)):
+        ex = dataset[idx]
+        preds = caption_fn(ex["raw_first_frames"], VC_BLIP2_PROMPT)
+        for pred, gt in zip(preds, ex["output_text"]):
+            results[uid] = {"sentence": pred.strip(), "gt": gt}
+            uid += 1
+    return results, (eval_vc(results) if results else {})
+
+
+def evaluate_vc_llama(dataset, generate_fn) -> Tuple[Dict, Dict[str, float]]:
+    """The LLaMA eval dispatch (vc.py:126-139): prompt on each clip's ASR
+    text; the continuation is the title. ``generate_fn(prompt) -> str``,
+    e.g. ``models.llama.make_llama_generate_fn``."""
+    return evaluate_vc_with_captioner(
+        dataset, lambda clip, asr: generate_fn(VC_LLAMA_PROMPT.format(asr)).strip())
 
 
 def evaluate_vc(model: Vid2Seq, dataset, tokenizer, gen: GenerationConfig,
