@@ -166,8 +166,7 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    phase 11's features, and in random mode. (d) vc_main --eval
    --model-type blip2 and zeroshot.run visual from a synthetic HF BLIP-2
    directory (config.json, pytorch_model.bin, spiece.model; 2 layers a
-   tower at full width); vc_main --model-type llama raises with its
-   loader's message. (e) fp32 tokens card vs CPU: LLaMA at 2 layers, d 256,
+   tower at full width). (e) fp32 tokens card vs CPU: LLaMA at 2 layers, d 256,
    GQA 8/2, and BLIP-2 at 2 + 2 + 2 + 2 layers (greedy and beam 2). Phase 2
    also holds rows 5 and 6 at every form (b) launches, 32 heads x 64 (self:
    8, 16, 2 and 1 rows, L 20, idx 0/10/19; cross: 8 x 1, 8 x 2, 2 x 1 and
@@ -175,9 +174,31 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    Flan-T5's own tokenizer's 46 and 45), and row 3 at beam 2's [8, 2 x
    32128], k 4; fp32 and bf16, timed beside SDPA / torch.topk and the
    bound. (b) fails unless its calls ran at those forms.
+13. The last single-GPU modules. (a) PDVC with the GPT-2 caption head (HF
+   gpt2: 12 layers, 12 heads, 768 wide, vocab 50257) through
+   train/pdvc_main at the width of configs/chapters_pdvc.json, as phase 6
+   on 8 + 4 videos: rows 7 and 7b launched exactly 4 per forward pass and
+   4 backward per step, and only at forms phase 2 checks (phase 6 holds
+   its own run to that too); ms a train step, eval videos/s, peak memory;
+   an fp32 gradient check and fp32 GPT-2 caption tokens of 4 queries,
+   card vs CPU. (b) The light LSTM head: one train step and the greedy
+   captions of two videos, card vs CPU in fp32. (c) The toxicity scorer
+   (factory/analysis.build_toxicity_scorer) from a synthetic
+   BertForSequenceClassification directory at bert-base-uncased width
+   saved as safetensors: 64 texts within 1e-4 card vs CPU, toxicity_stats,
+   texts/s. (d) The NSFW head over phase 11's features card vs CPU, the
+   language job over phase 7's ASR pickles twice (the second processes
+   none), the gender job. (e) grounding_main --bert-ckpt (a 12-layer
+   bert-base directory, sharded pytorch_model.bin) at
+   configs/chapters_momentdetr.json with use_speech on, one epoch at phase
+   10's batch. (f) build_llama_titler from a synthetic HF directory at
+   LLaMA-7B's widths cut to 2 layers (fp16 safetensors shards, a synthetic
+   SentencePiece BPE tokenizer.model of 32,000 pieces): load seconds, 4
+   titles, ms a title; fp32 titles card vs CPU at d 256; vc_main
+   --model-type llama.
 
 The kernels' launch counts are zeroed just before each main path (phases
-3, 4, 6, 7, 8, 11, each BLIP-2 call of 12 and each run of 5) and read just after it; the kernel line
+3, 4, 6, 7, 8, 11, 13a, each BLIP-2 call of 12 and each run of 5) and read just after it; the kernel line
 reports each kernel's count from its own path (training for the fused
 attention, serving for top-k and the decode kernel, phase 5's first run for
 the decode-attention kernels, phase 6's pdvc_main run for the deformable
@@ -186,7 +207,8 @@ attention, phase 7's sweep for the Whisper kernel); rows 1-2 also carry
 ``launches_vc`` from phase 9's vc_main run; row 1 carries
 ``launches_features`` from phase 11(a) and rows 1, 3 and 4
 ``launches_demo`` from phase 11(b); rows 3, 5 and 6 carry
-``launches_zeroshot`` from phase 12(b)'s BLIP-2 calls. The probes lie on no
+``launches_zeroshot`` from phase 12(b)'s BLIP-2 calls, rows 7 and 7b
+``launches_gpt2`` from phase 13(a)'s pdvc_main run. The probes lie on no
 path: their count is phase 2's.
 
 The last lines are the kernel table as one JSON object, the nvidia-smi
@@ -1688,6 +1710,53 @@ PDVC_HEADS, PDVC_DHEAD, PDVC_POINTS = 8, 64, 4
 PDVC_ENC_LQ, PDVC_DEC_LQ = sum(PDVC_LEVELS), 100  # encoder queries = all 188 positions
 
 
+def deform_checked_forms():
+    """The (value, loc, levels) shapes at which ``check_deformable_attention``
+    holds rows 7 and 7b against their plain versions."""
+    value = (1, sum(PDVC_LEVELS), PDVC_HEADS, PDVC_DHEAD)
+    return {(value, (1, lq, PDVC_HEADS, len(PDVC_LEVELS), PDVC_POINTS), PDVC_LEVELS)
+            for lq in (PDVC_ENC_LQ, PDVC_DEC_LQ)}
+
+
+class _DeformForms:
+    """Within ``with``: the (value, loc, levels) shape of every call of the
+    deformable attention's forward (``_forward``) and backward
+    (``deformable_attention_1d_bwd``), the functions each launch goes
+    through, by part; the forms gather over every ``with`` of one
+    recorder."""
+
+    def __init__(self):
+        self.forms = {"fwd": set(), "bwd": set()}
+
+    def __enter__(self):
+        from vidchapters_tpu_torch.ops import deformable_attention as da
+
+        self.da, self.real = da, (da._forward, da.deformable_attention_1d_bwd)
+
+        def recorder(part, fn):
+            def call(value, spatial_shapes, loc, *rest):
+                self.forms[part].add((tuple(value.shape), tuple(loc.shape),
+                                      tuple(spatial_shapes)))
+                return fn(value, spatial_shapes, loc, *rest)
+            return call
+
+        da._forward = recorder("fwd", self.real[0])
+        da.deformable_attention_1d_bwd = recorder("bwd", self.real[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.da._forward, self.da.deformable_attention_1d_bwd = self.real
+
+    def check(self, what: str):
+        """Fail unless phase 2 checked every form the path ran at."""
+        unchecked = {part: sorted(f - deform_checked_forms()) for part, f in self.forms.items()}
+        check(not any(unchecked.values()),
+              f"{what}: the deformable attention ran at forms phase 2 does not check: "
+              f"{unchecked} (checked: {sorted(deform_checked_forms())})")
+        return {part: [list(map(list, f)) for f in sorted(forms)]
+                for part, forms in self.forms.items()}
+
+
 def _deformable_inputs(gen, lq: int):
     """value [1, 188, 8, 64], locations in [-0.1, 1.1] (past both borders)
     with point 0 of every level exactly on a pixel centre (k + 0.5) / T_l,
@@ -3080,6 +3149,58 @@ def pdvc_fp32_token_check(cfg, host_batch):
             "score_max_abs_err": score_err}
 
 
+def gpt2_fp32_token_check(cfg, host_batch, rows: int = 4, gap_tol: float = 1e-4):
+    """The GPT-2 head's greedy caption tokens in fp32 for ``rows`` event
+    queries of the first val video, from seeded weights: the forward and
+    ``caption_sample`` with the kernels on the card against the plain
+    versions on the CPU (every step recomputes the whole sequence, so all
+    100 queries on the CPU would take minutes). The tokens must be
+    identical; a row may differ only from a step where the CPU's top-2
+    log-prob gap is within ``gap_tol`` (a near-tie, reported), and must be
+    identical before it."""
+    import torch
+
+    from vidchapters_tpu_torch.models.pdvc import PDVC
+
+    weights = PDVC(cfg).init_weights(torch.Generator().manual_seed(2)).state_dict()
+    toks, feats, models = {}, {}, {}
+    for dev in (DEVICE, "cpu"):
+        model = PDVC(cfg)
+        model.load_state_dict(weights)
+        models[dev] = model = model.to(dev).eval()
+        t0 = time.time()
+        with torch.no_grad():
+            out = model(torch.as_tensor(host_batch["video"][:1]).to(dev),
+                        torch.as_tensor(host_batch["video_mask"][:1]).to(dev))
+            feats[dev] = out["hs"][-1][0, :rows]
+            toks[dev] = model.caption_sample(feats[dev], cfg.max_caption_len)[0].cpu()
+        say(f"[pdvc-fp32-tokens] gpt2 head: {rows} queries x {cfg.max_caption_len} steps on "
+            f"{dev} in {time.time() - t0:.1f} s")
+    got, ref = toks[DEVICE], toks["cpu"]
+    feat_err = float((feats[DEVICE].cpu() - feats["cpu"]).abs().max())
+    ties = []
+    for r in range(rows):
+        diff = (got[r] != ref[r]).nonzero()
+        if not len(diff):
+            continue
+        s = int(diff[0])
+        seq = torch.cat([torch.zeros(1, dtype=torch.long), ref[r, :s + 1]])[None]
+        with torch.no_grad():
+            logp = models["cpu"].caption_logprobs(feats["cpu"][r:r + 1], seq)[0, s]
+        top2 = torch.topk(logp, 2).values
+        gap = float(top2[0] - top2[1])
+        check(gap <= gap_tol, f"GPT-2 fp32 tokens differ card vs CPU at query {r}, step {s}: "
+                              f"{int(got[r, s])} vs {int(ref[r, s])}; the CPU's top-2 gap "
+                              f"{gap:.3e} is no near-tie (tol {gap_tol})")
+        ties.append({"query": r, "step": s, "top2_gap": gap})
+    n_words = int((ref > 0).sum())
+    check(n_words > 0, "GPT-2 fp32 token check: the captions hold no words")
+    say(f"[pdvc-fp32-tokens] gpt2 head tokens {'identical' if not ties else f'identical up to near-ties {ties}'} "
+        f"over {list(ref.shape)} ({n_words} words); the queries' features within {feat_err:.2e}")
+    return {"identical": not ties, "near_ties": ties, "shape": list(ref.shape),
+            "words": n_words, "feature_max_abs_err": feat_err}
+
+
 def phase_pdvc(card: str, cfg=None, n_train: int = 16, n_val: int = 8):
     """PDVC through ``train/pdvc_main`` on the card at the full width of
     configs/chapters_pdvc.json (hidden 512, 8 heads, 2+2 layers, 100
@@ -3165,6 +3286,7 @@ def phase_pdvc(card: str, cfg=None, n_train: int = 16, n_val: int = 8):
         data = (str(root / "train.json"), str(root / "val.json"), str(root / "features"), cfg)
         pdvc_main.make_pdvc_train_step, pdvc_main.evaluate_pdvc = timed_make_step, timed_evaluate
         pdvc_loss.match_pdvc = timed_match
+        forms = _DeformForms().__enter__()
         try:
             zero()
             torch.cuda.reset_peak_memory_stats()
@@ -3181,6 +3303,7 @@ def phase_pdvc(card: str, cfg=None, n_train: int = 16, n_val: int = 8):
         finally:
             pdvc_main.make_pdvc_train_step, pdvc_main.evaluate_pdvc = real[:2]
             pdvc_loss.match_pdvc = real[2]
+            forms.__exit__()
         n_steps = n_train // bs
         eval_batches = 2 * -(-n_val // bs)  # the val eval and the final eval
         want = {"deformable_attention_fwd": per_pass * (n_steps + eval_batches),
@@ -3204,7 +3327,7 @@ def phase_pdvc(card: str, cfg=None, n_train: int = 16, n_val: int = 8):
         zero()
         tee = _Tee(sys.stdout)
         t0 = time.time()
-        with contextlib.redirect_stdout(tee):
+        with contextlib.redirect_stdout(tee), forms:
             scored = pdvc_main.eval_main(str(save), data[1], data[2], cfg, save_dir=str(out_dir),
                                          batch_size=bs, max_events=tr["max_events"],
                                          device=DEVICE)
@@ -3219,7 +3342,7 @@ def phase_pdvc(card: str, cfg=None, n_train: int = 16, n_val: int = 8):
         save_config(cfg, str(Path(tmp) / "cfg.json"))
         tee = _Tee(sys.stdout)
         t0 = time.time()
-        with contextlib.redirect_stdout(tee):
+        with contextlib.redirect_stdout(tee), forms:
             pdvc_main._cli(["--eval", "--load", str(save), "--features-path", data[2],
                             "--config", str(Path(tmp) / "cfg.json"), "--save-dir", str(out_dir),
                             "--test-meta-csv", str(root / "meta.csv"), "--batch-size", str(bs),
@@ -3234,6 +3357,9 @@ def phase_pdvc(card: str, cfg=None, n_train: int = 16, n_val: int = 8):
               f"test mode results cover {len(dvc)} of {len(val_ids)} videos, or some are empty")
         say(f"[pdvc_main] eval_main {eval_main_s:.1f} s (launches {eval_launches}), test mode "
             f"{test_mode_s:.1f} s, {sum(len(p) for p in dvc.values())} proposals")
+        path_forms = forms.check(f"pdvc_main ({cfg.caption_decoder_type} head)")
+        say(f"[pdvc_main] deformable forms of the path (value, loc, levels): {path_forms}, "
+            f"each one phase 2 checks")
 
         best = torch.load(save / "best", map_location="cpu", weights_only=True)["model"]
         translator = Translator.from_json(str(save / "translator.json"))
@@ -3254,7 +3380,8 @@ def phase_pdvc(card: str, cfg=None, n_train: int = 16, n_val: int = 8):
         "matcher_ms_per_call": float(np.mean(match_ms)), "peak_memory_bytes": peak,
         "run_wall_s": wall, "launches": launches, "metrics": metrics, "best_epoch": best_epoch,
         "eval_main": {"wall_s": eval_main_s, "launches": eval_launches, "metrics": scored},
-        "test_mode_wall_s": test_mode_s, "checkpoint_bytes": ckpt_bytes})
+        "test_mode_wall_s": test_mode_s, "checkpoint_bytes": ckpt_bytes,
+        "deformable_forms": path_forms, "caption_head": cfg.caption_decoder_type})
     say(f"[pdvc] train {summary['train_step_ms_mean_after_first']:.2f} ms/step "
         f"({summary['train_videos_per_s']:.2f} videos/s), eval "
         f"{summary['eval_videos_per_s']:.3f} videos/s (decode + rerank + scoring), matcher "
@@ -3284,7 +3411,9 @@ def phase_pdvc(card: str, cfg=None, n_train: int = 16, n_val: int = 8):
     torch.cuda.empty_cache()
 
     summary["fp32_grad_check"] = pdvc_fp32_grad_check(cfg, train_batch)
-    summary["fp32_tokens"] = pdvc_fp32_token_check(cfg, val_batch)
+    token_check = (gpt2_fp32_token_check if cfg.caption_decoder_type == "gpt2"
+                   else pdvc_fp32_token_check)
+    summary["fp32_tokens"] = token_check(cfg, val_batch)
     return summary, launches
 
 
@@ -5885,8 +6014,7 @@ def _torch_test_helpers():
 def zeroshot_clis(card: str, root: Path, cfg=None):
     """(d) The CLIs on the card from a synthetic HF BLIP-2 directory (2
     layers a tower at full width, fp32 weights): ``vc_main --eval
-    --model-type blip2`` and ``zeroshot.run visual``; ``vc_main --model-type
-    llama`` raises with its loader's message."""
+    --model-type blip2`` and ``zeroshot.run visual``."""
     import numpy as np
 
     from vidchapters_tpu_torch.train import vc_main
@@ -5914,18 +6042,11 @@ def zeroshot_clis(card: str, root: Path, cfg=None):
     _finite_metrics(visual, "zeroshot.run visual")
     preds = json.loads((root / "zs_visual_preds.json").read_text())["results"]
     check(set(preds) == set(ann), f"zeroshot.run visual predicted {sorted(preds)}")
-    try:
-        vc_main._cli(base + ["--model-type", "llama", "--llama-dir", str(root / "llama")])
-        check(False, "vc_main --model-type llama did not raise")
-    except NotImplementedError as e:
-        llama_message = str(e)
-    check("SentencePiece BPE" in llama_message, f"llama's message: {llama_message}")
     wall = time.time() - t0
     say(f"[zeroshot] (d) CLIs from a synthetic HF BLIP-2 directory in {wall:.1f} s: vc_main "
-        f"blip2 CIDEr {vc.get('CIDEr')}, zeroshot.run visual soda_c {visual.get('soda_c')}; "
-        f"vc_main llama raises: {llama_message[:80]}... on {card}")
-    return {"vc_main_blip2": vc, "zeroshot_visual": visual, "llama_message": llama_message,
-            "wall_s": wall}
+        f"blip2 CIDEr {vc.get('CIDEr')}, zeroshot.run visual soda_c {visual.get('soda_c')} "
+        f"on {card} (vc_main --model-type llama runs in phase 13f)")
+    return {"vc_main_blip2": vc, "zeroshot_visual": visual, "wall_s": wall}
 
 
 def zeroshot_fp32_check(llama_cfg=None, blip2_cfg=None):
@@ -5998,6 +6119,364 @@ def phase_zeroshot(card: str, llama_cfg=None, blip2_cfg=None, cli_cfg=None, text
     return summary, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the last single-GPU modules
+# ---------------------------------------------------------------------------
+
+LAST_PDVC_VIDEOS = (8, 4)   # 13(a)'s train and val videos (phase 6: 16 and 8)
+TOXIC_TEXTS = 64
+TOXIC_MAX_LENGTH = 128      # 13(c)'s card-vs-CPU comparison; the rate also at the default 256
+LLAMA_LAST_LAYERS = 2       # 13(f)'s LLaMA-7B-wide checkpoint, cut from 32 layers
+# 13(e)'s batch, cut from phase 10's 128: each query adds 512 speech tokens
+# to the transformer's input; a step took 43.4 GB at 64 on the H100 and ran
+# out of its 80 GB at 128
+BERT_GROUNDING_BATCH = 64
+LAST_PROMPTS = ("we whisk eggs and fold flour then knead the dough",
+                "preheat the oven, slice the bread and serve it warm",
+                "Café crème: mix sugar & butter (two minutes) — then rest",
+                "in this video we bake bread " * 40)
+
+
+def last_pdvc_light(card: str, cfg=None):
+    """(b) The light LSTM caption head at phase 6's width: one train step
+    (loss and every gradient) and the greedy captions of two val videos,
+    kernels on the card against the plain versions on the CPU, in fp32
+    (``pdvc_fp32_grad_check`` / ``pdvc_fp32_token_check``; ``ss_prob``
+    stays 0, as on every entry point)."""
+    from vidchapters_tpu_torch.config import PDVCConfig
+    from vidchapters_tpu_torch.data.pdvc_dataset import PDVCDataset, Translator, pdvc_collate
+
+    recipe = json.loads((ROOT / PDVC_RECIPE).read_text())
+    cfg = cfg or dataclasses.replace(PDVCConfig(), **dict(recipe["model"],
+                                                          caption_decoder_type="light"))
+    with tempfile.TemporaryDirectory() as tmp:
+        root = _write_pdvc_dataset(Path(tmp), 2, 2, seed=5)
+        train = json.loads((root / "train.json").read_text())
+        translator = Translator.build([x for a in train.values() for x in a["sentences"]])
+        kw = dict(max_events=recipe["train"]["max_events"])
+        train_ds = PDVCDataset(str(root / "train.json"), str(root / "features"), translator,
+                               cfg, **kw)
+        val_ds = PDVCDataset(str(root / "val.json"), str(root / "features"), translator, cfg,
+                             **kw)
+        big = max(range(len(train_ds)), key=lambda i: int(train_ds[i]["valid"].sum()))
+        train_batch, val_batch = pdvc_collate([train_ds[big]]), pdvc_collate(
+            [val_ds[0], val_ds[1]])
+    out = {"head": "light", "fp32_grad_check": pdvc_fp32_grad_check(cfg, train_batch),
+           "fp32_tokens": pdvc_fp32_token_check(cfg, val_batch)}
+    say(f"[last] (b) light LSTM head card vs CPU in fp32 on {card}: train step and greedy "
+        f"captions agree")
+    return out
+
+
+def last_toxicity(card: str, root: Path, bcfg=None, n_texts: int = TOXIC_TEXTS):
+    """(c) ``build_toxicity_scorer`` from a synthetic HF
+    ``BertForSequenceClassification`` directory at bert-base-uncased width
+    (12 layers, 768 wide, vocab 30522, 6 labels), saved as safetensors, read
+    by ``utils/hf.py`` and ``data/wordpiece.py``: ``n_texts`` texts scored on
+    the card and on the CPU at ``TOXIC_MAX_LENGTH`` tokens, within 1e-4 in
+    fp32; ``toxicity_stats`` over them; texts/s on the card at that length
+    and at the default 256."""
+    import numpy as np
+    import torch
+
+    from vidchapters_tpu_torch.factory import analysis
+    from vidchapters_tpu_torch.models.bert import BertConfig
+
+    helpers = _torch_test_helpers()
+    bcfg = bcfg or BertConfig()
+    t0 = time.time()
+    model_dir = helpers.write_bert_dir(root / "toxic_bert", bcfg, seed=31, num_labels=6,
+                                       fmt="safetensors")
+    write_s = time.time() - t0
+    rng = np.random.default_rng(32)
+    words = list(helpers.BERT_WORDS) + ["Ünïcode", "中文", "!!", "fuck"]
+    texts = [" ".join(rng.choice(words, int(rng.integers(3, 40)))) for _ in range(n_texts)]
+    scores, load_s, rate = {}, {}, {}
+    for dev, length in ((DEVICE, TOXIC_MAX_LENGTH), ("cpu", TOXIC_MAX_LENGTH), (DEVICE, 256)):
+        t0 = time.time()
+        scorer = analysis.build_toxicity_scorer(str(model_dir), length, device=dev)
+        load_s.setdefault(dev, time.time() - t0)
+        scorer(texts[0])  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got = np.array([scorer(t) for t in texts])
+        if dev == DEVICE:
+            rate[length] = len(texts) / (time.time() - t0)  # each call ends in a host read
+        if length == TOXIC_MAX_LENGTH:
+            scores.setdefault(dev, got)
+            if dev == DEVICE:
+                stats = analysis.toxicity_stats(texts, scorer=scorer)
+        del scorer
+    err = float(np.abs(scores[DEVICE] - scores["cpu"]).max())
+    check(np.isfinite(scores[DEVICE]).all() and err <= 1e-4,
+          f"toxicity scores card vs CPU differ by {err} (tol 1e-4)")
+    check(0.0 <= stats["mean_score"] <= 1.0, f"toxicity_stats: {stats}")
+    out = {"texts": n_texts, "max_length": TOXIC_MAX_LENGTH, "max_abs_err": err,
+           "texts_per_s": rate, "stats": stats, "load_s": load_s, "write_s": write_s,
+           "weights": "safetensors", "layers": bcfg.num_layers, "width": bcfg.hidden_size}
+    say(f"[last] (c) toxicity scorer: {n_texts} texts card vs CPU within {err:.2e} (tol 1e-4); "
+        f"{rate[TOXIC_MAX_LENGTH]:.1f} texts/s at {TOXIC_MAX_LENGTH} tokens, {rate[256]:.1f} "
+        f"at 256, on {card}; stats {stats}; load {load_s}")
+    return out
+
+
+def last_analysis(card: str, root: Path):
+    """(d) ``build_nsfw_scorer`` (a seeded MLP 768-1024-512-1 in the
+    detector's ``w{i}`` / ``b{i}`` layout) over phase 11's ViT-L/14
+    features, card against CPU within 1e-5; ``analyze_language_job`` over
+    phase 7's ASR pickles twice (the second run processes none);
+    ``analyze_gender_job`` over a synthetic chapters pickle."""
+    import numpy as np
+
+    from vidchapters_tpu_torch.factory import analysis
+
+    check(bool(ASR_PICKLES) and bool(VIDEO_FEATURES),
+          f"13(d) needs phase 7's ASR pickles ({len(ASR_PICKLES)}) and phase 11's features "
+          f"({len(VIDEO_FEATURES)})")
+    rng = np.random.default_rng(33)
+    dims = (768, 1024, 512, 1)
+    layers = {}
+    for i, (a, b) in enumerate(zip(dims, dims[1:])):
+        layers[f"w{i}"] = (rng.standard_normal((a, b)) * a ** -0.5).astype(np.float32)
+        layers[f"b{i}"] = (0.1 * rng.standard_normal(b)).astype(np.float32)
+    np.savez(root / "nsfw.npz", **layers)
+    feats = np.concatenate(list(VIDEO_FEATURES.values()))
+    nsfw = {dev: analysis.build_nsfw_scorer(str(root / "nsfw.npz"), device=dev)(feats)
+            for dev in (DEVICE, "cpu")}
+    err = float(np.abs(nsfw[DEVICE] - nsfw["cpu"]).max())
+    check(nsfw[DEVICE].shape == (len(feats),) and err <= 1e-5,
+          f"NSFW scores card vs CPU differ by {err} (tol 1e-5)")
+    asr_dir = root / "asr_pickles"
+    asr_dir.mkdir()
+    for vid, res in ASR_PICKLES.items():
+        with open(asr_dir / f"{vid}.pkl", "wb") as f:
+            pickle.dump(res, f)
+    t0 = time.time()
+    first = analysis.analyze_language_job(str(asr_dir), str(root / "lang"))
+    lang_s = time.time() - t0
+    again = analysis.analyze_language_job(str(asr_dir), str(root / "lang"))
+    check(first == len(ASR_PICKLES) and again == 0,
+          f"analyze_language_job processed {first} then {again} of {len(ASR_PICKLES)}")
+    langs = {f.stem: pickle.loads(f.read_bytes())["asr_lang"]
+             for f in (root / "lang").glob("*.pkl")}
+    chapters = {f"v{i}": {"chapters": [{"label": t} for t in titles]} for i, titles in
+                enumerate([["the king and his men", "she bakes bread"],
+                           ["her mother and the nurse", "his father cooks"], ["intro"]])}
+    (root / "chapters.pkl").write_bytes(pickle.dumps(chapters))
+    gender = analysis.analyze_gender_job(str(root / "chapters.pkl"), str(root / "gender.json"))
+    check((root / "gender.json").exists()
+          and gender["percentage_of_male_gender_definition_words"] > 0, f"gender job: {gender}")
+    out = {"nsfw": {"rows": len(feats), "max_abs_err": err, "features": "phase 11"},
+           "language_job": {"processed": first, "rerun": again, "wall_s": lang_s,
+                            "languages": langs},
+           "gender_genbit_score": gender["genbit_score"]}
+    say(f"[last] (d) NSFW over {len(feats)} feature rows card vs CPU within {err:.2e}; language "
+        f"job {first} then {again} ({langs}); gender job genbit {gender['genbit_score']:.4f}")
+    return out
+
+
+def last_bert_grounding(card: str, root: Path, batch: int = BERT_GROUNDING_BATCH,
+                        n_videos: int = 8, chapters: int = 16, n_eval: int = 32):
+    """(e) ``grounding_main --bert-ckpt`` at configs/chapters_momentdetr.json
+    with ``use_speech`` turned on (the recipe has it off): a synthetic HF
+    BERT directory at bert-base width (12 layers, 768 wide, vocab 30522) as
+    sharded ``pytorch_model.bin``, the smoke-mode CLIP text tower, one epoch
+    of ``n_videos`` x ``chapters`` queries at ``batch``
+    (``BERT_GROUNDING_BATCH``), the val and final evals, finite metrics, ms
+    a step, peak memory; the speech tower the CLI built holds 12 layers and
+    reads ``vocab.txt``."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from vidchapters_tpu_torch.config import GroundingConfig
+    from vidchapters_tpu_torch.models.bert import BertConfig
+    from vidchapters_tpu_torch.train import grounding_main as gm
+
+    helpers = _torch_test_helpers()
+    recipe = json.loads((ROOT / GROUNDING_RECIPE).read_text())
+    cfg = dataclasses.replace(GroundingConfig(), **dict(recipe["model"], use_speech=True))
+    data = root / "vmr_speech"
+    data.mkdir()
+    _write_vmr_dataset(data, n_videos, chapters, n_eval, seed=34)
+    bert = helpers.write_bert_dir(root / "bert", BertConfig(hidden_size=cfg.s_feat_dim),
+                                  seed=35, fmt="bin", shards=3)
+    run = dict(recipe, train=dict(recipe["train"], batch_size=batch, epochs=1),
+               data={"train_jsonl": str(data / "train.jsonl"),
+                     "val_jsonl": str(data / "val.jsonl"),
+                     "v_feat_dirs": [str(data / "features")],
+                     "subtitles_path": str(data / "asr.pkl")},
+               model=dataclasses.asdict(cfg))
+    (data / "recipe.json").write_text(json.dumps(run))
+    towers, steps = [], []
+    real = (gm.bert_speech_tower, gm.make_grounding_train_step)
+
+    def tower(*a, **k):
+        towers.append(real[0](*a, **k))
+        return towers[-1]
+
+    def timed_make_step(*a, **k):
+        step = real[1](*a, **k)
+
+        def timed(*sa, **sk):
+            out = []
+            steps.append(_timed_ms(lambda: out.append(step(*sa, **sk))))
+            return out[0]
+
+        return timed
+
+    gm.bert_speech_tower, gm.make_grounding_train_step = tower, timed_make_step
+    tee = _Tee(sys.stdout)
+    held = _fresh_peak()
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(tee):
+            gm._cli(["--recipe", str(data / "recipe.json"), "--save-dir", str(data / "ckpt"),
+                     "--bert-ckpt", str(bert), "--device", DEVICE])
+        torch.cuda.synchronize()
+    finally:
+        gm.bert_speech_tower, gm.make_grounding_train_step = real
+    wall = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    metrics = json.loads("".join(tee.parts).strip().splitlines()[-1])
+    n_steps = n_videos * chapters // batch
+    check(len(towers) == 1 and len(towers[0][0].layers) == 12,
+          "grounding_main --bert-ckpt did not build the 12-layer tower from the directory")
+    ids = towers[0][1](["whisk the eggs", "knead the dough then rest"], max_length=16)
+    check(ids.shape == (2, 16) and (ids[:, 0] == 101).all() and (ids > 0).sum() > 8,
+          f"the speech tokenizer's ids {ids.tolist()}")
+    check(len(steps) == n_steps, f"{len(steps)} --bert-ckpt steps, expected {n_steps}")
+    bad = [m for m in GROUNDING_METRICS if not np.isfinite(metrics.get(m, float("nan")))]
+    check(not bad, f"--bert-ckpt metrics missing or not finite: {bad} in {metrics}")
+    timed = steps[1:] or steps
+    out = {"batch": batch, "steps": n_steps, "step_ms": steps,
+           "step_ms_mean_after_first": sum(timed) / len(timed), "wall_s": wall,
+           "peak_memory_bytes": peak, "metrics": metrics, "speech_max_l": cfg.speech_max_l,
+           "bert": "12 layers x 768, vocab 30522, 3 pytorch_model.bin shards"}
+    say(f"[last] (e) grounding_main --bert-ckpt: {n_steps} steps at batch {batch}, "
+        f"{out['step_ms_mean_after_first']:.1f} ms a step, peak {peak} B, {wall:.1f} s on {card}")
+    return out
+
+
+def last_llama(card: str, root: Path, cfg=None, small=None):
+    """(f) ``build_llama_titler`` from a synthetic HF LLaMA directory at
+    LLaMA-7B's widths (4096 wide, 32 heads, FFN 11008, vocab 32000) cut to
+    ``LLAMA_LAST_LAYERS`` layers, fp16 safetensors shards, with a synthetic
+    SentencePiece BPE ``tokenizer.model`` of 32,000 pieces (byte pieces,
+    merges by score): the load in seconds, titles for the 4 prompts (bf16
+    on the card, 20 greedy tokens at the reference's 512-token prompts), ms
+    a title and a new token; ``vc_main --model-type llama`` from a small
+    directory; then fp32 tokens card vs CPU at d 256, identical."""
+    import torch
+
+    from vidchapters_tpu_torch.data.tokenizer import SentencePieceBPETokenizer
+    from vidchapters_tpu_torch.models import llama
+
+    helpers = _torch_test_helpers()
+    cfg = cfg or dataclasses.replace(llama.LLAMA_7B, num_layers=LLAMA_LAST_LAYERS)
+    t0 = time.time()
+    big = helpers.write_llama_dir(root / "llama7b", cfg, seed=36, shards=2,
+                                  dtype=torch.float16)
+    write_s = time.time() - t0
+    tok = SentencePieceBPETokenizer(str(big / "tokenizer.model"))
+    check(len(tok) == cfg.vocab_size, f"tokenizer.model holds {len(tok)} pieces")
+    ids = [tok.encode(p) for p in LAST_PROMPTS]
+    check(all(tok.decode(i) == p for i, p in zip(ids, LAST_PROMPTS)),
+          "the BPE tokenizer does not round-trip the prompts")
+    n_bytes = sum(tok.pieces[i][2] == 6 for r in ids for i in r)
+    held = _fresh_peak()
+    t0 = time.time()
+    titler = llama.build_llama_titler(str(big), device=DEVICE)
+    torch.cuda.synchronize()
+    load_s = time.time() - t0
+    titler(LAST_PROMPTS[0])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    titles = [titler(p) for p in LAST_PROMPTS]
+    torch.cuda.synchronize()
+    title_ms = (time.time() - t0) * 1e3 / len(LAST_PROMPTS)
+    peak = torch.cuda.max_memory_allocated() - held
+    check(all(isinstance(t, str) for t in titles), f"titles {titles}")
+    del titler
+    torch.cuda.empty_cache()
+
+    small = small or llama.LlamaConfig(hidden_size=256, intermediate_size=512, num_layers=2,
+                                       num_heads=8, num_kv_heads=2)
+    small_dir = helpers.write_llama_dir(root / "llama_small", small, seed=37)
+    got = llama.build_llama_titler(str(small_dir), max_new_tokens=12, device=DEVICE,
+                                   dtype="float32")
+    ref = llama.build_llama_titler(str(small_dir), max_new_tokens=12, device="cpu",
+                                   dtype="float32")
+    pairs = [(got(p), ref(p)) for p in LAST_PROMPTS]
+    check(all(g == r for g, r in pairs), f"fp32 LLaMA titles card vs CPU differ: {pairs}")
+    check(sum(len(r) for _, r in pairs) > 0, "the fp32 titles are all empty")
+    vc = _vc_main_llama(root, small_dir)
+    out = {"layers": cfg.num_layers, "write_s": write_s, "load_s": load_s,
+           "ms_per_title": title_ms, "ms_per_new_token": title_ms / LLAMA_NEW_TOKENS,
+           "peak_memory_bytes": peak, "titles": titles, "byte_pieces_in_prompts": int(n_bytes),
+           "prompt_tokens": [len(i) + 1 for i in ids], "fp32_titles": [r for _, r in pairs],
+           "vc_main_llama": vc,
+           "cut": f"{cfg.num_layers} of LLaMA-7B's 32 layers; seeded random fp16 weights"}
+    say(f"[last] (f) build_llama_titler at LLaMA-7B width, {cfg.num_layers} layers: load "
+        f"{load_s:.1f} s, {title_ms:.1f} ms a title ({out['ms_per_new_token']:.2f} ms a new "
+        f"token), peak {peak} B on {card}; fp32 titles card vs CPU identical; vc_main llama "
+        f"CIDEr {vc.get('CIDEr')}")
+    return out
+
+
+def _vc_main_llama(root: Path, llama_dir: Path):
+    """``vc_main --eval --model-type llama`` over a small VC val set (phase
+    9's layout) from ``llama_dir``: finite metrics."""
+    from vidchapters_tpu_torch.train import vc_main
+
+    data = root / "vc_llama"
+    data.mkdir()
+    _write_vc_dataset(data, 1, 2, 3, seed=38)
+    metrics = _cli_json(vc_main._cli, [
+        "--val-json", str(data / "val.json"), "--features-path", str(data / "features"),
+        "--subtitles-path", str(data / "asr.pkl"), "--save-dir", str(data / "out"), "--eval",
+        "--model-type", "llama", "--llama-dir", str(llama_dir), "--device", DEVICE])
+    _finite_metrics(metrics, "vc_main --model-type llama")
+    return metrics
+
+
+def phase_last_modules(card: str, pdvc_cfg=None, light_cfg=None, bert_cfg=None,
+                       llama_cfgs=(None, None), grounding_batch: int = BERT_GROUNDING_BATCH,
+                       pdvc_videos=LAST_PDVC_VIDEOS):
+    """Phase 13, the last single-GPU modules: (a) PDVC with the GPT-2
+    caption head (HF gpt2's geometry) through ``pdvc_main`` at the width of
+    configs/chapters_pdvc.json (``phase_pdvc``: rows 7 / 7b launched exactly,
+    at forms phase 2 checks; an fp32 gradient check and GPT-2 tokens card vs
+    CPU), (b) the light LSTM head card vs CPU, (c) the toxicity scorer,
+    (d) NSFW, language and gender analysis, (e) ``grounding_main
+    --bert-ckpt``, (f) ``build_llama_titler``. Returns (summary, the
+    deformable launches of (a))."""
+    import torch
+
+    from vidchapters_tpu_torch.config import PDVCConfig
+
+    t_phase = time.time()
+    recipe = json.loads((ROOT / PDVC_RECIPE).read_text())
+    pdvc_cfg = pdvc_cfg or dataclasses.replace(PDVCConfig(), **dict(
+        recipe["model"], caption_decoder_type="gpt2"))
+    gpt2, launches = phase_pdvc(card, pdvc_cfg, *pdvc_videos)
+    torch.cuda.empty_cache()
+    summary = {"card": card, "pdvc_gpt2": gpt2, "light": last_pdvc_light(card, light_cfg)}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        summary["toxicity"] = last_toxicity(card, root, bert_cfg)
+        summary["analysis"] = last_analysis(card, root)
+        torch.cuda.empty_cache()
+        summary["bert_grounding"] = last_bert_grounding(card, root, grounding_batch)
+        torch.cuda.empty_cache()
+        summary["llama"] = last_llama(card, root, *llama_cfgs)
+    torch.cuda.empty_cache()
+    summary["wall_s"] = time.time() - t_phase
+    say(f"[last] phase 13 in {summary['wall_s']:.1f} s on {card}")
+    return summary, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -6059,6 +6538,8 @@ def main() -> int:
         video, feature_launches, demo_launches = phase_video(card)
         torch.cuda.empty_cache()
         zeroshot, zeroshot_launches = phase_zeroshot(card)
+        torch.cuda.empty_cache()
+        last, gpt2_launches = phase_last_modules(card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
@@ -6088,6 +6569,9 @@ def main() -> int:
     for row in table:  # rows 3, 5 and 6 in BLIP-2's zero-shot paths (phase 12b)
         if zeroshot_launches.get(row["name"]):
             row["launches_zeroshot"] = zeroshot_launches[row["name"]]
+    for row in table:  # rows 7 and 7b under PDVC's GPT-2 caption head (phase 13a)
+        if row["name"] in gpt2_launches:
+            row["launches_gpt2"] = gpt2_launches[row["name"]]
     say(f"[summary] serving {e2e['videos_per_s']:.3f} videos/s (megakernel, beam 4); eval "
         f"{evaluation['eval_videos_per_s_beam4_standard']:.3f} videos/s (standard, beam 4), "
         f"{evaluation['eval_videos_per_s_nucleus']:.3f} videos/s (nucleus); training "
@@ -6106,11 +6590,14 @@ def main() -> int:
         f"{video['features']['plain']['frames_per_s']:.1f}), demo_vid2seq "
         f"{video['demo']['wall_s']:.2f} s, alignment {video['align']['wall_s']:.2f} s; "
         f"zero-shot: LLaMA-7B {zeroshot['speech']['titles_per_s']:.2f} titles/s, BLIP-2 "
-        f"greedy step {zeroshot['visual']['greedy_step_ms']:.3f} ms")
+        f"greedy step {zeroshot['visual']['greedy_step_ms']:.3f} ms; PDVC gpt2 head "
+        f"{last['pdvc_gpt2']['train_step_ms_mean_after_first']:.2f} ms/step, toxicity "
+        f"{last['toxicity']['texts_per_s'][TOXIC_MAX_LENGTH]:.1f} texts/s, LLaMA load "
+        f"{last['llama']['load_s']:.1f} s")
     record = {"kernels": table, "train": train, "end_to_end": e2e, "fp32_tokens": fp32,
               "evaluation": evaluation, "pdvc": pdvc, "asr": asr_run, "pretrain": pretrain,
               "reference_checkpoint": reference, "vc": vc, "grounding": grounding, "video": video,
-              "zeroshot": zeroshot, "card": card}
+              "zeroshot": zeroshot, "last_modules": last, "card": card}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

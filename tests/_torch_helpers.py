@@ -1,8 +1,12 @@
 """Shared set-up of the PyTorch port's parity tests: one small Vid2Seq
 config, the JAX package's random init of it, and the port's model holding
-the same weights (through ``from_jax_params``); one small BLIP-2 config and
-a synthetic HF BLIP-2 checkpoint directory (which ``chip_smoke.py`` writes
-too). Nothing here imports jax until a function that needs it is called."""
+the same weights (through ``from_jax_params``); one small BLIP-2 config;
+synthetic HF checkpoint directories of seeded weights for BLIP-2, BERT
+(with a WordPiece ``vocab.txt``) and LLaMA (with a SentencePiece BPE
+``tokenizer.model``), as ``.bin`` or safetensors, one file or shards,
+written without ``transformers`` or ``safetensors`` (``chip_smoke.py``
+writes them too). Nothing here imports jax until a function that needs it
+is called."""
 
 from __future__ import annotations
 
@@ -233,4 +237,353 @@ def write_blip2_dir(root: Path, cfg, seed: int = 0, shards: int = 1) -> Path:
         (root / "pytorch_model.bin.index.json").write_text(
             json.dumps({"metadata": {}, "weight_map": weight_map}))
     _write_spm_model(root / "spiece.model")
+    return root
+
+
+_SAFETENSORS_NAMES = {"float64": "F64", "float32": "F32", "float16": "F16",
+                      "bfloat16": "BF16", "int64": "I64", "int32": "I32", "int16": "I16",
+                      "int8": "I8", "uint8": "U8", "bool": "BOOL"}
+
+
+def write_safetensors(path: Path, tensors) -> Path:
+    """``tensors`` (a dict of torch tensors) as one ``.safetensors`` file,
+    written without the ``safetensors`` package: the 8-byte little-endian
+    header length, the JSON header (``__metadata__`` ``{"format": "pt"}``,
+    each tensor's dtype, shape and byte range), padded with spaces to 8
+    bytes, then the raw data, the widest dtypes first so every tensor is
+    aligned."""
+    import struct
+
+    import torch
+
+    order = sorted(tensors, key=lambda n: (-tensors[n].element_size(), n))
+    header, blobs, offset = {"__metadata__": {"format": "pt"}}, [], 0
+    for name in order:
+        t = tensors[name].detach().cpu().contiguous()
+        blob = t.view(-1).view(torch.uint8).numpy().tobytes() if t.numel() else b""
+        header[name] = {"dtype": _SAFETENSORS_NAMES[str(t.dtype).removeprefix("torch.")],
+                        "shape": list(t.shape), "data_offsets": [offset, offset + len(blob)]}
+        blobs.append(blob)
+        offset += len(blob)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    path.write_bytes(struct.pack("<Q", len(head)) + head + b"".join(blobs))
+    return path
+
+
+def _save_weights(root: Path, sd, fmt: str, shards: int) -> None:
+    """``sd`` as ``pytorch_model.bin`` or ``model.safetensors`` (``fmt``
+    "bin" / "safetensors"), or as ``shards`` files and their index."""
+    import torch
+
+    single = {"bin": "pytorch_model.bin", "safetensors": "model.safetensors"}[fmt]
+    save = (lambda part, path: torch.save(part, path)) if fmt == "bin" else (
+        lambda part, path: write_safetensors(path, part))
+    if shards == 1:
+        save(sd, root / single)
+        return
+    stem, ext = single.split(".")
+    names, weight_map = sorted(sd), {}
+    for k in range(shards):
+        fname = f"{stem}-{k + 1:05d}-of-{shards:05d}.{ext}"
+        part = names[k::shards]
+        save({n: sd[n] for n in part}, root / fname)
+        weight_map.update({n: fname for n in part})
+    (root / f"{single}.index.json").write_text(
+        json.dumps({"metadata": {}, "weight_map": weight_map}))
+
+
+def _seeded(shapes, scales, seed: int, dtype=None):
+    """Seeded random float32 tensors (cast to ``dtype``): N(0, 1/fan_in)
+    matrices, N(0, 0.02) other tensors, norm scales 1 + N(0, 0.1)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for name, shape in shapes.items():
+        x = rng.standard_normal(shape, dtype=np.float32)
+        if name in scales:
+            x = 1.0 + 0.1 * x
+        elif len(shape) == 2 and "embed" not in name:
+            x *= shape[1] ** -0.5
+        else:
+            x *= 0.02
+        sd[name] = torch.from_numpy(x).to(dtype or torch.float32)
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# BERT: a synthetic WordPiece vocab.txt and HF BertModel /
+# BertForSequenceClassification directories
+# ---------------------------------------------------------------------------
+
+
+BERT_WORDS = ("the this video is great awful terrible nice content hello world cook bake "
+              "bread dough oven mix flour sugar salt water butter slice serve knead rest "
+              "minutes eggs whisk fold let it we in of and then step add").split()
+
+
+def write_wordpiece_vocab(path: Path, size: int = 0) -> Path:
+    """A BERT ``vocab.txt``: ``[PAD]``, 99 ``[unused]``, ``[UNK]``, ``[CLS]``,
+    ``[SEP]``, ``[MASK]`` at bert-base-uncased's ids 0-103, then every
+    printable ASCII character, ``##`` + each letter and digit, BERT_WORDS,
+    their prefixes of 3+ letters and ``##`` suffixes of 2+ letters, a few
+    accented and CJK characters, then ``[unused]`` filler up to ``size``."""
+    import string
+
+    tokens = ["[PAD]"] + [f"[unused{i}]" for i in range(99)] + ["[UNK]", "[CLS]", "[SEP]",
+                                                                "[MASK]"]
+    seen = set(tokens)
+
+    def add(t):
+        if t not in seen:
+            seen.add(t)
+            tokens.append(t)
+
+    for c in string.printable.strip():
+        add(c.lower())
+    for c in string.ascii_lowercase + string.digits:
+        add("##" + c)
+    for w in BERT_WORDS:
+        add(w)
+    for w in BERT_WORDS:
+        for k in range(3, len(w)):
+            add(w[:k])
+            add("##" + w[len(w) - k + 1:])
+    for c in "éèàüöñç中文字":
+        add(c)
+    i = 99
+    while len(tokens) < size:
+        add(f"[unused{i}]")
+        i += 1
+    path.write_text("\n".join(tokens) + "\n", encoding="utf-8")
+    return path
+
+
+def bert_hf_config(cfg, num_labels: int = 0) -> dict:
+    """``config.json`` of an HF BERT checkpoint of ``cfg``'s sizes (a
+    ``models.bert.BertConfig``); ``num_labels`` > 0: a sequence
+    classifier."""
+    out = {"model_type": "bert", "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+           "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+           "intermediate_size": cfg.intermediate_size,
+           "max_position_embeddings": cfg.max_position_embeddings,
+           "type_vocab_size": cfg.type_vocab_size, "layer_norm_eps": cfg.layer_norm_eps,
+           "hidden_act": "gelu", "hidden_dropout_prob": 0.0,
+           "attention_probs_dropout_prob": 0.0, "pad_token_id": 0,
+           "architectures": ["BertModel"]}
+    if num_labels:
+        out.update(architectures=["BertForSequenceClassification"],
+                   id2label={str(i): f"LABEL_{i}" for i in range(num_labels)},
+                   label2id={f"LABEL_{i}": i for i in range(num_labels)},
+                   problem_type="multi_label_classification")
+    return out
+
+
+def bert_hf_state_dict(cfg, seed: int = 0, num_labels: int = 0, dtype=None):
+    """A state dict of ``cfg``'s BERT under HF's names, seeded: ``BertModel``'s
+    (with its pooler) or, with ``num_labels``, ``BertForSequenceClassification``'s
+    (``bert.`` prefix, ``classifier``)."""
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    pre = "bert." if num_labels else ""
+    shapes = {pre + "embeddings.word_embeddings.weight": (cfg.vocab_size, d),
+              pre + "embeddings.position_embeddings.weight": (cfg.max_position_embeddings, d),
+              pre + "embeddings.token_type_embeddings.weight": (cfg.type_vocab_size, d)}
+    scales = set()
+
+    def dense(name, n_out, n_in):
+        shapes[name + ".weight"] = (n_out, n_in)
+        shapes[name + ".bias"] = (n_out,)
+
+    def norm(name):
+        shapes[name + ".weight"] = (d,)
+        shapes[name + ".bias"] = (d,)
+        scales.add(name + ".weight")
+
+    norm(pre + "embeddings.LayerNorm")
+    for i in range(cfg.num_layers):
+        lp = f"{pre}encoder.layer.{i}."
+        for part in ("query", "key", "value"):
+            dense(lp + "attention.self." + part, d, d)
+        dense(lp + "attention.output.dense", d, d)
+        norm(lp + "attention.output.LayerNorm")
+        dense(lp + "intermediate.dense", f, d)
+        dense(lp + "output.dense", d, f)
+        norm(lp + "output.LayerNorm")
+    dense(pre + "pooler.dense", d, d)
+    if num_labels:
+        dense("classifier", num_labels, d)
+    return _seeded(shapes, scales, seed, dtype)
+
+
+def write_bert_dir(root: Path, cfg, seed: int = 0, num_labels: int = 0, fmt: str = "bin",
+                   shards: int = 1, do_lower_case: bool = True) -> Path:
+    """An HF BERT checkpoint directory of seeded weights: ``config.json``,
+    ``vocab.txt`` (``write_wordpiece_vocab`` at ``cfg.vocab_size``),
+    ``tokenizer_config.json`` and the weights (``_save_weights``)."""
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "config.json").write_text(json.dumps(bert_hf_config(cfg, num_labels)))
+    write_wordpiece_vocab(root / "vocab.txt", cfg.vocab_size)
+    (root / "tokenizer_config.json").write_text(json.dumps(
+        {"do_lower_case": do_lower_case, "tokenizer_class": "BertTokenizer",
+         "model_max_length": cfg.max_position_embeddings}))
+    _save_weights(root, bert_hf_state_dict(cfg, seed, num_labels), fmt, shards)
+    return root
+
+
+# ---------------------------------------------------------------------------
+# LLaMA: a synthetic SentencePiece BPE tokenizer.model and HF directories
+# ---------------------------------------------------------------------------
+
+
+def _varint(n: int) -> bytes:
+    out = b""
+    while True:
+        b, n = n & 0x7F, n >> 7
+        if not n:
+            return out + bytes([b])
+        out += bytes([b | 0x80])
+
+
+def _proto_field(field: int, value) -> bytes:
+    """One protobuf field: an int as a varint, bytes / str length-delimited."""
+    if isinstance(value, int):
+        return _varint(field << 3) + _varint(value)
+    data = value.encode("utf-8") if isinstance(value, str) else value
+    return _varint(field << 3 | 2) + _varint(len(data)) + data
+
+
+def bpe_merges(words, n_merges: int):
+    """The pieces a BPE trainer makes from ``words`` (each ``▁`` + the
+    word), in order: each round merges the most frequent adjacent pair (the
+    smallest on a tie)."""
+    from collections import Counter
+
+    corpus = Counter(tuple("▁" + w) for w in words)
+    merges = []
+    for _ in range(n_merges):
+        pairs = Counter()
+        for word, n in corpus.items():
+            for a, b in zip(word, word[1:]):
+                pairs[a, b] += n
+        if not pairs:
+            break
+        best = max(pairs.values())
+        a, b = min(p for p, n in pairs.items() if n == best)
+        merges.append(a + b)
+        new = Counter()
+        for word, n in corpus.items():
+            out, i = [], 0
+            while i < len(word):
+                if i + 1 < len(word) and word[i] == a and word[i + 1] == b:
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(word[i])
+                    i += 1
+            new[tuple(out)] += n
+        corpus = new
+    return merges
+
+
+BPE_WORDS = BERT_WORDS + ("chapter title video recipe cooking part one two three intro "
+                          "outro summary final tips").split()
+
+
+def bpe_model_pieces(words=BPE_WORDS, vocab_size: int = 0, n_merges: int = 400,
+                     extra=()):
+    """LLaMA's piece layout: ``<unk>``, ``<s>``, ``</s>``, the 256 ``<0xXX>``
+    byte pieces, the merges of ``bpe_merges(words)`` and then ``extra``
+    pieces, scored 0, -1, -2, ... in that order, the single characters (the
+    words' and printable ASCII) below them, then private-use characters as
+    filler up to ``vocab_size``."""
+    import string
+
+    pieces = [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3)]
+    pieces += [(f"<0x{b:02X}>", 0.0, 6) for b in range(256)]
+    seen = {p for p, _, _ in pieces}
+    chars = sorted({c for w in words for c in w} | set(string.printable.strip()) | {"▁"})
+    score = 0.0
+    for p in list(bpe_merges(words, n_merges)) + list(extra):
+        if p not in seen:
+            seen.add(p)
+            pieces.append((p, score, 1))
+            score -= 1.0
+    for c in chars:
+        if c not in seen:
+            seen.add(c)
+            pieces.append((c, score, 1))
+            score -= 1.0
+    k = 0
+    while len(pieces) < vocab_size:
+        pieces.append((chr(0xE000 + k), score - k, 1))
+        k += 1
+    return pieces
+
+
+def write_bpe_model(path: Path, pieces, byte_fallback: bool = True,
+                    add_dummy_prefix: bool = True, normalizer: str = "identity",
+                    remove_extra_whitespaces: bool = False) -> Path:
+    """A sentencepiece ``ModelProto`` of ``pieces`` ((piece, score, type))
+    with ``trainer_spec.model_type`` BPE and LLaMA's specs by default."""
+    import struct
+
+    body = b""
+    for piece, score, ptype in pieces:
+        sub = (_proto_field(1, piece) + _varint(2 << 3 | 5) + struct.pack("<f", score)
+               + _proto_field(3, ptype))
+        body += _proto_field(1, sub)
+    trainer = (_proto_field(3, 2) + _proto_field(4, len(pieces))
+               + _proto_field(35, int(byte_fallback)) + _proto_field(40, 0)
+               + _proto_field(41, 1) + _proto_field(42, 2))
+    norm = (_proto_field(1, normalizer) + _proto_field(3, int(add_dummy_prefix))
+            + _proto_field(4, int(remove_extra_whitespaces)) + _proto_field(5, 1))
+    path.write_bytes(body + _proto_field(2, trainer) + _proto_field(3, norm))
+    return path
+
+
+def llama_hf_config(cfg) -> dict:
+    """``config.json`` of an HF LLaMA checkpoint of ``cfg``'s sizes."""
+    return {"model_type": "llama", "architectures": ["LlamaForCausalLM"],
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size, "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
+            "max_position_embeddings": cfg.max_position_embeddings,
+            "rms_norm_eps": cfg.rms_norm_eps, "rope_theta": cfg.rope_theta,
+            "bos_token_id": cfg.bos_id, "eos_token_id": cfg.eos_id,
+            "tie_word_embeddings": False, "hidden_act": "silu"}
+
+
+def llama_hf_state_dict(cfg, seed: int = 0, dtype=None):
+    """A state dict of ``cfg``'s LLaMA under HF ``LlamaForCausalLM``'s
+    names, seeded (``_seeded``), in ``dtype`` (float32 by default)."""
+    d, f, kv = cfg.hidden_size, cfg.intermediate_size, cfg.num_kv_heads * cfg.head_dim
+    shapes = {"model.embed_tokens.weight": (cfg.vocab_size, d), "model.norm.weight": (d,),
+              "lm_head.weight": (cfg.vocab_size, d)}
+    scales = {"model.norm.weight"}
+    for i in range(cfg.num_layers):
+        lp = f"model.layers.{i}."
+        shapes.update({lp + "self_attn.q_proj.weight": (d, d),
+                       lp + "self_attn.k_proj.weight": (kv, d),
+                       lp + "self_attn.v_proj.weight": (kv, d),
+                       lp + "self_attn.o_proj.weight": (d, d),
+                       lp + "mlp.gate_proj.weight": (f, d), lp + "mlp.up_proj.weight": (f, d),
+                       lp + "mlp.down_proj.weight": (d, f),
+                       lp + "input_layernorm.weight": (d,),
+                       lp + "post_attention_layernorm.weight": (d,)})
+        scales |= {lp + "input_layernorm.weight", lp + "post_attention_layernorm.weight"}
+    return _seeded(shapes, scales, seed, dtype)
+
+
+def write_llama_dir(root: Path, cfg, seed: int = 0, fmt: str = "safetensors", shards: int = 1,
+                    dtype=None, pieces=None) -> Path:
+    """An HF LLaMA checkpoint directory of seeded weights: ``config.json``,
+    the weights (``_save_weights``, in ``dtype``) and a synthetic BPE
+    ``tokenizer.model`` (``bpe_model_pieces`` at ``cfg.vocab_size`` unless
+    ``pieces`` is given)."""
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "config.json").write_text(json.dumps(llama_hf_config(cfg)))
+    _save_weights(root, llama_hf_state_dict(cfg, seed, dtype), fmt, shards)
+    write_bpe_model(root / "tokenizer.model",
+                    pieces or bpe_model_pieces(vocab_size=cfg.vocab_size))
     return root

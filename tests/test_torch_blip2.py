@@ -194,14 +194,26 @@ def test_build_blip2_captioner_matches_jax(tmp_path, shards):
 
 
 def test_build_blip2_captioner_reads_no_safetensors(tmp_path):
-    from vidchapters_tpu_torch.models.blip2 import build_blip2_captioner
+    """Safetensors are read now (``utils/hf.py``): an empty
+    ``model.safetensors`` raises naming the file, a directory of no weights
+    raises naming both formats, and the loader's state dict from a
+    safetensors file equals that of the ``.bin`` of the same weights."""
+    from tests._torch_helpers import blip2_hf_state_dict, write_safetensors
+    from vidchapters_tpu_torch.models.blip2 import build_blip2_captioner, load_hf_state_dict
 
     _, cfg = blip2_small_cfgs()
     (tmp_path / "config.json").write_text(json.dumps(blip2_hf_config(cfg)))
-    (tmp_path / "model.safetensors").write_bytes(b"")
     chip_smoke._write_spm_model(tmp_path / "spiece.model")
     with pytest.raises(FileNotFoundError, match="pytorch_model.bin.*model.safetensors"):
         build_blip2_captioner(str(tmp_path), device="cpu")
+    (tmp_path / "model.safetensors").write_bytes(b"")
+    with pytest.raises(ValueError, match="model.safetensors: 0 bytes"):
+        build_blip2_captioner(str(tmp_path), device="cpu")
+    sd = blip2_hf_state_dict(cfg, seed=3)
+    write_safetensors(tmp_path / "model.safetensors", sd)
+    got = load_hf_state_dict(str(tmp_path))
+    assert set(got) == set(sd) and all(torch.equal(got[k], sd[k]) for k in sd)
+    assert build_blip2_captioner(str(tmp_path), device="cpu")
 
 
 def test_blip2_bf16_storage_same_numbers(pair):

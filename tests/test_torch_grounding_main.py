@@ -11,8 +11,11 @@ the JAX package's, on the CPU:
   submission rows (NMS) equal JAX's;
 - ``grounding_main``'s CLI end to end at a tiny width with ``--device
   cpu``: a test split and the smoke-mode speech tower; ``--clip-text-ckpt``
-  as a plain state dict and as a TorchScript archive; ``--bert-ckpt``
-  raises.
+  as a plain state dict and as a TorchScript archive; ``--bert-ckpt`` on a
+  synthetic HF BERT directory (safetensors shards): the speech ids equal
+  JAX's ``BertTokenizer`` ids, the tower's features and the first step's
+  loss JAX's within 1e-5, from what each package's CLI hands its
+  ``main``.
 """
 
 import dataclasses
@@ -188,10 +191,11 @@ def test_eval_submission_and_rows_equal_jax():
     assert got == ref and {"MR-full-mAP", "MR-full-R1@0.5"} <= set(got["brief"])
 
 
-def _tiny_recipe(root: Path, speech: bool) -> Path:
+def _tiny_recipe(root: Path, speech: bool, s_feat_dim: int = 16) -> Path:
     recipe = {"model": dict(hidden_dim=32, nheads=4, enc_layers=1, dec_layers=1,
                             dim_feedforward=64, num_queries=4, v_feat_dim=10, t_feat_dim=16,
-                            s_feat_dim=16, use_speech=speech, speech_max_l=16, dropout=0.1,
+                            s_feat_dim=s_feat_dim, use_speech=speech, speech_max_l=16,
+                            dropout=0.1,
                             input_dropout=0.5, max_v_l=30, clip_length=3, dtype="float32"),
               "train": dict(epochs=1, batch_size=2, lr=1e-3, eval_every=1,
                             early_stop_patience=5, max_spans=3),
@@ -228,9 +232,12 @@ def test_cli_end_to_end_with_speech_and_test_split(tmp_path, capsys):
     assert sorted(p["qid"] for p in preds) == [0, 1, 2, 3]
     assert all(len(p["pred_relevant_windows"]) == 4 for p in preds)
 
-    with pytest.raises(NotImplementedError, match="WordPiece"):
-        _cli(["--recipe", str(recipe), "--save-dir", str(save), "--device", "cpu",
-              "--bert-ckpt", str(tmp_path)], capsys)
+    # --bert-ckpt (once a raise): an HF BERT directory at the tower's width
+    bert = _bert_dir(tmp_path / "bert")
+    out = _cli(["--recipe", str(_tiny_recipe(tmp_path, speech=True, s_feat_dim=24)),
+                "--save-dir", str(tmp_path / "bert_ckpt"), "--device", "cpu",
+                "--bert-ckpt", str(bert)], capsys)
+    assert all(np.isfinite(v) for v in out.values())
 
 
 class _Holder(torch.nn.Module):
@@ -283,3 +290,99 @@ def test_cli_clip_text_checkpoint(tmp_path, capsys, form):
         out = _cli(["--recipe", str(recipe), "--save-dir", str(tmp_path / "ckpt"), "--device",
                     "cpu", "--clip-text-ckpt", str(path)], capsys)
         assert np.isfinite(out["MR-full-mAP"])
+
+
+def _bert_dir(root: Path, fmt: str = "safetensors", shards: int = 2) -> Path:
+    """A 2-layer HF BERT directory at hidden 24 with JAX's ``BertConfig``
+    defaults for the rest (vocab 30522, 12 heads, FFN 3072, 512
+    positions): the only geometry JAX's ``--bert-ckpt`` tower takes besides
+    the layer count."""
+    from tests._torch_helpers import write_bert_dir
+    from vidchapters_tpu_torch.models.bert import BertConfig
+
+    return write_bert_dir(root, BertConfig(hidden_size=24, num_layers=2), seed=4, fmt=fmt,
+                          shards=shards)
+
+
+def test_cli_bert_ckpt_matches_jax(tmp_path, monkeypatch, capsys):
+    import sys
+    import textwrap
+
+    import vidchapters_tpu.models.grounding as jg
+    import vidchapters_tpu.train.grounding_main as jmain
+    from tests.test_torch_grounding import _port
+    from vidchapters_tpu.config import GroundingConfig as JConfig
+    from vidchapters_tpu.models.grounding import MomentDETR as JModel
+    from vidchapters_tpu_torch.config import GroundingConfig
+    from vidchapters_tpu_torch.models.grounding import grounding_loss
+    from vidchapters_tpu_torch.train import grounding_main as tmain
+
+    _write_vmr(tmp_path, n=4)
+    recipe = _tiny_recipe(tmp_path, speech=True, s_feat_dim=24)
+    bert = _bert_dir(tmp_path / "bert")
+    got = {}
+
+    def capture(name):
+        return lambda *a, **k: got.update({name: k}) or {}
+
+    argv = ["--recipe", str(recipe), "--save-dir", str(tmp_path / "ckpt"), "--bert-ckpt",
+            str(bert)]
+    # JAX's CLI is the module's ``__main__`` block: run it over the module's
+    # names with ``main`` capturing what the CLI hands it
+    source = Path(jmain.__file__).read_text()
+    block = textwrap.dedent(source.split('if __name__ == "__main__":', 1)[1].split("\n", 1)[1])
+    monkeypatch.setattr(sys, "argv", ["grounding_main"] + argv)
+    exec(compile(block, jmain.__file__, "exec"), dict(vars(jmain), main=capture("jax")))
+    monkeypatch.setattr(tmain, "main", capture("port"))
+    tmain._cli(argv + ["--device", "cpu"])
+    texts = ["hello chapter 0 more speech here", "Héllo, WORLD!! 中文 cook-bake",
+             "x" * 120 + " bread " * 20]
+    jids = got["jax"]["speech_tokenizer"](texts, max_length=16)
+    tids = got["port"]["speech_tokenizer"](texts, max_length=16)
+    assert tids.dtype == jids.dtype == np.int32
+    np.testing.assert_array_equal(tids, jids)
+    mask = (jids != 0).astype(np.int32)
+    jfeat = np.asarray(got["jax"]["speech_encoder"].apply(
+        {"params": got["jax"]["speech_params"]}, jnp.asarray(jids), attention_mask=jnp.asarray(mask)))
+    with torch.no_grad():
+        tfeat = got["port"]["speech_encoder"](torch.from_numpy(jids),
+                                              torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(tfeat, jfeat, rtol=0, atol=1e-5 * np.abs(jfeat).max())
+
+    # the first step's loss: one Moment-DETR init, each package's speech
+    # features of the same ids, the exact assignment (as in test_torch_grounding)
+    kw = dict(hidden_dim=32, nheads=4, enc_layers=1, dec_layers=1, dim_feedforward=64,
+              num_queries=4, v_feat_dim=10, t_feat_dim=16, s_feat_dim=24, use_speech=True,
+              dropout=0.0, input_dropout=0.0)
+    jcfg, tcfg = JConfig(**kw), GroundingConfig(**kw)
+    rng = np.random.default_rng(2)
+    b, lv, lt = 3, 20, 5
+    inputs = [rng.normal(size=(b, lt, 16)).astype(np.float32), np.ones((b, lt), np.int32),
+              rng.normal(size=(b, lv, 10)).astype(np.float32), np.ones((b, lv), np.int32)]
+    jmodel = JModel(jcfg)
+    args = [jnp.asarray(x) for x in inputs]
+    speech = dict(src_speech=jnp.asarray(jfeat), src_speech_mask=jnp.asarray(mask))
+    params = jax.device_get(jax.jit(lambda k: jmodel.init(k, *args, **speech)["params"])(
+        jax.random.PRNGKey(0)))
+    targets = {"spans": np.array([[[0.25, 0.5], [0.0, 0.0]], [[0.5, 0.8], [0.2, 0.1]],
+                                  [[0.6, 0.3], [0.0, 0.0]]], np.float32),
+               "span_valid": np.array([[1, 0], [1, 1], [1, 0]], np.int32),
+               "saliency_pos_labels": np.array([[2, 3], [1, 4], [5, 6]], np.int64),
+               "saliency_neg_labels": np.array([[15, 16], [10, 11], [12, 13]], np.int64)}
+    jt = {k: jnp.asarray(v) for k, v in targets.items()}
+    out = jax.jit(lambda p: jmodel.apply({"params": p}, *args, **speech))(params)
+    layers = [(out["pred_logits"], out["pred_spans"])] + [
+        (a["pred_logits"], a["pred_spans"]) for a in out["aux_outputs"]]
+    exact = [np.asarray(jg._match_batch(lg, sp, jt["spans"], jt["span_valid"].astype(bool),
+                                        jcfg, exact=True)) for lg, sp in layers]
+    calls = iter(exact)
+    monkeypatch.setattr(jg, "_match_batch", lambda *a, **k: jnp.asarray(next(calls)))
+    ref = jax.jit(lambda p: jg.grounding_loss(jmodel.apply({"params": p}, *args, **speech),
+                                              jt, jcfg)[0])(params)
+    model = _port(tcfg, params)
+    t = [torch.from_numpy(x) for x in inputs]
+    with torch.no_grad():
+        pout = model(*t, src_speech=torch.from_numpy(tfeat), src_speech_mask=torch.from_numpy(mask))
+        total, _ = grounding_loss(pout, {k: torch.from_numpy(v) for k, v in targets.items()},
+                                  tcfg, exact_match=True)
+    assert abs(float(total) - float(ref)) <= 1e-5 * abs(float(ref)), (float(total), float(ref))

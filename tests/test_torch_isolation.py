@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: no module of ``vidchapters_tpu_torch`` and
 not ``chip_smoke.py`` imports jax, flax, optax, orbax or the JAX package,
-and the package imports in a process where jax cannot be imported."""
+nor HF's ``transformers``, ``tokenizers``, ``sentencepiece`` or
+``safetensors`` (the card's machine has none of them), and the package
+imports in a process where none of these can be imported."""
 
 import ast
 import os
@@ -12,6 +14,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "vidchapters_tpu"}
+HF_PACKAGES = {"transformers", "tokenizers", "sentencepiece", "safetensors"}
 SOURCES = sorted((ROOT / "vidchapters_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -30,10 +33,17 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_hf_imports(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in HF_PACKAGES]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
 def test_package_imports_with_jax_blocked():
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'vidchapters_tpu'):\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'vidchapters_tpu',\n"
+        "             'transformers', 'tokenizers', 'sentencepiece', 'safetensors'):\n"
         "    sys.modules[name] = None\n"
         "import vidchapters_tpu_torch.serve, vidchapters_tpu_torch.models.weights\n"
         "import vidchapters_tpu_torch.ops.decoding, vidchapters_tpu_torch.runtime.rng\n"
@@ -60,6 +70,10 @@ def test_package_imports_with_jax_blocked():
         "import vidchapters_tpu_torch.train.grounding_train, vidchapters_tpu_torch.train.grounding_main\n"
         "import vidchapters_tpu_torch.zeroshot.run, vidchapters_tpu_torch.models.blip2\n"
         "import vidchapters_tpu_torch.models.llama, vidchapters_tpu_torch.zeroshot.visual_vcg\n"
+        "import vidchapters_tpu_torch.models.gpt2, vidchapters_tpu_torch.utils.hf\n"
+        "import vidchapters_tpu_torch.data.wordpiece, vidchapters_tpu_torch.factory.analysis\n"
+        "import vidchapters_tpu_torch.factory.langid, vidchapters_tpu_torch.factory.genbit\n"
+        "import vidchapters_tpu_torch.utils.misc, vidchapters_tpu_torch.utils.preproc_answer\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'vidchapters_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

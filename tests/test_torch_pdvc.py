@@ -258,9 +258,203 @@ def test_span_ops_match_jax():
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
 
 
-def test_gpt2_caption_head_is_not_ported():
+def test_gpt2_caption_head_builds_and_places_leaves():
+    """Once a raise, the ``gpt2`` head now builds: ``build_captioner`` gives
+    the GPT-2 head at ``cap_gpt2_*``'s geometry, and a JAX init's
+    ``captioner/gpt2/...`` and ``captioner/query2cap`` leaves all place."""
+    from vidchapters_tpu_torch.config import PDVCConfig
+    from vidchapters_tpu_torch.models.pdvc import PDVC, GPT2Captioner, build_captioner
+
+    cfg = PDVCConfig(**GPT2_CFG)
+    head = build_captioner(cfg)
+    assert isinstance(head, GPT2Captioner) and len(head.gpt2.blocks) == cfg.cap_gpt2_n_layer
+    assert tuple(head.gpt2.wte.shape) == (cfg.cap_gpt2_vocab, cfg.cap_gpt2_n_embd)
+    model = PDVC(cfg)
+    names = {n for n in model.state_dict() if n.startswith("captioner.")}
+    assert {"captioner.query2cap.weight", "captioner.gpt2.wte", "captioner.gpt2.wpe",
+            "captioner.gpt2.blocks.0.c_attn.weight", "captioner.gpt2.ln_f.bias"} <= names
+
+
+# the JAX caption-head tests' gpt2 widths (tests/test_pdvc_caption_heads.py::tiny_cfg)
+GPT2_CFG = dict(hidden_dim=32, nheads=4, enc_layers=1, dec_layers=2, dim_feedforward=64,
+                num_queries=6, num_feature_levels=2, dec_n_points=2, enc_n_points=2,
+                feature_dim=8, frame_embedding_num=16, dropout=0.0, vocab_size=40,
+                max_caption_len=6, rnn_size=16, cap_nheads=4, cap_dec_n_points=2,
+                cap_num_feature_levels=2, caption_decoder_type="gpt2", cap_gpt2_n_layer=1,
+                cap_gpt2_n_head=2, cap_gpt2_n_embd=16, cap_gpt2_vocab=41, cap_gpt2_eos=0)
+
+
+@pytest.fixture(scope="module")
+def gpt2_setup():
+    from vidchapters_tpu.config import PDVCConfig as JConfig
+    from vidchapters_tpu.models.pdvc import PDVC as JPDVC
     from vidchapters_tpu_torch.config import PDVCConfig
     from vidchapters_tpu_torch.models.pdvc import PDVC
+    from vidchapters_tpu_torch.models.weights import pdvc_from_jax_params
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PDVC(PDVCConfig(**dict(CFG, caption_decoder_type="gpt2")))
+    jmodel = JPDVC(JConfig(**GPT2_CFG))
+    rng = np.random.default_rng(0)
+    vf = rng.normal(size=(2, 16, 8)).astype(np.float32)
+    mask = np.ones((2, 16), np.int32)
+    mask[1, 12:] = 0
+    params = jax.device_get(jax.jit(lambda k, v, m: jmodel.init(
+        {"params": k}, v, m, method=jmodel.init_all)["params"])(
+        jax.random.PRNGKey(0), jnp.asarray(vf), jnp.asarray(mask)))
+    # wider embeddings than the init's, so greedy captions vary by step, and
+    # the encoder's sampling points off the pixel centres (see ``setup``)
+    gpt2 = params["captioner"]["gpt2"]
+    gpt2["wte"] = rng.normal(size=gpt2["wte"].shape).astype(np.float32)
+    gpt2["wpe"] = rng.normal(size=gpt2["wpe"].shape).astype(np.float32)
+    leaf = params["enc_0"]["self_attn"]["sampling_offsets"]
+    leaf["bias"] = leaf["bias"] + rng.uniform(0.1, 0.4, leaf["bias"].shape).astype(np.float32)
+    model = PDVC(PDVCConfig(**GPT2_CFG))
+    sd = pdvc_from_jax_params(params, model)
+    assert len(sd) == len(jax.tree_util.tree_leaves(params)) == len(model.state_dict())
+    model.load_state_dict(sd)
+    return jmodel, jax.tree_util.tree_map(jnp.asarray, params), model.eval(), vf, mask
+
+
+def test_gpt2_head_train_loss_and_gradients_match_jax(gpt2_setup):
+    """The gpt2 head's train step: the criterion's every term within 1e-5
+    relative and every gradient within 1e-4 of its norm (+1e-7)."""
+    from vidchapters_tpu.models.pdvc_loss import pdvc_criterion as jax_criterion
+    from vidchapters_tpu_torch.models.pdvc_loss import pdvc_criterion
+    from vidchapters_tpu_torch.models.weights import pdvc_from_jax_params
+
+    jmodel, jparams, model, vf, mask = gpt2_setup
+    rng = np.random.default_rng(5)
+    captions = rng.integers(1, 41, size=(2, 3, 6)).astype(np.int32)
+    captions[:, :, 0] = 0
+    captions[0, 0, 4:] = 0
+    captions[1, :, 3:] = 0
+    targets = dict(_targets(rng), captions=captions)
+    jt = {k: jnp.asarray(v) for k, v in targets.items()}
+
+    def loss_fn(p):
+        out = jmodel.apply({"params": p}, jnp.asarray(vf), jnp.asarray(mask))
+        return jax_criterion(jmodel, p, out, jt, jmodel.cfg)
+
+    (_, jlosses), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(jparams)
+    model.zero_grad(set_to_none=True)
+    out = model(torch.from_numpy(vf), torch.from_numpy(mask))
+    total, losses = pdvc_criterion(model, out, {k: torch.from_numpy(v)
+                                                for k, v in targets.items()}, model.cfg)
+    total.backward()
+    assert set(losses) == set(jlosses) and float(losses["loss_caption"].detach()) > 0
+    for k, v in losses.items():
+        r, g = float(jlosses[k]), float(v.detach())
+        assert abs(g - r) <= 1e-5 * max(abs(r), 1e-3), (k, g, r)
+    ref_grads = pdvc_from_jax_params(jax.device_get(jgrads), model)
+    assert float(ref_grads["captioner.gpt2.wte"].norm()) > 0
+    for name, p in model.named_parameters():
+        r = ref_grads[name]
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        err = float((g - r).norm())
+        assert err <= 1e-4 * float(r.norm()) + 1e-7, (name, err, float(r.norm()))
+
+
+def test_gpt2_head_logprobs_and_greedy_tokens_match_jax(gpt2_setup):
+    """Teacher-forced log-probs within 1e-5; greedy tokens identical, with
+    log-probs within 1e-5 (rows that emit the EOS 0 stop)."""
+    jmodel, jparams, model, vf, mask = gpt2_setup
+    jout = _jax_forward(jmodel, jparams, vf, mask)
+    with torch.no_grad():
+        tout = model(torch.from_numpy(vf), torch.from_numpy(mask))
+    feats_j, feats_t = jout["hs"][-1].reshape(-1, 32), tout["hs"][-1].reshape(-1, 32)
+    seq = np.random.default_rng(6).integers(1, 41, size=(12, 6)).astype(np.int32)
+    seq[:, 0] = 0
+    seq[::4, 3:] = 0
+    ref = jax.jit(lambda p, f, s: jmodel.apply({"params": p}, f, s, None,
+                                               method=jmodel.caption_logprobs))(
+        jparams, feats_j, jnp.asarray(seq))
+    with torch.no_grad():
+        got = model.caption_logprobs(feats_t, torch.from_numpy(seq).long())
+    assert got.shape == (12, 5, 41)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
+    jtok, jlp = jax.jit(lambda p, f: jmodel.apply({"params": p}, f, 8, None,
+                                                  method=jmodel.caption_sample))(jparams, feats_j)
+    ttok, tlp = model.caption_sample(feats_t, 8)
+    jtok = np.asarray(jtok)
+    assert len(np.unique(jtok)) > 4
+    np.testing.assert_array_equal(ttok.numpy(), jtok)
+    np.testing.assert_allclose(tlp.numpy(), np.asarray(jlp), rtol=0, atol=1e-5)
+
+
+LIGHT_CFG = dict(CFG, caption_decoder_type="light", vocab_size=12)
+
+
+def _light_head(peaked: bool):
+    """The light LSTM head, seeded; ``peaked``: a logit layer x 1000, whose
+    distributions are one-hot after ``exp`` (a draw is the argmax)."""
+    from vidchapters_tpu_torch.config import PDVCConfig
+    from vidchapters_tpu_torch.models.pdvc import LSTMCaptioner
+
+    head = LSTMCaptioner(PDVCConfig(**LIGHT_CFG))
+    head.init_weights(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        head.logit_w.copy_(torch.randn(head.logit_w.shape,
+                                       generator=torch.Generator().manual_seed(1)))
+        if peaked:
+            head.logit_w.mul_(1000.0)
+    return head
+
+
+def _ss_inputs(n: int, length: int = 8):
+    g = torch.Generator().manual_seed(2)
+    feats = torch.randn(n, 64, generator=g)
+    seq = torch.randint(1, 13, (n, length), generator=g)
+    seq[:, 0] = 0
+    return feats, seq
+
+
+def test_scheduled_sampling_limits():
+    """``ss_prob`` 0, or no generator, is teacher forcing exactly; at 1 over
+    one-hot distributions every input from step 1 on is the previous step's
+    argmax, so the run equals teacher forcing on that argmax sequence."""
+    head = _light_head(peaked=True)
+    feats, seq = _ss_inputs(16)
+    with torch.no_grad():
+        tf = head.teacher_forced_logprobs(feats, seq)
+        assert torch.equal(head.teacher_forced_logprobs(
+            feats, seq, 0.0, torch.Generator().manual_seed(3)), tf)
+        assert torch.equal(head.teacher_forced_logprobs(feats, seq, 0.7, None), tf)
+        ss = head.teacher_forced_logprobs(feats, seq, 1.0, torch.Generator().manual_seed(3))
+        fed = seq.clone()
+        fed[:, 1:-1] = ss[:, :-1].argmax(-1)
+        assert not torch.equal(fed, seq)
+        assert torch.equal(head.teacher_forced_logprobs(feats, fed), ss)
+
+
+def test_scheduled_sampling_flip_rate_and_reproducibility():
+    """At ``ss_prob`` 0.3 the share of steps >= 1 whose input was the draw
+    (recovered step by step from the log-probs) is within 4 standard
+    deviations of 0.3; step 0 never flips. The same generator seed gives
+    the same log-probs, another seed others."""
+    head = _light_head(peaked=True)
+    n, length, p = 300, 8, 0.3
+    feats, seq = _ss_inputs(n, length)
+    with torch.no_grad():
+        ss = head.teacher_forced_logprobs(feats, seq, p, torch.Generator().manual_seed(4))
+        again = head.teacher_forced_logprobs(feats, seq, p, torch.Generator().manual_seed(4))
+        other = head.teacher_forced_logprobs(feats, seq, p, torch.Generator().manual_seed(5))
+        assert torch.equal(ss, again) and not torch.equal(ss, other)
+        state = head._init_state(n, feats)
+        flips = trials = 0
+        for step in range(length - 1):
+            cands = [seq[:, step]] + ([ss[:, step - 1].argmax(-1)] if step else [])
+            runs = [head._cell(state, torch.cat([head.embedding[c], feats], dim=-1))
+                    for c in cands]
+            match = torch.stack([(head._logprobs(h) == ss[:, step]).all(-1) for _, h in runs])
+            assert match.any(0).all()  # every row took one of the candidates
+            if step == 0:
+                continue_state = runs[0][0]
+            else:
+                took = match[1] & ~match[0]
+                differ = cands[0] != cands[1]
+                flips += int((took & differ).sum())
+                trials += int(differ.sum())
+                continue_state = tuple(torch.where(took[:, None], a, b)
+                                       for a, b in zip(runs[1][0], runs[0][0]))
+            state = continue_state
+    rate, sd = flips / trials, (p * (1 - p) / trials) ** 0.5
+    assert trials > 1000 and abs(rate - p) <= 4 * sd, (rate, trials)

@@ -11,7 +11,7 @@ the JAX package's, on the CPU in fp32 at a small width:
   ``eval_para`` scores equal JAX's on fixed texts;
 - ``vc_main`` end to end on the CPU (``best``, ``last``, ``log.txt``), and
   its CLI's ``--eval --model-type random``, ``blip2`` (a synthetic HF
-  directory) and ``llama`` (its loader's message);
+  directory) and ``llama`` (a synthetic HF LLaMA directory);
 - ``get_raw_video``'s black-frame fallback, ``raw_first_frames`` at train
   and eval, and the BLIP-2 / LLaMA evaluators with the same callables,
   against JAX's.
@@ -468,12 +468,13 @@ def test_vc_main_end_to_end_and_random_eval(tmp_path, capsys):
                               str(tmp_path / "videos.json"), "--device", "cpu"])
     scores = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(scores) >= {"CIDEr", "Bleu_1"} and all(np.isfinite(v) for v in scores.values())
-    llama_dir = str(tmp_path / "llama")
-    message = (f"build_llama_titler({llama_dir!r}) needs an encoder for LLaMA's tokenizer.model, "
-               "a SentencePiece BPE model, which the port does not have yet (ROADMAP.md §1, "
-               "\"SentencePiece BPE encoder for LLaMA's tokenizer.model\"); "
-               "make_llama_generate_fn takes a LlamaForCausalLM and any tokenizer with "
-               "encode / decode")
-    with pytest.raises(NotImplementedError) as err:
-        vc_main._cli(args[:-1] + ["llama", "--llama-dir", llama_dir, "--device", "cpu"])
-    assert str(err.value) == message
+    # --model-type llama (once a raise) from a synthetic HF LLaMA directory
+    from tests._torch_helpers import write_llama_dir
+    from vidchapters_tpu_torch.models.llama import LlamaConfig
+
+    llama_dir = write_llama_dir(tmp_path / "llama", LlamaConfig(
+        vocab_size=700, hidden_size=64, intermediate_size=128, num_layers=2, num_heads=4,
+        num_kv_heads=2), seed=5)
+    vc_main._cli(args[:-1] + ["llama", "--llama-dir", str(llama_dir), "--device", "cpu"])
+    scores = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(scores) >= {"CIDEr", "Bleu_1"} and all(np.isfinite(v) for v in scores.values())

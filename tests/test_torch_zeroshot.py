@@ -242,17 +242,28 @@ def test_zeroshot_cli_speech_and_vcgr_match_jax(tmp_path, data, capsys):
         T.main(["vcgr", "--ann", ann, "--mode", "clip"])
 
 
-def test_zeroshot_cli_speech_paths_default_reaches_llama(tmp_path, data):
-    """``--paths`` with ``<model_dir>/7BHF`` present takes the LLaMA titler,
-    whose directory loader raises with its message."""
+def test_zeroshot_cli_speech_paths_default_reaches_llama(tmp_path, data, capsys):
+    """``--paths`` with ``<model_dir>/7BHF`` present takes the LLaMA titler:
+    an empty directory raises in its loader (no ``tokenizer.model``), a
+    synthetic HF LLaMA directory titles the sections."""
+    from tests._torch_helpers import write_llama_dir
     from vidchapters_tpu_torch.config import PathsConfig, save_config
+    from vidchapters_tpu_torch.models.llama import LlamaConfig
     from vidchapters_tpu_torch.zeroshot import run as T
 
     (tmp_path / "models" / "7BHF").mkdir(parents=True)
     save_config(PathsConfig(model_dir=str(tmp_path / "models")), str(tmp_path / "paths.json"))
-    with pytest.raises(NotImplementedError, match="SentencePiece BPE"):
-        T.main(["speech", "--ann", data[0], "--subtitles", data[1], "--paths",
-                str(tmp_path / "paths.json"), "--device", "cpu"])
+    argv = ["speech", "--ann", data[0], "--subtitles", data[1], "--paths",
+            str(tmp_path / "paths.json"), "--device", "cpu"]
+    with pytest.raises(FileNotFoundError, match="tokenizer.model"):
+        T.main(argv)
+    write_llama_dir(tmp_path / "models" / "7BHF", LlamaConfig(
+        vocab_size=700, hidden_size=64, intermediate_size=128, num_layers=2, num_heads=4,
+        num_kv_heads=2), seed=6)
+    capsys.readouterr()
+    T.main(argv)
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out and all(np.isfinite(v) for v in out.values())
 
 
 def test_zeroshot_cli_visual_matches_jax(tmp_path, data, capsys, monkeypatch):

@@ -28,7 +28,10 @@ Entry points:
 - ``zeroshot/run``: the paper's zero-shot baselines (TextTiling + LLaMA
   speech chapters, shot detection + BLIP-2 visual chapters, zero-shot
   grounding); ``train/vc_main`` takes the same LLaMA and BLIP-2 towers as
-  its ``llama`` / ``blip2`` evaluators.
+  its ``llama`` / ``blip2`` evaluators, loaded from HF directories by
+  ``utils/hf`` with the port's own tokenizers;
+- ``factory/analysis``: the datasets' language, gender, toxicity and NSFW
+  statistics.
 
 The kernels are hand-written CUDA C++ for ``sm_90a`` under ``csrc/``,
 built at first use by ``ops/_build.py``. Each kernel's wrapper launches the

@@ -26,9 +26,10 @@ make_decode_fns`` (the standard cached decode: on the card its self- and
 cross-attention kernels, and the top-k at ``num_beams > 1``).
 
 ``build_blip2_captioner`` loads an HF checkpoint directory without
-``transformers``: ``config.json``, ``pytorch_model.bin`` (or its shards)
-through ``models/weights.blip2_from_hf_state_dict``, and ``spiece.model``
-through the port's SentencePiece reader.
+``transformers``: ``config.json`` and the weights (safetensors or
+``pytorch_model.bin``, one file or shards) through ``utils/hf.py`` and
+``models/weights.blip2_from_hf_state_dict``, and ``spiece.model`` through
+the port's SentencePiece reader.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from torch import nn
 from vidchapters_tpu_torch.config import T5Config
 from vidchapters_tpu_torch.models.t5 import RMSNorm, T5ForConditionalGeneration, _linear
 from vidchapters_tpu_torch.models.vit import _layer_norm
+from vidchapters_tpu_torch.utils.hf import load_hf_state_dict
 
 # CLIP normalization used by the HF Blip2Processor (OPENAI_CLIP_MEAN/STD)
 IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
@@ -365,28 +367,6 @@ def config_from_hf(hf: dict, dtype: str = "bfloat16") -> Blip2Config:
         num_query_tokens=hf.get("num_query_tokens", 32))
 
 
-def load_hf_state_dict(model_dir: str) -> dict:
-    """The state dict of ``pytorch_model.bin``, or of the shards that
-    ``pytorch_model.bin.index.json`` lists, read by ``torch.load`` on the
-    CPU. A directory of safetensors only raises, naming what is missing."""
-    root = Path(model_dir)
-    index = root / "pytorch_model.bin.index.json"
-    if index.exists():
-        shards = sorted(set(json.loads(index.read_text())["weight_map"].values()))
-    elif (root / "pytorch_model.bin").exists():
-        shards = ["pytorch_model.bin"]
-    else:
-        found = sorted(p.name for p in root.glob("*.safetensors"))
-        raise FileNotFoundError(
-            f"{model_dir}: no pytorch_model.bin and no pytorch_model.bin.index.json"
-            + (f" (found {found}: safetensors are not read, as the port does not "
-               "depend on the safetensors package)" if found else ""))
-    sd = {}
-    for name in shards:
-        sd.update(torch.load(root / name, map_location="cpu", weights_only=True))
-    return sd
-
-
 def encode_prompts(tokenizer, prompts) -> Tuple[np.ndarray, np.ndarray]:
     """HF ``T5TokenizerFast(prompts, padding=True)``: each prompt's ids and
     ``</s>``, padded on the right with 0 to the longest; (ids, mask) int64."""
@@ -421,7 +401,8 @@ def make_blip2_caption_fn(model: Blip2, tokenizer, max_new_tokens: int = 20):
 def build_blip2_captioner(model_dir: str, max_new_tokens: int = 20, device=None,
                           dtype: str = "bfloat16"):
     """The reference's BLIP-2 captioner from an HF checkpoint directory
-    (``config.json``, ``pytorch_model.bin`` or its shards, ``spiece.model``):
+    (``config.json``, the weights as ``utils/hf.load_hf_state_dict`` reads
+    them, ``spiece.model``):
     ``make_blip2_caption_fn`` of the model, greedy, on ``device`` (the card
     unless the caller asks for the CPU) in ``dtype``."""
     from vidchapters_tpu_torch import resolve_device

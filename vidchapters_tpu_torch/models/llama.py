@@ -18,9 +18,10 @@ attention is plain PyTorch (no kernel), as the JAX module's is plain einsum.
 ``llama_greedy_generate`` runs a static KV cache: one prefill over the
 left-padded prompts, then one token a step. ``make_llama_generate_fn`` binds
 a model and a tokenizer into the reference's ``generate_fn(prompt) -> str``.
-``build_llama_titler`` (loading an HF checkpoint directory) raises: LLaMA's
-``tokenizer.model`` is a SentencePiece BPE model and the port has no
-encoder for it yet.
+``build_llama_titler`` loads an HF checkpoint directory (``load_llama``:
+``config.json`` and the weights through ``utils/hf.py``; LLaMA's
+SentencePiece BPE ``tokenizer.model`` through
+``data/tokenizer.SentencePieceBPETokenizer``) and gives that function.
 """
 
 from __future__ import annotations
@@ -296,12 +297,52 @@ def make_llama_generate_fn(model: LlamaForCausalLM, tokenizer, max_new_tokens: i
     return generate_fn
 
 
+def llama_config_from_hf(hf: dict, dtype: str = "bfloat16") -> LlamaConfig:
+    """``LlamaConfig`` from an HF ``config.json`` dict, the fields the JAX
+    loader reads (``vidchapters_tpu/models/llama.py:build_llama_titler``)."""
+    return LlamaConfig(
+        vocab_size=hf["vocab_size"], hidden_size=hf["hidden_size"],
+        intermediate_size=hf["intermediate_size"], num_layers=hf["num_hidden_layers"],
+        num_heads=hf["num_attention_heads"],
+        num_kv_heads=hf.get("num_key_value_heads", hf["num_attention_heads"]),
+        max_position_embeddings=hf["max_position_embeddings"],
+        rms_norm_eps=hf["rms_norm_eps"], rope_theta=hf.get("rope_theta", 10000.0),
+        bos_id=hf["bos_token_id"], eos_id=hf["eos_token_id"], dtype=dtype)
+
+
+def load_llama(model_dir: str, device=None, dtype: str = "bfloat16") -> LlamaForCausalLM:
+    """An HF LLaMA checkpoint directory's ``LlamaForCausalLM``: the config
+    of ``config.json``, the weights (safetensors or ``pytorch_model.bin``,
+    one file or shards, through ``utils/hf.py``) imported by
+    ``llama_from_hf_state_dict`` and stored in ``dtype`` on ``device`` (the
+    card unless the caller asks for the CPU)."""
+    from vidchapters_tpu_torch import resolve_device
+    from vidchapters_tpu_torch.models.weights import llama_from_hf_state_dict
+    from vidchapters_tpu_torch.utils.hf import load_hf_config, load_hf_state_dict
+
+    device = resolve_device(device)
+    cfg = llama_config_from_hf(load_hf_config(model_dir), dtype)
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg)
+    sd = llama_from_hf_state_dict(load_hf_state_dict(model_dir), model)
+    model.load_state_dict({k: v.to(_dtype(cfg)) for k, v in sd.items()}, assign=True)
+    return model.to(device).eval()
+
+
 def build_llama_titler(model_dir: str, max_new_tokens: int = 20, batch_size: int = 8,
-                       max_length: int = 512, device=None):
-    """The reference's LLaMA titler from an HF checkpoint directory. Not
-    ported yet: it raises before reading anything."""
-    raise NotImplementedError(
-        f"build_llama_titler({model_dir!r}) needs an encoder for LLaMA's tokenizer.model, a "
-        "SentencePiece BPE model, which the port does not have yet (ROADMAP.md §1, "
-        "\"SentencePiece BPE encoder for LLaMA's tokenizer.model\"); "
-        "make_llama_generate_fn takes a LlamaForCausalLM and any tokenizer with encode / decode")
+                       max_length: int = 512, device=None, dtype: str = "bfloat16"):
+    """The reference's LLaMA titler from an HF checkpoint directory
+    (``config.json``, the weights, ``tokenizer.model``): ``load_llama`` in
+    ``dtype`` on ``device``, the SentencePiece BPE ``tokenizer.model``
+    (``data/tokenizer.SentencePieceBPETokenizer``), and
+    ``make_llama_generate_fn``: ``<s>`` as pad, padded on the left and
+    truncated at ``max_length``, ``max_new_tokens`` greedy tokens, decoded
+    without special tokens (zs_speechvcg.py:131-133, 150-200).
+    ``batch_size`` is the JAX signature's and unused there too."""
+    from pathlib import Path
+
+    from vidchapters_tpu_torch.data.tokenizer import SentencePieceBPETokenizer
+
+    tokenizer = SentencePieceBPETokenizer(str(Path(model_dir) / "tokenizer.model"))
+    model = load_llama(model_dir, device, dtype)
+    return make_llama_generate_fn(model, tokenizer, max_new_tokens, max_length)

@@ -6,8 +6,9 @@ CaptioningHead/): a conv1d multi-scale pyramid with GroupNorm and sine
 position embeddings; a 1-D multi-scale deformable attention encoder and
 decoder (``ops/deformable_attention``, the CUDA kernels on the card); event
 queries with iterative box refinement; per-layer class, event-count and box
-heads; and a caption head (LSTM, LSTM with deformable soft attention, or a
-no-op puppet).
+heads; and a caption head (LSTM, LSTM with deformable soft attention,
+GPT-2 over a projected event-query prefix (``models/gpt2.py``), or a no-op
+puppet).
 
 Parameters keep the JAX module's names (``enc_{i}`` -> ``enc_layers.{i}``,
 ``class_head_{i}`` -> ``class_heads.{i}``, ...) so that
@@ -27,6 +28,7 @@ import torch
 from torch import nn
 
 from vidchapters_tpu_torch.config import PDVCConfig
+from vidchapters_tpu_torch.models.gpt2 import GPT2, GPT2Config, gpt2_greedy_sample
 from vidchapters_tpu_torch.models.t5 import _apply_dropout
 from vidchapters_tpu_torch.ops.deformable_attention import (
     deformable_attention_1d,
@@ -340,15 +342,30 @@ class LSTMCaptioner(_LSTMHead):
     def __init__(self, cfg: PDVCConfig):
         super().__init__(cfg, cfg.rnn_size + cfg.hidden_dim)
 
-    def teacher_forced_logprobs(self, feats: torch.Tensor, seq: torch.Tensor) -> torch.Tensor:
+    def teacher_forced_logprobs(self, feats: torch.Tensor, seq: torch.Tensor,
+                                ss_prob: float = 0.0,
+                                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """feats [N, C]; seq [N, L] ([0, w1..wk, 0, pad...]) -> log-probs
         [N, L-1, V+1] predicting seq[:, 1:] (the input at step i is
-        seq[:, i]). The JAX head's scheduled sampling (``ss_prob``), which no
-        entry point turns on, is not ported."""
-        state = self._init_state(feats.shape[0], feats)
+        seq[:, i]).
+
+        ``ss_prob`` > 0 with a ``generator`` turns on scheduled sampling
+        (LSTM.py:66-77, the ramp at PDVC/train.py:193-197): from step 1 on,
+        each row's input is, with that probability, a draw from the previous
+        step's distribution instead of the ground truth. Both draws come
+        from ``generator`` (on the device of ``feats``); without one, or at
+        0, this is teacher forcing. No entry point passes ``ss_prob``."""
+        use_ss = ss_prob > 0.0 and generator is not None
+        n = feats.shape[0]
+        state = self._init_state(n, feats)
         logps = []
         for step in range(seq.shape[1] - 1):
-            state, h = self._cell(state, torch.cat([self.embedding[seq[:, step]], feats], dim=-1))
+            tok = seq[:, step]
+            if use_ss and step >= 1:
+                flip = torch.rand(n, generator=generator, device=feats.device) < ss_prob
+                sampled = torch.multinomial(logps[-1].exp(), 1, generator=generator)[:, 0]
+                tok = torch.where(flip, sampled.to(tok.dtype), tok)
+            state, h = self._cell(state, torch.cat([self.embedding[tok], feats], dim=-1))
             logps.append(self._logprobs(h))
         return torch.stack(logps, dim=1)
 
@@ -476,9 +493,56 @@ class PuppetCaptioner(nn.Module):
                 torch.zeros((n, max_len), dtype=torch.float32, device=feats.device))
 
 
+class GPT2Captioner(nn.Module):
+    """GPT-2 caption head conditioned on a projected event-query prefix
+    (PDVC/pdvc/pdvc.py:56-57, 413-427: ``inputs_embeds = [query2cap(event);
+    wte(seq)]``, prefix label -100), at ``cfg.cap_gpt2_*``'s geometry."""
+
+    def __init__(self, cfg: PDVCConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.gpt2 = GPT2(GPT2Config(vocab_size=cfg.cap_gpt2_vocab, n_embd=cfg.cap_gpt2_n_embd,
+                                    n_layer=cfg.cap_gpt2_n_layer, n_head=cfg.cap_gpt2_n_head))
+        self.query2cap = nn.Linear(cfg.hidden_dim, cfg.cap_gpt2_n_embd)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        self.gpt2.init_weights(generator)
+        _lecun_normal(self.query2cap.weight, self.query2cap.in_features, generator)
+        self.query2cap.bias.zero_()
+
+    def teacher_forced_logprobs(self, feats: torch.Tensor, seq: torch.Tensor) -> torch.Tensor:
+        """feats [N, C]; seq [N, L] -> log-probs [N, L-1, V] predicting
+        seq[:, 1:], the LSTM heads' convention: inputs = [prefix ;
+        wte(seq[:, :-1])], so logit position j >= 1 predicts seq[:, j]
+        (pdvc.py:413-418 with HF's internal label shift)."""
+        prefix = self.query2cap(feats)[:, None]
+        logits = self.gpt2(tokens=seq[:, :-1], prefix_embeds=prefix)
+        return torch.log_softmax(logits[:, 1:], dim=-1)
+
+    forward = teacher_forced_logprobs
+
+    @torch.no_grad()
+    def greedy_sample(self, feats: torch.Tensor, max_len: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Greedy continuation after the projected prefix (the reference's
+        ``cap_head.generate(inputs_embeds=query2cap(clip))``, pdvc.py:516-519)
+        -> (tokens [N, max_len], log-probs [N, max_len]) by
+        ``gpt2_greedy_sample``. Tokens after the first ``cap_gpt2_eos`` or 0
+        are 0, and their log-probs 0, as in the LSTM heads' samples (the
+        model is causal, so what it ran after that token changes nothing
+        before it)."""
+        toks, lps = gpt2_greedy_sample(self.gpt2, self.query2cap(feats)[:, None], max_len,
+                                       eos_id=self.cfg.cap_gpt2_eos, with_logprobs=True)
+        stop = ((toks == self.cfg.cap_gpt2_eos) | (toks == 0)).int()
+        after = (torch.cumsum(stop, dim=1) - stop) > 0
+        return toks.masked_fill(after, 0), lps.masked_fill(after, 0.0)
+
+
 def build_captioner(cfg: PDVCConfig) -> nn.Module:
     """Caption head by ``cfg.caption_decoder_type`` (CaptioningHead/__init__.py:6-24;
-    "standard" is the reference's name for the DSA head, "dsa" an alias)."""
+    "standard" is the reference's name for the DSA head, "dsa" an alias; the
+    gpt2 branch is PDVC/pdvc/pdvc.py:56-57)."""
     kind = cfg.caption_decoder_type
     if kind == "none":
         return PuppetCaptioner(cfg)
@@ -487,8 +551,7 @@ def build_captioner(cfg: PDVCConfig) -> nn.Module:
     if kind in ("standard", "dsa"):
         return DSACaptioner(cfg)
     if kind == "gpt2":
-        raise NotImplementedError(
-            "the GPT-2 caption head (models/gpt2.py) is not ported yet (ROADMAP.md)")
+        return GPT2Captioner(cfg)
     raise ValueError(f"caption decoder type is invalid: {kind!r}")
 
 

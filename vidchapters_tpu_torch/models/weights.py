@@ -17,7 +17,9 @@ the port has no place for, or a port parameter that no leaf fills, raises.
   map to ``enc_layers.{i}``, ``dec_layers.{i}``, ``proj.{l}``,
   ``class_heads.{i}``, ... The caption heads' explicit matrices
   (``embedding``, ``w_x``, ``logit_w``, ...) keep their names and their
-  ``[in, out]`` orientation.
+  ``[in, out]`` orientation; the GPT-2 head's ``captioner/gpt2/block_{i}``
+  maps to ``captioner.gpt2.blocks.{i}``, its ``wte`` / ``wpe`` keep their
+  names.
 - ``grounding_from_jax_params``: Moment-DETR; ``enc_{i}`` / ``dec_{i}`` map to
   ``enc_layers.{i}`` / ``dec_layers.{i}`` as PDVC's do; ``query_embed``
   keeps its name.
@@ -35,12 +37,15 @@ the port has no place for, or a port parameter that no leaf fills, raises.
   Q-Former's ``layer_{i}`` map to ``layers.{i}.{part}`` / ``layers.{i}``,
   the T5 under ``t5`` as ``from_jax_params`` maps Vid2Seq's.
 
-Two importers read HF state dicts instead, through the JAX package's HF
+Three importers read HF state dicts instead, through the JAX package's HF
 converters' names (each a port copy), and raise on any name they read
 nothing from: ``llama_from_hf_state_dict`` (``convert_hf_llama``; a
-``rotary_emb.inv_freq`` buffer passes when it equals the model's) and
+``rotary_emb.inv_freq`` buffer passes when it equals the model's),
 ``blip2_from_hf_state_dict`` (``convert_hf_blip2``; the T5's tied
-``embed_tokens`` copies pass when they equal ``shared``).
+``embed_tokens`` copies pass when they equal ``shared``) and
+``gpt2_from_hf_state_dict`` (``convert_hf_gpt2``; the tied ``lm_head``
+passes when it equals ``wte``, the attention's mask buffers when they are
+the causal mask).
 """
 
 from __future__ import annotations
@@ -55,10 +60,10 @@ from torch import nn
 _BLOCK = re.compile(r"^block_(\d+)$")
 _RENAME = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
 _LAYER = re.compile(r"^layer_(\d+)$")
-_PDVC_LISTS = re.compile(r"^(enc|dec|proj|class_head|count_head|bbox_head)_(\d+)$")
+_PDVC_LISTS = re.compile(r"^(enc|dec|proj|class_head|count_head|bbox_head|block)_(\d+)$")
 _PDVC_LIST_NAMES = {"enc": "enc_layers", "dec": "dec_layers", "proj": "proj",
                     "class_head": "class_heads", "count_head": "count_heads",
-                    "bbox_head": "bbox_heads"}
+                    "bbox_head": "bbox_heads", "block": "blocks"}
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()) -> Dict[tuple, np.ndarray]:
@@ -390,3 +395,50 @@ def blip2_from_hf_state_dict(sd: Mapping[str, Any], model: nn.Module
             r.read.add(key)
     _all_read(r, "blip2_from_hf_state_dict")
     return blip2_from_jax_params(tree, model)
+
+
+def gpt2_from_hf_state_dict(sd: Mapping[str, Any], model: nn.Module
+                            ) -> Dict[str, torch.Tensor]:
+    """HF ``GPT2Model`` / ``GPT2LMHeadModel`` state dict (``transformer.``
+    prefix optional) -> the port's ``GPT2`` ``model``'s state_dict, through
+    ``convert_hf_gpt2``'s names. HF's ``Conv1D`` stores ``[in, out]``, the
+    JAX tree's kernel layout, which ``nn.Linear`` transposes to
+    ``[out, in]``."""
+    from vidchapters_tpu_torch.models.torch_import import _Reader
+
+    arr = _float_arrays(sd)
+    if any(k.startswith("transformer.") for k in arr):
+        arr = {k.removeprefix("transformer."): v for k, v in arr.items()}
+    r = _Reader(arr)
+
+    def norm(name: str) -> Dict[str, np.ndarray]:
+        return {"scale": r[name + ".weight"], "bias": r[name + ".bias"]}
+
+    def conv1d(name: str) -> Dict[str, np.ndarray]:
+        return {"kernel": r[name + ".weight"], "bias": r[name + ".bias"]}
+
+    tree: Dict[str, Any] = {"wte": r["wte.weight"], "wpe": r["wpe.weight"],
+                            "ln_f": norm("ln_f")}
+    i = 0
+    while f"h.{i}.ln_1.weight" in arr:
+        lp = f"h.{i}."
+        tree[f"block_{i}"] = {"ln_1": norm(lp + "ln_1"), "ln_2": norm(lp + "ln_2"),
+                              "c_attn": conv1d(lp + "attn.c_attn"),
+                              "c_proj": conv1d(lp + "attn.c_proj"),
+                              "mlp_fc": conv1d(lp + "mlp.c_fc"),
+                              "mlp_proj": conv1d(lp + "mlp.c_proj")}
+        for buf in (lp + "attn.bias", lp + "attn.masked_bias"):
+            if buf in arr:
+                a = arr[buf]
+                causal = (a.ndim == 4 and a.shape[-1] == a.shape[-2]
+                          and np.array_equal(a[0, 0], np.tril(np.ones(a.shape[-2:]))))
+                if not (causal or a.ndim == 0):
+                    raise ValueError(f"gpt2_from_hf_state_dict: {buf} is not the causal mask")
+                r.read.add(buf)
+        i += 1
+    if "lm_head.weight" in arr:
+        if not np.array_equal(arr["lm_head.weight"], arr["wte.weight"]):
+            raise ValueError("gpt2_from_hf_state_dict: lm_head is not tied to wte")
+        r.read.add("lm_head.weight")
+    _all_read(r, "gpt2_from_hf_state_dict")
+    return _import(tree, model, _port_name, "gpt2_from_hf_state_dict")

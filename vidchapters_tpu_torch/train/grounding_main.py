@@ -18,8 +18,8 @@ host prepares the next batch while the card runs the step.
 plain state dict under its names; without it the text tower is one seeded
 random layer (smoke mode). With ``use_speech`` and no ``--bert-ckpt`` the
 speech tower is one seeded random BERT layer behind a per-process hash
-tokenizer (smoke mode). Not ported: ``--bert-ckpt`` (it needs HF's
-WordPiece tokenizer; ROADMAP.md §1) and the data-parallel mesh (one
+tokenizer (smoke mode); ``--bert-ckpt`` takes an HF BERT checkpoint
+directory (``bert_speech_tower``). Not ported: the data-parallel mesh (one
 process; ROADMAP.md §1, "More than one GPU").
 """
 
@@ -199,6 +199,34 @@ def smoke_speech_tower(cfg: GroundingConfig):
     return tower, tokenizer
 
 
+def bert_speech_tower(cfg: GroundingConfig, model_dir: str):
+    """(tower, tokenizer) from an HF BERT checkpoint directory, as the JAX
+    CLI builds them (``vidchapters_tpu/train/grounding_main.py:318-338``):
+    the directory's WordPiece ``vocab.txt`` (``data/wordpiece.py``; ids
+    truncated and padded to ``max_length``), and its weights through
+    ``utils/hf.py`` and ``convert_hf_bert`` (a sequence classifier's head is
+    dropped, as ``BertModel.from_pretrained`` drops it) into a tower of
+    ``hidden_size = s_feat_dim`` and the checkpoint's layer count, JAX's
+    ``BertConfig`` defaults for every other field."""
+    from vidchapters_tpu_torch.data.wordpiece import WordPieceTokenizer
+    from vidchapters_tpu_torch.models.bert import BertConfig, BertModel, convert_hf_bert
+    from vidchapters_tpu_torch.utils.hf import load_hf_config, load_hf_state_dict
+
+    wordpiece = WordPieceTokenizer.from_pretrained(model_dir)
+
+    def tokenizer(texts, max_length=512):
+        enc = wordpiece(list(texts), max_length=max_length, truncation=True,
+                        padding="max_length")
+        return enc["input_ids"].astype(np.int32)
+
+    sd = {k: v for k, v in load_hf_state_dict(model_dir).items()
+          if not k.startswith("classifier.")}
+    tower = BertModel(BertConfig(hidden_size=cfg.s_feat_dim,
+                                 num_layers=load_hf_config(model_dir)["num_hidden_layers"]))
+    tower.load_state_dict(convert_hf_bert(sd))
+    return tower, tokenizer
+
+
 def _cli(argv=None) -> None:
     import argparse
     import dataclasses
@@ -221,8 +249,8 @@ def _cli(argv=None) -> None:
     p.add_argument("--subtitles-path", default=None,
                    help="ASR pickle/dir for the speech stream (model.use_speech recipes)")
     p.add_argument("--bert-ckpt", default=None,
-                   help="HF bert-base-uncased dir for the speech tower: not ported (it "
-                        "needs HF's WordPiece tokenizer); omitted = one random BERT layer "
+                   help="HF bert-base-uncased dir for the speech tower (vocab.txt, "
+                        "config.json, the weights); omitted = one random BERT layer "
                         "and a hash tokenizer (smoke only)")
     p.add_argument("--save-dir", required=True)
     p.add_argument("--config", default=None, help="GroundingConfig json (defaults if omitted)")
@@ -276,14 +304,13 @@ def _cli(argv=None) -> None:
         text_encoder.init_weights(torch.Generator().manual_seed(0))
 
     # the frozen BERT speech tower (model.py:47-50 / 131-136), with use_speech only
-    if a.bert_ckpt:
-        raise NotImplementedError(
-            "--bert-ckpt needs HF's WordPiece tokenizer (BertTokenizer), which the port "
-            "does not have yet (ROADMAP.md §1); omit it for the smoke-mode speech tower")
     speech_encoder = speech_tokenizer = None
     if cfg.use_speech:
-        print("WARNING: no --bert-ckpt; random speech tower + hash tokenizer (smoke mode)")
-        speech_encoder, speech_tokenizer = smoke_speech_tower(cfg)
+        if a.bert_ckpt:
+            speech_encoder, speech_tokenizer = bert_speech_tower(cfg, a.bert_ckpt)
+        else:
+            print("WARNING: no --bert-ckpt; random speech tower + hash tokenizer (smoke mode)")
+            speech_encoder, speech_tokenizer = smoke_speech_tower(cfg)
 
     print(json.dumps(main(ds_paths.train_jsonl_path, ds_paths.val_jsonl_path, a.v_feat_dirs,
                           cfg, a.save_dir, text_encoder=text_encoder,

@@ -20,8 +20,8 @@ so the batches are the same for the same seed. ``--eval --model-type
 random`` scores each clip's ASR as its title (vc.py:109); ``blip2`` captions
 each clip's first raw frame with the BLIP-2 checkpoint directory of
 ``--blip2-dir`` (``--videos-path`` maps video ids to raw videos); ``llama``
-reaches ``models.llama.build_llama_titler``, which raises until the port
-has LLaMA's SentencePiece-BPE encoder.
+titles each clip's ASR with the LLaMA checkpoint directory of
+``--llama-dir`` (``models.llama.build_llama_titler``).
 """
 
 from __future__ import annotations
