@@ -34,7 +34,7 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    past both borders and on pixel centres; two backward runs bit-identical;
    both parts timed at both query counts), the Whisper decode kernel at
    large-v2 width (fp32 and bf16, cross K/V int8 and unquantized, greedy 8
-   rows and beam 2 x 5 and 8 x 5, cache indices 0/100/223), and the seven feature
+   rows and 1 row, beam 1 x 5, 2 x 5 and 8 x 5, cache indices 0/100/223), and the seven feature
    probes against their known answers (p2 and p3 also on random inputs).
    Each kernel's time (CUDA events), its plain version's time, the one-call
    library yardstick where one exists, and its bound; the fused attention
@@ -147,8 +147,9 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    and the bound (ViT-L/14's also beside the 384-key form); the decode
    kernel at demo_vid2seq's 1 x 4 rows and the top-k at [1, 4*32200].
 12. The paper's zero-shot baselines at full width, seeded random weights,
-   bf16, each tower freed before the next. (a) Speech chapters at LLaMA-7B
-   (13.5 GB, built on the card): run_speech_vcg over 8 synthetic videos of
+   bf16, each tower freed before the next. (a) Speech chapters at LLaMA-7B's
+   widths cut to 16 of its 32 layers (7.0 GB, built on the card; the cut
+   keeps the smoke inside its time limit): run_speech_vcg over 8 synthetic videos of
    four topics with make_llm_titler(make_llama_generate_fn(...)) (a
    synthetic word-hash tokenizer stands in for LLaMA's, which the port
    cannot read; prompts padded to 512, 20 greedy tokens), the prefill's and
@@ -196,9 +197,24 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    SentencePiece BPE tokenizer.model of 32,000 pieces): load seconds, 4
    titles, ms a title; fp32 titles card vs CPU at d 256; vc_main
    --model-type llama.
+14. demo_asr at Whisper large-v2 width from a synthetic HF directory that
+   the port reads itself: phase 7's seeded weights as fp16
+   model.safetensors, config.json, a byte-level BPE vocab.json /
+   merges.txt of 50257 entries and Whisper's 1608 added tokens in
+   tokenizer_config.json, laid out as the snapshot of
+   openai/whisper-large-v2 in an HF hub cache (HF_HUB_CACHE), so that
+   demo_asr.main's default --model and --device run. The shortest of phase
+   7's .wav files (20 s, one window) twice: plain in a fresh Python
+   process, as a user's first `python -m ...demo_asr` runs (its wall
+   seconds from the start of the process), and --vad --align in this one;
+   the pickles in the JAX demo's schema, the Whisper kernel's launches exactly
+   223 x decode calls + detection calls and only at its one-row form (phase
+   2 checks it); seconds of each load part, transcription (audio-s/s) and
+   alignment, peak memory; the same at 4+4 layers in fp32 from a directory
+   (--model DIR), card vs CPU at the greedy rung: identical pickles.
 
 The kernels' launch counts are zeroed just before each main path (phases
-3, 4, 6, 7, 8, 11, 13a, each BLIP-2 call of 12 and each run of 5) and read just after it; the kernel line
+3, 4, 6, 7, 8, 11, 13a, each BLIP-2 call of 12, each run of 5 and 14) and read just after it; the kernel line
 reports each kernel's count from its own path (training for the fused
 attention, serving for top-k and the decode kernel, phase 5's first run for
 the decode-attention kernels, phase 6's pdvc_main run for the deformable
@@ -208,8 +224,9 @@ attention, phase 7's sweep for the Whisper kernel); rows 1-2 also carry
 ``launches_features`` from phase 11(a) and rows 1, 3 and 4
 ``launches_demo`` from phase 11(b); rows 3, 5 and 6 carry
 ``launches_zeroshot`` from phase 12(b)'s BLIP-2 calls, rows 7 and 7b
-``launches_gpt2`` from phase 13(a)'s pdvc_main run. The probes lie on no
-path: their count is phase 2's.
+``launches_gpt2`` from phase 13(a)'s pdvc_main run, row 8
+``launches_demo_asr`` from phase 14's two demo_asr runs. The probes lie on
+no path: their count is phase 2's.
 
 The last lines are the kernel table as one JSON object, the nvidia-smi
 line, and {"ok": true, "device": {...}}. The full record also goes to
@@ -219,6 +236,7 @@ chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import pickle
 import subprocess
@@ -1904,6 +1922,7 @@ def check_deformable_attention(gen):
 
 WHISPER_N, WHISPER_D, WHISPER_H, WHISPER_DFF = 32, 1280, 20, 5120  # large-v2's decoder
 WHISPER_L, WHISPER_LENC = 224, 1500  # max_decode_len 224; 30 s of audio at 50 frames/s
+WHISPER_FORMS = ((8, 1), (2, 5), (8, 5), (1, 1), (1, 5))  # (examples, beams) phase 2 checks
 
 
 # the Whisper kernel's limit against its plain version, a share of the plain
@@ -2034,20 +2053,22 @@ def check_whisper_tensor_cores():
 def check_whisper_megakernel(gen):
     """The Whisper decode kernel against its plain version at large-v2 width
     (32 layers, d 1280, 20 heads, d_ff 5120, L 224, 1500 encoder frames),
-    fp32 and bf16, cross K/V int8 and unquantized: the greedy form at 8 rows
-    and the beam forms at 2 and 8 examples x 5 beams (10 and 40 rows, the
-    second ``transcribe_batch``'s beam rung at batch 8) with a permutation,
-    each at cache indices 0, 100 and 223. hidden and k/v new within
-    ``WHISPER_TOL`` of the plain version's largest hidden element, the
-    copied cache rows bit for bit, row idx the new k/v. Timed by CUDA-graph
-    replay at the sweep's shape (greedy, 8 rows, int8, bf16) and both beam
-    forms, at idx 111 (the middle of a 223-step decode)."""
+    fp32 and bf16, cross K/V int8 and unquantized: the greedy forms at 8
+    rows (the sweep's batch) and 1 row (one video: ``demo_asr`` and every
+    language detection of one video, phases 7 and 14) and the beam forms at
+    1, 2 and 8 examples x 5 beams (5, 10 and 40 rows: phase 7's one-video
+    beam and ``transcribe_batch``'s beam rung at batch 2 and 8) with a
+    permutation, each at cache indices 0, 100 and 223. hidden and k/v new
+    within ``WHISPER_TOL`` of the plain version's largest hidden element,
+    the copied cache rows bit for bit, row idx the new k/v. Timed by
+    CUDA-graph replay at every form (int8, bf16) at idx 111 (the middle of
+    a 223-step decode)."""
     import torch
 
     from vidchapters_tpu_torch.ops import whisper_megakernel as wm
 
     heads, lenc = WHISPER_H, WHISPER_LENC
-    forms = ((8, 1), (2, 5), (8, 5))
+    forms = WHISPER_FORMS
     errs, identical = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         tol = WHISPER_TOL[str(dtype).split(".")[-1]]
@@ -2132,6 +2153,7 @@ def check_whisper_megakernel(gen):
             "ms": g1["ms"], "plain_ms": g1["plain_ms"], "bound_ms": g1["bound_ms"],
             "bound_by": g1["bound_by"], "library_ms": None, "library": "none (no single call)",
             "eager_ms": g1["eager_ms"], "beam_2x5": times["2x5"], "beam_8x5": times["8x5"],
+            "greedy_1x1": times["1x1"], "beam_1x5": times["1x5"],
             "tolerance": WHISPER_TOL,
             "bit_identical_8x5_bf16": identical,
             "barrier_us": barrier_us, "hmma_per_kernel": hmma,
@@ -5576,6 +5598,7 @@ def _fresh_peak() -> int:
 
 
 ZS_VIDEOS = 8              # phase 12(a)'s speech videos
+ZS_LLAMA_LAYERS = 16       # 12(a)'s LLaMA-7B widths, cut from 32 layers for the smoke's time
 ZS_TOPICS = (("pasta", "boil", "salt", "sauce", "noodle", "simmer", "garlic", "basil"),
              ("engine", "race", "track", "tyre", "brake", "gear", "lap", "pit"),
              ("canvas", "brush", "paint", "colour", "sketch", "easel", "oil", "shade"),
@@ -5638,7 +5661,8 @@ def _finite_metrics(metrics, what: str):
 
 
 def zeroshot_speech(card: str, root: Path, cfg=None, n_videos: int = ZS_VIDEOS):
-    """(a) Speech chapters at LLaMA-7B, bf16, seeded random weights:
+    """(a) Speech chapters at LLaMA-7B's widths, ``ZS_LLAMA_LAYERS`` of its 32
+    layers, bf16, seeded random weights:
     ``run_speech_vcg`` with ``make_llm_titler(make_llama_generate_fn(...))``
     (prompts padded to 512, 20 greedy tokens), the prefill's and a decode
     step's time against their bounds, titles/s, peak memory; then
@@ -5653,7 +5677,8 @@ def zeroshot_speech(card: str, root: Path, cfg=None, n_videos: int = ZS_VIDEOS):
     from vidchapters_tpu_torch.zeroshot.run import run_speech_vcg
     from vidchapters_tpu_torch.zeroshot.speech_vcg import make_llm_titler
 
-    cfg = cfg or dataclasses.replace(llama.LLAMA_7B, dtype="bfloat16")
+    cfg = cfg or dataclasses.replace(llama.LLAMA_7B, dtype="bfloat16",
+                                     num_layers=ZS_LLAMA_LAYERS)
     ann, asr, vc_val = _zs_speech_data(root, n_videos)
     held = _fresh_peak()
     t0 = time.time()
@@ -6477,6 +6502,333 @@ def phase_last_modules(card: str, pdvc_cfg=None, light_cfg=None, bert_cfg=None,
     return summary, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 14: demo_asr from an HF Whisper directory
+# ---------------------------------------------------------------------------
+
+DEMO_ASR_NAME = "openai/whisper-large-v2"  # demo_asr's default --model, large-v2
+DEMO_ASR_REVISION = "5ca1ab1e" * 5         # the synthetic hub snapshot's commit
+DEMO_ASR_FP32_LAYERS = 4
+
+
+def _hub_snapshot(hub: Path, name: str) -> Path:
+    """The snapshot directory of hub name ``name`` in an HF hub cache at
+    ``hub`` (``models--org--name/refs/main`` naming it), created empty."""
+    repo = hub / ("models--" + name.replace("/", "--"))
+    (repo / "refs").mkdir(parents=True)
+    (repo / "refs" / "main").write_text(DEMO_ASR_REVISION)
+    return repo / "snapshots" / DEMO_ASR_REVISION
+
+
+class _DemoProbe:
+    """Instruments one ``demo_asr.main`` call without changing what it
+    does: wall seconds (after a sync) of the config, weight read, weight
+    import, tokenizer, whole model load, transcription and alignment; the
+    transcribers made; every Whisper kernel form launched (rows, examples,
+    dtype, int8). ``greedy`` pins the transcribers' temperatures to (0.0,)
+    (the fp32 card-vs-CPU check: the sampled rungs draw from the card's or
+    the CPU's generator)."""
+
+    def __init__(self, greedy: bool = False):
+        self.seconds, self.transcribers, self.forms = {}, [], set()
+        self.greedy = greedy
+
+    def __enter__(self):
+        import torch
+
+        from vidchapters_tpu_torch.data import whisper_tokenizer
+        from vidchapters_tpu_torch.demo import demo_asr
+        from vidchapters_tpu_torch.factory import whisper_transcribe as wt
+        from vidchapters_tpu_torch.models import weights, whisper
+        from vidchapters_tpu_torch.ops import whisper_megakernel as wm
+        from vidchapters_tpu_torch.utils import hf
+
+        probe, self.saved = self, []
+
+        def timed(mod, name, key):
+            fn = getattr(mod, name)
+
+            def run(*a, **k):
+                t0 = time.time()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                probe.seconds[key] = probe.seconds.get(key, 0.0) + time.time() - t0
+                return out
+
+            self._patch(mod, name, run)
+
+        timed(hf, "load_hf_config", "config_s")
+        timed(hf, "load_hf_state_dict", "weights_read_s")
+        timed(weights, "whisper_from_hf_state_dict", "weights_import_s")
+        timed(whisper_tokenizer, "load_whisper_tokenizer", "tokenizer_s")
+        timed(whisper, "load_hf_whisper", "model_load_s")
+        timed(whisper.Whisper, "to", "to_device_s")
+        timed(demo_asr, "align_segments", "align_s")
+        step = wm.whisper_mega_step
+
+        def recorded_step(stacked, x, k_cache, v_cache, k_cross, *a, **k):
+            probe.forms.add((int(x.shape[0]), int(k_cross.shape[0]), str(x.dtype),
+                             k.get("k_cross_scale") is not None))
+            return step(stacked, x, k_cache, v_cache, k_cross, *a, **k)
+
+        self._patch(wm, "whisper_mega_step", recorded_step)
+        base = wt.WhisperTranscriber
+
+        class Recorded(base):
+            def __init__(self, *a, **k):
+                if probe.greedy:
+                    k["temperatures"] = (0.0,)
+                super().__init__(*a, **k)
+                probe.transcribers.append(self)
+
+            def transcribe(self, audio):
+                t0 = time.time()
+                out = super().transcribe(audio)
+                torch.cuda.synchronize()
+                probe.seconds["transcribe_s"] = time.time() - t0
+                return out
+
+        self._patch(wt, "WhisperTranscriber", Recorded)
+        return self
+
+    def _patch(self, mod, name, value):
+        self.saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, value)
+
+    def __exit__(self, *exc):
+        for mod, name, value in reversed(self.saved):
+            setattr(mod, name, value)
+        return False
+
+
+def _demo_asr_main(argv, greedy: bool = False):
+    """One ``demo_asr.main(argv)``: (the pickle it wrote, its probe, wall s,
+    the Whisper kernel's launches, peak device memory)."""
+    import torch
+
+    from vidchapters_tpu_torch.demo import demo_asr
+    from vidchapters_tpu_torch.ops import whisper_megakernel as wm
+
+    out = argv[argv.index("--out") + 1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wm.KERNEL.launches = 0
+    t0 = time.time()
+    with _DemoProbe(greedy) as probe:
+        demo_asr.main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    with open(out, "rb") as f:
+        result = pickle.load(f)
+    return result, probe, wall, wm.KERNEL.launches, torch.cuda.max_memory_allocated()
+
+
+def _demo_asr_report(argv) -> dict:
+    """``_demo_asr_main(argv)`` reduced to what phase 14 checks and prints:
+    its wall and part seconds, the transcriber's decode and detection calls,
+    the Whisper kernel's launches and forms, peak device memory."""
+    _, probe, wall, n, peak = _demo_asr_main(argv)
+    check(len(probe.transcribers) == 1, f"{len(probe.transcribers)} transcribers")
+    tr = probe.transcribers[0]
+    return {"wall_s": wall, "seconds": dict(probe.seconds), "decode_calls": tr.decode_calls,
+            "detect_calls": tr.detect_calls, "launches": n, "forms": sorted(probe.forms),
+            "peak_memory_bytes": peak}
+
+
+def _demo_asr_fresh_process(argv, env) -> dict:
+    """``_demo_asr_report(argv)`` in a new Python process started from
+    ``ROOT``, as a user's ``python -m vidchapters_tpu_torch.demo.demo_asr``
+    pays it on each call: the interpreter, torch's import and CUDA's start,
+    the first model build and the first copy to the card included. Adds
+    ``process_s``, the process's wall seconds from its start to its end."""
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "print(json.dumps(chip_smoke._demo_asr_report(sys.argv[2:])))")
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-c", code, str(ROOT), *argv], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=600)
+    process_s = time.time() - t0
+    check(proc.returncode == 0, f"demo_asr in a fresh process exited {proc.returncode}: "
+                                f"{proc.stderr[-2000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    report["process_s"] = process_s
+    return report
+
+
+def _check_demo_pickle(res, aligned: bool, what: str) -> None:
+    """The JAX demo's schema: ``segments`` of text / start / end (plus
+    ``words`` when aligned), ``word_segments`` when aligned, ``language``."""
+    import math
+
+    from vidchapters_tpu_torch.factory.whisper_transcribe import WHISPER_LANGUAGES
+
+    keys = {"segments", "language"} | ({"word_segments"} if aligned else set())
+    check(set(res) == keys, f"{what}: keys {sorted(res)}, expected {sorted(keys)}")
+    check(res["language"] in WHISPER_LANGUAGES, f"{what}: language {res['language']!r}")
+    seg_keys = {"text", "start", "end"} | ({"words"} if aligned else set())
+    for seg in res["segments"]:
+        check(set(seg) == seg_keys and isinstance(seg["text"], str)
+              and math.isfinite(seg["start"]) and math.isfinite(seg["end"])
+              and seg["start"] <= seg["end"], f"{what}: segment {seg}")
+    if aligned:
+        words = [w for seg in res["segments"] for w in seg["words"]]
+        check(res["word_segments"] == words, f"{what}: word_segments is not the segments' words")
+        check(all(set(w) == {"word", "start", "end"} and math.isfinite(w["start"])
+                  and math.isfinite(w["end"]) for w in words), f"{what}: words {words[:4]}")
+
+
+def demo_asr_fp32_check(root: Path, wav: str, cfg, layers: int = DEMO_ASR_FP32_LAYERS):
+    """Large-v2 widths cut to ``layers`` + ``layers`` layers, fp32 (the
+    loader's config given ``dtype="float32"``), from its own HF directory
+    (fp32 safetensors) passed as ``--model DIR``: ``demo_asr.main --vad
+    --align`` on the card and on the CPU, the transcribers at their greedy
+    rung. The pickles must be identical: segments, texts, times, language
+    and word times."""
+    import functools
+
+    import torch
+
+    from vidchapters_tpu_torch.models import whisper
+
+    cut = dataclasses.replace(cfg, encoder_layers=layers, decoder_layers=layers)
+    model = _whisper_model(cut, DEVICE, seed=11)
+    small = _torch_test_helpers().write_whisper_dir(root / "whisper_fp32", model,
+                                                     dtype=torch.float32)
+    del model
+    torch.cuda.empty_cache()
+    runs = {}
+    saved = whisper.WhisperConfig
+    whisper.WhisperConfig = functools.partial(saved, dtype="float32")
+    try:
+        for dev in (DEVICE, "cpu"):
+            out = root / f"demo_fp32_{dev}.pkl"
+            res, probe, wall, _, _ = _demo_asr_main(
+                ["--video_path", wav, "--out", str(out), "--model", str(small), "--device", dev,
+                 "--vad", "--align"], greedy=True)
+            check(probe.forms <= {(1, 1, "torch.float32", cfg.d_model >= 1280)} or dev == "cpu",
+                  f"fp32 demo_asr launched Whisper kernel forms {probe.forms}")
+            runs[dev] = (res, wall)
+            del probe
+            gc.collect()
+    finally:
+        whisper.WhisperConfig = saved
+    (card, card_s), (cpu, cpu_s) = runs[DEVICE], runs["cpu"]
+    _check_demo_pickle(card, True, "fp32 demo_asr on the card")
+    check(card == cpu, "fp32 demo_asr: the card's pickle differs from the CPU's: "
+                       f"{card['segments'][:3]} vs {cpu['segments'][:3]}")
+    n_words = len(card["word_segments"])
+    say(f"[demo_asr] fp32 {layers}+{layers} layers: {len(card['segments'])} segments, {n_words} "
+        f"words, language {card['language']}: card and CPU pickles identical (card {card_s:.1f} "
+        f"s, CPU {cpu_s:.1f} s)")
+    return {"layers": layers, "segments": len(card["segments"]), "words": n_words,
+            "language": card["language"], "wall_s_card": card_s, "wall_s_cpu": cpu_s,
+            "identical": True}
+
+
+def phase_demo_asr(card: str, cfg=None, seconds: float = ASR_SECONDS[0]):
+    """Phase 14: ``demo/demo_asr.main`` at Whisper large-v2 width from a
+    synthetic HF directory read by the port itself. (a) The directory,
+    written by ``tests/_torch_helpers.write_whisper_dir`` from phase 7's
+    seeded weights (seed 7) as fp16 ``model.safetensors`` with
+    ``config.json`` and a byte-level BPE ``vocab.json`` / ``merges.txt`` of
+    50257 entries plus Whisper's 1608 added tokens in
+    ``tokenizer_config.json``, laid out as the snapshot of
+    ``openai/whisper-large-v2`` in an HF hub cache that ``HF_HUB_CACHE``
+    points at. (b) ``main`` with the default ``--model`` and ``--device``
+    on the shortest of phase 7's .wav files (20 s, one window) twice: plain
+    in a fresh process (``_demo_asr_fresh_process``) and ``--vad --align``
+    in this one. (c) The pickles in the JAX demo's schema; the
+    Whisper kernel's launches exactly 223 x decode calls + detection calls
+    of each run's transcriber, only at the form phase 2 checks (1 row, bf16,
+    int8 cross K/V). (d) ``demo_asr_fp32_check``. Seconds of each load part,
+    transcription (audio-s/s) and alignment, and peak memory."""
+    import os
+
+    import torch
+
+    from vidchapters_tpu_torch.models.whisper import LARGE_V2
+    from vidchapters_tpu_torch.utils.hf import resolve_hf_dir
+
+    cfg = cfg or LARGE_V2
+    t_phase = time.time()
+    summary = {"card": card, "audio_s": seconds,
+               "config": "Whisper large-v2 widths (vocab 51865, 80 mels, 32 + 32 layers, d 1280, "
+                         "20 heads, d_ff 5120), phase 7's seeded random weights, fp16 on disk"}
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        wav = _write_asr_wavs(root, (seconds,))[0]
+        t0 = time.time()
+        model = _whisper_model(cfg, DEVICE, seed=7)
+        snap = _hub_snapshot(root / "hub", DEMO_ASR_NAME)
+        _torch_test_helpers().write_whisper_dir(snap, model, dtype=torch.float16)
+        del model
+        torch.cuda.empty_cache()
+        summary["write_s"] = time.time() - t0
+        vocab = json.loads((snap / "vocab.json").read_text(encoding="utf-8"))
+        added = json.loads((snap / "tokenizer_config.json").read_text())["added_tokens_decoder"]
+        check(len(vocab) == 50257 and len(added) == 1608
+              and min(map(int, added)) == 50257 and max(map(int, added)) == 51864,
+              f"the synthetic tokenizer holds {len(vocab)} + {len(added)} tokens")
+        summary["file_bytes"] = sum(p.stat().st_size for p in snap.iterdir())
+        saved_env = os.environ.get("HF_HUB_CACHE")
+        os.environ["HF_HUB_CACHE"] = str(root / "hub")
+        try:
+            check(resolve_hf_dir(DEMO_ASR_NAME) == str(snap),
+                  f"resolve_hf_dir({DEMO_ASR_NAME!r}) did not find the hub snapshot")
+            device = [] if DEVICE == "cuda" else ["--device", DEVICE]
+            for name, extra in (("plain", []), ("vad_align", ["--vad", "--align"])):
+                out = root / f"demo_{name}.pkl"
+                argv = ["--video_path", wav, "--out", str(out)] + device + extra
+                run = (_demo_asr_fresh_process(argv, dict(os.environ)) if name == "plain"
+                       else _demo_asr_report(argv))
+                with open(out, "rb") as f:
+                    res = pickle.load(f)
+                gc.collect()  # the transcriber holds the model: free it before the next run
+                torch.cuda.empty_cache()
+                _check_demo_pickle(res, name == "vad_align", f"demo_asr {name}")
+                n, calls = run["launches"], (run["decode_calls"], run["detect_calls"])
+                want = ASR_STEPS * calls[0] + calls[1]
+                check(n == want, f"demo_asr {name}: Whisper kernel launches {n}, expected "
+                                 f"{want} ({calls[0]} decode, {calls[1]} detect)")
+                form = (1, 1, "torch.bfloat16", cfg.d_model >= 1280)  # int8 at large-v2
+                check({tuple(f) for f in run["forms"]} <= {form}, f"demo_asr {name} launched "
+                      f"Whisper kernel forms {run['forms']}; phase 2 checks {form}")
+                sec, peak = run["seconds"], run["peak_memory_bytes"]
+                sec["build_s"] = sec["model_load_s"] - sum(
+                    sec[k] for k in ("config_s", "weights_read_s", "weights_import_s",
+                                     "to_device_s"))
+                run.update(audio_s_per_s=seconds / sec["transcribe_s"],
+                           segments=len(res["segments"]),
+                           words=len(res.get("word_segments", [])), language=res["language"])
+                summary[name] = run
+                launches += n
+                say(f"[demo_asr] {name}: "
+                    + (f"a fresh process {run['process_s']:.1f} s, of it " if "process_s" in run
+                       else "")
+                    + f"main {run['wall_s']:.1f} s; load config {sec['config_s']:.3f} s, "
+                    f"weights read {sec['weights_read_s']:.2f} s + import "
+                    f"{sec['weights_import_s']:.2f} s, tokenizer {sec['tokenizer_s']:.2f} s, "
+                    f"model built {sec['build_s']:.2f} s, to the card {sec['to_device_s']:.2f} "
+                    f"s; transcribe {sec['transcribe_s']:.2f} s ({run['audio_s_per_s']:.2f} "
+                    f"audio-s/s, {calls[0]} decode calls, {calls[1]} detect, launches {n} = "
+                    f"expected)"
+                    + (f", align {sec['align_s']:.2f} s, {run['words']} words"
+                       if "align_s" in sec else "")
+                    + f"; {run['segments']} segments, language {res['language']}; peak {peak} B "
+                      f"on {card}")
+        finally:
+            if saved_env is None:
+                os.environ.pop("HF_HUB_CACHE", None)
+            else:
+                os.environ["HF_HUB_CACHE"] = saved_env
+        torch.cuda.empty_cache()
+        summary["fp32"] = demo_asr_fp32_check(root, wav, cfg)
+    summary["wall_s"] = time.time() - t_phase
+    say(f"[demo_asr] phase 14 in {summary['wall_s']:.1f} s (directory written in "
+        f"{summary['write_s']:.1f} s, {summary['file_bytes']} bytes) on {card}")
+    return summary, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -6540,6 +6892,8 @@ def main() -> int:
         zeroshot, zeroshot_launches = phase_zeroshot(card)
         torch.cuda.empty_cache()
         last, gpt2_launches = phase_last_modules(card)
+        torch.cuda.empty_cache()
+        demo_asr, demo_asr_launches = phase_demo_asr(card)
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
@@ -6572,6 +6926,13 @@ def main() -> int:
     for row in table:  # rows 7 and 7b under PDVC's GPT-2 caption head (phase 13a)
         if row["name"] in gpt2_launches:
             row["launches_gpt2"] = gpt2_launches[row["name"]]
+    for row in table:  # row 8 at one row in demo_asr's two runs (phase 14)
+        if row["name"] == "whisper_megakernel":
+            row["launches_demo_asr"] = demo_asr_launches
+            one = row["greedy_1x1"]
+            say(f"[demo_asr] row 8 at one row (large-v2, bf16, int8, idx 111): {one['ms']:.4f} "
+                f"ms a step (plain {one['plain_ms']:.4f}, bound {one['bound_ms']:.4f} by "
+                f"{one['bound_by']}), {demo_asr_launches} launches in phase 14 on {card}")
     say(f"[summary] serving {e2e['videos_per_s']:.3f} videos/s (megakernel, beam 4); eval "
         f"{evaluation['eval_videos_per_s_beam4_standard']:.3f} videos/s (standard, beam 4), "
         f"{evaluation['eval_videos_per_s_nucleus']:.3f} videos/s (nucleus); training "
@@ -6593,11 +6954,13 @@ def main() -> int:
         f"greedy step {zeroshot['visual']['greedy_step_ms']:.3f} ms; PDVC gpt2 head "
         f"{last['pdvc_gpt2']['train_step_ms_mean_after_first']:.2f} ms/step, toxicity "
         f"{last['toxicity']['texts_per_s'][TOXIC_MAX_LENGTH]:.1f} texts/s, LLaMA load "
-        f"{last['llama']['load_s']:.1f} s")
+        f"{last['llama']['load_s']:.1f} s; demo_asr large-v2 transcribe "
+        f"{demo_asr['plain']['audio_s_per_s']:.2f} audio-s/s, phase 14 "
+        f"{demo_asr['wall_s']:.1f} s")
     record = {"kernels": table, "train": train, "end_to_end": e2e, "fp32_tokens": fp32,
               "evaluation": evaluation, "pdvc": pdvc, "asr": asr_run, "pretrain": pretrain,
               "reference_checkpoint": reference, "vc": vc, "grounding": grounding, "video": video,
-              "zeroshot": zeroshot, "last_modules": last, "card": card}
+              "zeroshot": zeroshot, "last_modules": last, "demo_asr": demo_asr, "card": card}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -257,17 +257,21 @@ def write_safetensors(path: Path, tensors) -> Path:
     import torch
 
     order = sorted(tensors, key=lambda n: (-tensors[n].element_size(), n))
-    header, blobs, offset = {"__metadata__": {"format": "pt"}}, [], 0
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
     for name in order:
-        t = tensors[name].detach().cpu().contiguous()
-        blob = t.view(-1).view(torch.uint8).numpy().tobytes() if t.numel() else b""
+        t = tensors[name]
+        size = t.numel() * t.element_size()
         header[name] = {"dtype": _SAFETENSORS_NAMES[str(t.dtype).removeprefix("torch.")],
-                        "shape": list(t.shape), "data_offsets": [offset, offset + len(blob)]}
-        blobs.append(blob)
-        offset += len(blob)
+                        "shape": list(t.shape), "data_offsets": [offset, offset + size]}
+        offset += size
     head = json.dumps(header, separators=(",", ":")).encode()
     head += b" " * (-len(head) % 8)
-    path.write_bytes(struct.pack("<Q", len(head)) + head + b"".join(blobs))
+    with open(path, "wb") as f:  # tensor by tensor: no copy of the whole file in memory
+        f.write(struct.pack("<Q", len(head)) + head)
+        for name in order:
+            t = tensors[name].detach().cpu().contiguous()
+            if t.numel():
+                f.write(t.view(-1).view(torch.uint8).numpy().data)
     return path
 
 
@@ -586,4 +590,177 @@ def write_llama_dir(root: Path, cfg, seed: int = 0, fmt: str = "safetensors", sh
     _save_weights(root, llama_hf_state_dict(cfg, seed, dtype), fmt, shards)
     write_bpe_model(root / "tokenizer.model",
                     pieces or bpe_model_pieces(vocab_size=cfg.vocab_size))
+    return root
+
+
+# -- Whisper: the byte-level BPE tokenizer and the HF checkpoint directory ---------
+
+WHISPER_TEXTS = ("We whisk the eggs, then fold in 250 g of flour. Don't over-mix it; "
+                 "it'll be tough!\nCafé crème brûlée à la française, déjà vu.\n"
+                 "今日は料理をします。鶏肉と野菜を切ります。 🍳🥚 emoji 👍🏽\n"
+                 "Numbers: 3.14, 2024, ½ and ²; tabs\there   and  runs    of spaces.\n"
+                 "I'm sure you've seen it, they're here, we'd go, she's done, I'll try.\n"
+                 "Приготовим борщ. Ελληνικά γράμματα. עברית. العربية.\n")
+
+
+def whisper_special_tokens():
+    """Whisper's added tokens in id order from 50257: ``<|endoftext|>``,
+    ``<|startoftranscript|>``, the 99 language tokens, the task and control
+    tokens, then the 1501 timestamps ``<|0.00|>`` .. ``<|30.00|>``."""
+    from vidchapters_tpu_torch.factory.whisper_transcribe import WHISPER_LANGUAGES
+
+    return (["<|endoftext|>", "<|startoftranscript|>"] + [f"<|{c}|>" for c in WHISPER_LANGUAGES]
+            + ["<|translate|>", "<|transcribe|>", "<|startoflm|>", "<|startofprev|>",
+               "<|nocaptions|>", "<|notimestamps|>"]
+            + [f"<|{i * 0.02:.2f}|>" for i in range(1501)])
+
+
+WHISPER_N_SPECIAL = 107  # <|endoftext|> .. <|notimestamps|>; the timestamps are not special
+
+
+def byte_bpe_merges(texts, n_merges: int):
+    """Byte-level BPE merges trained on ``texts`` without ``tokenizers``: the
+    port's GPT-2 pre-tokenizer, each piece's bytes through the byte-to-
+    unicode table, then rounds that merge the most frequent adjacent pair
+    (the smallest on a tie). Returns [(a, b)] in rank order."""
+    from collections import Counter
+
+    from vidchapters_tpu_torch.data.clip_tokenizer import bpe_merge, bytes_to_unicode
+    from vidchapters_tpu_torch.data.whisper_tokenizer import pretokenize
+
+    enc = bytes_to_unicode()
+    corpus = Counter(tuple(enc[b] for b in piece.encode("utf-8"))
+                     for text in texts for piece in pretokenize(text))
+    merges = []
+    for _ in range(n_merges):
+        pairs = Counter()
+        for word, n in corpus.items():
+            for a, b in zip(word, word[1:]):
+                pairs[a, b] += n
+        if not pairs:
+            break
+        best = max(pairs.values())
+        a, b = min(p for p, n in pairs.items() if n == best)
+        merges.append((a, b))
+        new = Counter()
+        for word, n in corpus.items():
+            new[tuple(bpe_merge(word, {(a, b): 0}))] += n
+        corpus = new
+    return merges
+
+
+def whisper_vocab(merges, size: int = 50257, base=None):
+    """A ``vocab.json`` dict of ``size`` entries: ``base`` (a trained
+    vocabulary) or GPT-2's 256 byte symbols and each merge's result, then
+    two-symbol filler pieces (no merge makes them; most decode to invalid
+    UTF-8) up to ``size``."""
+    from vidchapters_tpu_torch.data.clip_tokenizer import bytes_to_unicode
+
+    symbols = list(bytes_to_unicode().values())
+    vocab = dict(sorted(base.items(), key=lambda kv: kv[1])) if base else {}
+    assert list(vocab.values()) == list(range(len(vocab))), "base ids must be 0 .. n-1"
+    for tok in [] if base else symbols + [a + b for a, b in merges]:
+        vocab.setdefault(tok, len(vocab))
+    for a in symbols:
+        for b in symbols:
+            if len(vocab) >= size:
+                return vocab
+            vocab.setdefault(a + b, len(vocab))
+    return vocab
+
+
+def write_whisper_tokenizer(root: Path, vocab, merges, layout: str = "config") -> Path:
+    """Whisper's tokenizer files in ``root``: ``vocab.json`` and
+    ``merges.txt`` (``#version: 0.2`` and one ``a b`` line a merge), with
+    the added tokens of ``whisper_special_tokens`` from id ``len(vocab)``
+    either in ``tokenizer_config.json``'s ``added_tokens_decoder`` (``layout``
+    "config", as ``save_pretrained`` writes them now) or in
+    ``added_tokens.json`` + ``special_tokens_map.json`` ("added_tokens", the
+    older layout). The first ``WHISPER_N_SPECIAL`` are special."""
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "vocab.json").write_text(json.dumps(vocab, ensure_ascii=False), encoding="utf-8")
+    (root / "merges.txt").write_text(
+        "#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges), encoding="utf-8")
+    tokens = whisper_special_tokens()
+    special = tokens[:WHISPER_N_SPECIAL]
+    conf = {"tokenizer_class": "WhisperTokenizer", "errors": "replace",
+            "bos_token": "<|endoftext|>", "eos_token": "<|endoftext|>",
+            "unk_token": "<|endoftext|>", "pad_token": "<|endoftext|>",
+            "add_prefix_space": False, "model_max_length": 1024,
+            "clean_up_tokenization_spaces": True}  # as OpenAI's; the slow tokenizer ignores it
+    if layout == "config":
+        conf["added_tokens_decoder"] = {
+            str(len(vocab) + k): {"content": t, "lstrip": False, "rstrip": False,
+                                  "normalized": False, "single_word": False,
+                                  "special": k < WHISPER_N_SPECIAL}
+            for k, t in enumerate(tokens)}
+        conf["additional_special_tokens"] = special
+    else:
+        (root / "added_tokens.json").write_text(
+            json.dumps({t: len(vocab) + k for k, t in enumerate(tokens)}))
+        (root / "special_tokens_map.json").write_text(json.dumps(
+            {"bos_token": "<|endoftext|>", "eos_token": "<|endoftext|>",
+             "unk_token": "<|endoftext|>", "pad_token": "<|endoftext|>",
+             "additional_special_tokens": special}))
+    (root / "tokenizer_config.json").write_text(json.dumps(conf))
+    return root
+
+
+def whisper_hf_config(cfg) -> dict:
+    """The ``config.json`` of an HF ``WhisperForConditionalGeneration`` at
+    the port's ``WhisperConfig`` ``cfg`` (the fields both loaders read, and
+    the token ids of the multilingual vocabulary)."""
+    return {"architectures": ["WhisperForConditionalGeneration"], "model_type": "whisper",
+            "vocab_size": cfg.vocab_size, "num_mel_bins": cfg.num_mel_bins,
+            "max_source_positions": cfg.max_source_positions,
+            "max_target_positions": cfg.max_target_positions, "d_model": cfg.d_model,
+            "encoder_layers": cfg.encoder_layers, "decoder_layers": cfg.decoder_layers,
+            "encoder_attention_heads": cfg.num_heads, "decoder_attention_heads": cfg.num_heads,
+            "encoder_ffn_dim": cfg.d_ff, "decoder_ffn_dim": cfg.d_ff,
+            "activation_function": "gelu", "scale_embedding": False,
+            "pad_token_id": 50257, "bos_token_id": 50257, "eos_token_id": 50257,
+            "decoder_start_token_id": 50258, "torch_dtype": "float16"}
+
+
+def whisper_hf_state_dict(model, dtype=None):
+    """The port's ``Whisper`` ``model``'s weights under HF's names
+    (``model.`` prefix, ``encoder.embed_positions.weight`` the sinusoids,
+    no tied ``proj_out.weight``, as ``save_pretrained`` leaves it out), on
+    the CPU in ``dtype``; names found through the import's own map."""
+    from vidchapters_tpu_torch.models.weights import _hf_port_name
+
+    cfg = model.cfg
+    parts = {"self_attn.": ("q_proj.", "k_proj.", "v_proj.", "out_proj."),
+             "encoder_attn.": ("q_proj.", "k_proj.", "v_proj.", "out_proj.")}
+    norms = ("self_attn_layer_norm.", "encoder_attn_layer_norm.", "final_layer_norm.")
+    names = ["encoder.conv1.", "encoder.conv2.", "encoder.layer_norm.", "decoder.layer_norm.",
+             "decoder.embed_tokens.", "decoder.embed_positions."]
+    for side, n in (("encoder", cfg.encoder_layers), ("decoder", cfg.decoder_layers)):
+        for i in range(n):
+            lp = f"{side}.layers.{i}."
+            names += [lp + a + p for a, ps in parts.items() for p in ps]
+            names += [lp + x for x in norms + ("fc1.", "fc2.")]
+    port = model.state_dict()
+    sd = {}
+    for stem in names:
+        for leaf in ("weight", "bias"):
+            target = _hf_port_name(stem + leaf)
+            if target in port:
+                sd["model." + stem + leaf] = port[target].detach().to("cpu", dtype)
+    sd["model.encoder.embed_positions.weight"] = model.encoder.positions.detach().to("cpu", dtype)
+    return sd
+
+
+def write_whisper_dir(root: Path, model, dtype=None, fmt: str = "safetensors",
+                      shards: int = 1, n_merges: int = 400, layout: str = "config") -> Path:
+    """An HF Whisper checkpoint directory of the port's ``model``:
+    ``config.json``, the weights (``whisper_hf_state_dict`` in ``dtype``,
+    through ``_save_weights``), and a byte-level BPE tokenizer trained by
+    ``byte_bpe_merges`` on ``WHISPER_TEXTS`` and padded to 50257 entries,
+    with Whisper's added tokens from 50257."""
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "config.json").write_text(json.dumps(whisper_hf_config(model.cfg)))
+    _save_weights(root, whisper_hf_state_dict(model, dtype), fmt, shards)
+    merges = byte_bpe_merges(WHISPER_TEXTS.splitlines(), n_merges)
+    write_whisper_tokenizer(root, whisper_vocab(merges), merges, layout)
     return root

@@ -371,12 +371,13 @@ def test_deformable_attention_launches_or_raises():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant", [False, True])
-@pytest.mark.parametrize("b0,group", [(3, 1), (2, 5), (10, 5)])
+@pytest.mark.parametrize("b0,group", [(3, 1), (2, 5), (10, 5), (1, 1), (1, 5)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_whisper_megakernel_matches_plain(dtype, b0, group, quant):
     """The Whisper decode kernel at 2 layers, d 256, 4 heads, d_ff 512, L 16
-    and 40 encoder frames, greedy at 3 rows and beam at 2 x 5 and 10 x 5 (50
-    rows: more than the 48 of one product pass): hidden and k/v new within
+    and 40 encoder frames, greedy at 3 rows and 1 row (one video, as
+    ``demo_asr`` decodes) and beam at 1 x 5, 2 x 5 and 10 x 5 (50 rows: more
+    than the 48 of one product pass): hidden and k/v new within
     1e-4 of the plain version's largest element in fp32 (bf16: 5e-2 of it),
     row idx the new k/v, the permuted rows exact, one launch per call, and a
     second call bit-identical to the first."""

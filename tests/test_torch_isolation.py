@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: no module of ``vidchapters_tpu_torch`` and
 not ``chip_smoke.py`` imports jax, flax, optax, orbax or the JAX package,
 nor HF's ``transformers``, ``tokenizers``, ``sentencepiece`` or
-``safetensors`` (the card's machine has none of them), and the package
-imports in a process where none of these can be imported."""
+``safetensors``, nor ``regex`` (the card's machine has none of them), and
+the package imports in a process where none of these can be imported."""
 
 import ast
 import os
@@ -14,7 +14,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "vidchapters_tpu"}
-HF_PACKAGES = {"transformers", "tokenizers", "sentencepiece", "safetensors"}
+HF_PACKAGES = {"transformers", "tokenizers", "sentencepiece", "safetensors", "regex"}
 SOURCES = sorted((ROOT / "vidchapters_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -43,7 +43,7 @@ def test_package_imports_with_jax_blocked():
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'vidchapters_tpu',\n"
-        "             'transformers', 'tokenizers', 'sentencepiece', 'safetensors'):\n"
+        "             'transformers', 'tokenizers', 'sentencepiece', 'safetensors', 'regex'):\n"
         "    sys.modules[name] = None\n"
         "import vidchapters_tpu_torch.serve, vidchapters_tpu_torch.models.weights\n"
         "import vidchapters_tpu_torch.ops.decoding, vidchapters_tpu_torch.runtime.rng\n"
@@ -74,6 +74,7 @@ def test_package_imports_with_jax_blocked():
         "import vidchapters_tpu_torch.data.wordpiece, vidchapters_tpu_torch.factory.analysis\n"
         "import vidchapters_tpu_torch.factory.langid, vidchapters_tpu_torch.factory.genbit\n"
         "import vidchapters_tpu_torch.utils.misc, vidchapters_tpu_torch.utils.preproc_answer\n"
+        "import vidchapters_tpu_torch.data.whisper_tokenizer, vidchapters_tpu_torch.demo.demo_asr\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'vidchapters_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

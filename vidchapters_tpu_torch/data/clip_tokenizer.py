@@ -61,6 +61,28 @@ _PAT = re.compile(
     r"[0-9]|[^\sa-zA-Z0-9]+", re.IGNORECASE)
 
 
+def bpe_merge(word: tuple, ranks: Dict[tuple, int]) -> List[str]:
+    """``word``'s symbols merged by ranked BPE: while a ranked adjacent pair
+    is left, every occurrence of the lowest-ranked one becomes one symbol."""
+    while len(word) > 1:
+        pairs = set(zip(word[:-1], word[1:]))
+        bigram = min(pairs, key=lambda p: ranks.get(p, 1 << 30))
+        if bigram not in ranks:
+            break
+        first, second = bigram
+        merged: List[str] = []
+        i = 0
+        while i < len(word):
+            if i < len(word) - 1 and word[i] == first and word[i + 1] == second:
+                merged.append(first + second)
+                i += 2
+            else:
+                merged.append(word[i])
+                i += 1
+        word = tuple(merged)
+    return list(word)
+
+
 class CLIPTokenizer:
     def __init__(self, bpe_path: Optional[str] = None):
         self.byte_encoder = bytes_to_unicode()
@@ -84,29 +106,10 @@ class CLIPTokenizer:
         return bool(self.bpe_ranks)
 
     def _bpe(self, token: str) -> List[str]:
-        if token in self._cache:
-            return self._cache[token]
-        word = tuple(token[:-1]) + (token[-1] + "</w>",)
-        while len(word) > 1:
-            pairs = set(zip(word[:-1], word[1:]))
-            bigram = min(pairs, key=lambda p: self.bpe_ranks.get(p, 1 << 30))
-            if bigram not in self.bpe_ranks:
-                break
-            first, second = bigram
-            new_word: List[str] = []
-            i = 0
-            while i < len(word):
-                if (i < len(word) - 1 and word[i] == first
-                        and word[i + 1] == second):
-                    new_word.append(first + second)
-                    i += 2
-                else:
-                    new_word.append(word[i])
-                    i += 1
-            word = tuple(new_word)
-        out = list(word)
-        self._cache[token] = out
-        return out
+        if token not in self._cache:
+            self._cache[token] = bpe_merge(tuple(token[:-1]) + (token[-1] + "</w>",),
+                                           self.bpe_ranks)
+        return self._cache[token]
 
     def encode(self, text: str) -> List[int]:
         text = _whitespace_clean(_basic_clean(text)).lower()

@@ -9,13 +9,16 @@ steps producing the consolidated pickles the datasets read
 (merge_asr_whisper.py:12-41, merge_asr_whisper_align.py:16-81, including the
 ``v_``-prefixed ActivityNet ids). ``run_batched_asr`` drives the port's
 ``WhisperTranscriber``; ``run_sharded_asr`` takes any ``transcribe_fn``.
+``make_hf_whisper_transcribe`` keeps the JAX package's name and signature
+and raises: that backend is ``transformers.pipeline``, which the port does
+not use (``demo/demo_asr.py``'s default backend runs the port's own).
 """
 
 from __future__ import annotations
 
 import os
 from pathlib import Path
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 
@@ -90,6 +93,18 @@ def merge_and_process(asr_dir: str, out_path: str) -> Dict[str, dict]:
             merged[normalize_video_id(name)] = proc_asr(raw)
     save_pickle(merged, out_path)
     return merged
+
+
+def make_hf_whisper_transcribe(model_name: str = "openai/whisper-large-v2",
+                               device=None, language: Optional[str] = None
+                               ) -> Callable[[str], dict]:
+    """The JAX package's HF backend only wraps
+    ``transformers.pipeline("automatic-speech-recognition", ...)``; the port
+    imports no ``transformers``. Raises before any work."""
+    raise NotImplementedError(
+        "the 'hf' ASR backend is transformers.pipeline, which the PyTorch port does not "
+        "use; the port's own Whisper (demo_asr --backend torch, the default) reads the same "
+        f"checkpoint ({model_name!r})")
 
 
 def run_batched_asr(audio_paths: Iterable[str], out_dir: str, transcriber,

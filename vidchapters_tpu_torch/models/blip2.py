@@ -47,7 +47,7 @@ from torch import nn
 from vidchapters_tpu_torch.config import T5Config
 from vidchapters_tpu_torch.models.t5 import RMSNorm, T5ForConditionalGeneration, _linear
 from vidchapters_tpu_torch.models.vit import _layer_norm
-from vidchapters_tpu_torch.utils.hf import load_hf_state_dict
+from vidchapters_tpu_torch.utils.hf import load_hf_state_dict, meta_build
 
 # CLIP normalization used by the HF Blip2Processor (OPENAI_CLIP_MEAN/STD)
 IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
@@ -297,7 +297,7 @@ def init_blip2(cfg: Blip2Config, device="cuda", seed: int = 0) -> Blip2:
     """A ``Blip2`` of seeded random weights, allocated once on ``device``
     with its weights in their compute dtypes (``store_in_compute_dtype``;
     blip2-flan-t5-xl in bfloat16: 7.9 GB)."""
-    with torch.device("meta"):
+    with meta_build():
         model = Blip2(cfg).store_in_compute_dtype()
     model = model.to_empty(device=device)
     return model.init_weights(torch.Generator(device=device).manual_seed(seed)).eval()
@@ -413,7 +413,7 @@ def build_blip2_captioner(model_dir: str, max_new_tokens: int = 20, device=None,
     root = Path(model_dir)
     cfg = config_from_hf(json.loads((root / "config.json").read_text()), dtype)
     tok = SentencePieceUnigramTokenizer(str(root / "spiece.model"), num_bins=0)
-    with torch.device("meta"):
+    with meta_build():
         model = Blip2(cfg)
     model.load_state_dict(blip2_from_hf_state_dict(load_hf_state_dict(model_dir), model),
                           assign=True)

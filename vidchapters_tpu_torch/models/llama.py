@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vidchapters_tpu_torch.models.t5 import _linear
+from vidchapters_tpu_torch.utils.hf import meta_build
 
 NEG_INF = -1e9
 
@@ -219,7 +220,7 @@ def init_llama(cfg: LlamaConfig, device="cuda", seed: int = 0) -> LlamaForCausal
     """A ``LlamaForCausalLM`` of seeded random weights, allocated once on
     ``device`` in ``cfg.dtype`` (LLaMA-7B: 13.5 GB in bfloat16, never built
     in fp32 on the host first)."""
-    with torch.device("meta"):
+    with meta_build():
         model = LlamaForCausalLM(cfg)
     model = model.to(dtype=_dtype(cfg)).to_empty(device=device)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -322,7 +323,7 @@ def load_llama(model_dir: str, device=None, dtype: str = "bfloat16") -> LlamaFor
 
     device = resolve_device(device)
     cfg = llama_config_from_hf(load_hf_config(model_dir), dtype)
-    with torch.device("meta"):
+    with meta_build():
         model = LlamaForCausalLM(cfg)
     sd = llama_from_hf_state_dict(load_hf_state_dict(model_dir), model)
     model.load_state_dict({k: v.to(_dtype(cfg)) for k, v in sd.items()}, assign=True)

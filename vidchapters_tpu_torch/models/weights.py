@@ -192,9 +192,14 @@ def whisper_from_hf_state_dict(sd: Mapping[str, Any], model: nn.Module
     """HF ``WhisperForConditionalGeneration`` state dict (``model.`` prefix
     optional) -> the port's ``Whisper`` ``model``'s state_dict. torch's
     ``[out, in]`` and ``[out, in, k]`` layouts are the port's own, so no
-    leaf is transposed."""
+    leaf is transposed. The stored encoder positions must be Whisper's
+    sinusoids to the rounding of their stored dtype (fp16 and bf16
+    checkpoints round them)."""
     if any(k.startswith("model.") for k in sd):
         sd = {k.removeprefix("model."): v for k, v in sd.items()}
+    pos = sd.get("encoder.embed_positions.weight")
+    pos_tol = max(1e-4, float(torch.finfo(pos.dtype).eps)) if isinstance(
+        pos, torch.Tensor) and pos.dtype.is_floating_point else 1e-4
     arr = {k: np.asarray(v.detach().cpu().float() if isinstance(v, torch.Tensor) else v,
                          dtype=np.float32) for k, v in sd.items()}
     target = model.state_dict()
@@ -203,7 +208,7 @@ def whisper_from_hf_state_dict(sd: Mapping[str, Any], model: nn.Module
     for name, a in arr.items():
         if name == "encoder.embed_positions.weight":
             ref = model.encoder.positions.cpu().numpy()
-            if a.shape != ref.shape or not np.allclose(a, ref, atol=1e-4):
+            if a.shape != ref.shape or not np.allclose(a, ref, atol=pos_tol, rtol=0):
                 raise ValueError("whisper_from_hf_state_dict: encoder.embed_positions "
                                  "differ from Whisper's sinusoids")
             continue

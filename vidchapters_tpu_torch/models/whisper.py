@@ -14,7 +14,8 @@ product runs in ``cfg.dtype``, as the JAX package's ``Dense(dtype=...)``
 does; LayerNorm statistics are float32. The encoder's attention and every
 product stay plain ``torch`` operations: none is a Pallas kernel in the JAX
 package. Weights come from ``models/weights.whisper_from_jax_params`` or
-``whisper_from_hf_state_dict``, or from ``init_weights`` (seeded random).
+``whisper_from_hf_state_dict``, or from ``init_weights`` (seeded random);
+``load_hf_whisper`` reads an HF checkpoint directory or hub-cache name.
 """
 
 from __future__ import annotations
@@ -349,3 +350,43 @@ class Whisper(nn.Module):
         self.decoder.embed_tokens.weight.normal_(0.0, self.cfg.d_model ** -0.5,
                                                  generator=generator)
         self.decoder.embed_positions.normal_(0.0, 0.02, generator=generator)
+
+
+def whisper_config_from_hf(hf: dict) -> WhisperConfig:
+    """``WhisperConfig`` from an HF ``config.json`` dict: the fields the JAX
+    package's ``load_hf_whisper`` reads; ``dtype`` keeps its default."""
+    return WhisperConfig(
+        vocab_size=hf["vocab_size"], num_mel_bins=hf["num_mel_bins"],
+        max_source_positions=hf["max_source_positions"],
+        max_target_positions=hf["max_target_positions"], d_model=hf["d_model"],
+        encoder_layers=hf["encoder_layers"], decoder_layers=hf["decoder_layers"],
+        num_heads=hf["encoder_attention_heads"], d_ff=hf["encoder_ffn_dim"])
+
+
+def load_hf_whisper(name_or_path: str, device=None) -> Whisper:
+    """An HF ``WhisperForConditionalGeneration`` checkpoint as the port's
+    ``Whisper`` on ``device`` (the card unless the caller asks for the
+    CPU): a directory or a hub name found in the local cache
+    (``utils/hf.resolve_hf_dir``), ``config.json`` through
+    ``whisper_config_from_hf``, the weights (safetensors or
+    ``pytorch_model.bin``, one file or shards; a ``save_pretrained``
+    directory leaves out the tied ``proj_out.weight``) imported by
+    ``whisper_from_hf_state_dict`` and held in float32, as the JAX
+    package's parameters are."""
+    from vidchapters_tpu_torch import resolve_device
+    from vidchapters_tpu_torch.models.weights import whisper_from_hf_state_dict
+    from vidchapters_tpu_torch.utils.hf import (
+        load_hf_config,
+        load_hf_state_dict,
+        meta_build,
+        resolve_hf_dir,
+    )
+
+    device = resolve_device(device)
+    model_dir = resolve_hf_dir(name_or_path)
+    cfg = whisper_config_from_hf(load_hf_config(model_dir))
+    with meta_build():
+        model = Whisper(cfg)  # the sinusoid buffer is built on the CPU all the same
+    sd = whisper_from_hf_state_dict(load_hf_state_dict(model_dir), model)
+    model.load_state_dict(sd, assign=True)
+    return model.to(device).eval()
