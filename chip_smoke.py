@@ -212,9 +212,23 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    2 checks it); seconds of each load part, transcription (audio-s/s) and
    alignment, peak memory; the same at 4+4 layers in fp32 from a directory
    (--model DIR), card vs CPU at the greedy rung: identical pickles.
+15. Data parallelism: python -m vidchapters_tpu_torch.train.dvc_main
+   launched as a user launches it, one process a rank with the
+   VIDCHAPTERS_* variables and one PYTHONHASHSEED, over phase 5's synthetic
+   dataset at full width. (a) An NCCL group of one rank (--dist-backend
+   nccl): bf16, dropout 0.1, batch 8, 3 steps and the val eval; step ms
+   beside phase 3's, the gradient all-reduce's ms, rows 1-2 launched
+   exactly 48 a step. (b) Two ranks sharing the card over gloo, fp32,
+   dropout 0, 256 input tokens, batch 4 a rank, against one process at
+   batch 8 on the same global batches: losses and grad_norm within 1e-4
+   relative, the same parameter checksum on both ranks, the all-reduce's ms
+   a step. (c) NCCL with a card a rank when device_count() >= 2, else
+   reported as skipped. Any rank exiting non-zero fails the run.
 
-The kernels' launch counts are zeroed just before each main path (phases
-3, 4, 6, 7, 8, 11, 13a, each BLIP-2 call of 12, each run of 5 and 14) and read just after it; the kernel line
+Each phase's wall seconds are printed as it ends ([phase] lines) and kept
+in the record. The kernels' launch counts are zeroed just before each main path (phases
+3, 4, 6, 7, 8, 11, 13a, each BLIP-2 call of 12, each run of 5 and 14; a rank of 15
+starts at 0, a process of its own) and read just after it; the kernel line
 reports each kernel's count from its own path (training for the fused
 attention, serving for top-k and the decode kernel, phase 5's first run for
 the decode-attention kernels, phase 6's pdvc_main run for the deformable
@@ -225,8 +239,9 @@ attention, phase 7's sweep for the Whisper kernel); rows 1-2 also carry
 ``launches_demo`` from phase 11(b); rows 3, 5 and 6 carry
 ``launches_zeroshot`` from phase 12(b)'s BLIP-2 calls, rows 7 and 7b
 ``launches_gpt2`` from phase 13(a)'s pdvc_main run, row 8
-``launches_demo_asr`` from phase 14's two demo_asr runs. The probes lie on
-no path: their count is phase 2's.
+``launches_demo_asr`` from phase 14's two demo_asr runs, rows 1-2
+``launches_dp`` from phase 15(a)'s dvc_main rank. The probes lie on no
+path: their count is phase 2's.
 
 The last lines are the kernel table as one JSON object, the nvidia-smi
 line, and {"ok": true, "device": {...}}. The full record also goes to
@@ -2263,19 +2278,22 @@ def _write_train_dataset(root: Path, n_videos: int, seed: int = 0, n_val: int = 
 
 def _device_ms_by_kernel(prof):
     """Device time (ms) by kernel name in a finished ``torch.profiler`` run:
-    device-side events only (operators and autograd nodes report their
-    kernels' time as their own)."""
+    the device-side activities of its Kineto trace (kernels, copies, sets),
+    read as they are, without the CPU operator events that
+    ``key_averages()`` builds first (68 s of a whole run on an NVIDIA H100
+    80GB HBM3 machine, 700 W). Fails when the trace is not there."""
     import torch
 
+    results = getattr(getattr(prof, "profiler", None), "kineto_results", None)
+    check(results is not None, "torch.profiler run without kineto_results: no device times")
     kernels = {}
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+    for ev in results.events():
+        if (ev.device_type() != torch.autograd.DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", lambda: False)()):
             continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        if us and us > 0:
-            kernels[ev.key] = kernels.get(ev.key, 0.0) + us / 1e3
+        ms = ev.duration_ns() / 1e6 if hasattr(ev, "duration_ns") else ev.duration_us() / 1e3
+        if ms > 0:
+            kernels[ev.name()] = kernels.get(ev.name(), 0.0) + ms
     return kernels
 
 
@@ -2623,12 +2641,16 @@ def _fp32_inputs(engine, payloads):
 
 
 def _fp32_model(cfg, state, dev):
+    """The fp32 model holding ``state`` on ``dev``, built on meta: no random
+    init of T5-base on the host that ``state`` would overwrite at once."""
     from vidchapters_tpu_torch.models.vid2seq import Vid2Seq
+    from vidchapters_tpu_torch.utils.hf import meta_build
 
     mcfg = dataclasses.replace(cfg.model, t5=dataclasses.replace(cfg.model.t5, dtype="float32"),
                                vit=dataclasses.replace(cfg.model.vit, dtype="float32"))
-    model = Vid2Seq(mcfg)
-    model.load_state_dict(state)
+    with meta_build():
+        model = Vid2Seq(mcfg)
+    model.load_state_dict(state, assign=True)
     return model.to(dev).eval()
 
 
@@ -2824,10 +2846,10 @@ def phase_train_and_evaluate(card: str, fp32_state, fp32_inputs):
     def timed_make_step(*a, **k):
         step = real_make_step(*a, **k)
 
-        def timed(state, batch, seed):
+        def timed(state, batch, seed, **kw):
             torch.cuda.synchronize()
             t0 = time.time()
-            m = step(state, batch, seed)
+            m = step(state, batch, seed, **kw)
             torch.cuda.synchronize()
             steps.append((time.time() - t0) * 1e3)
             return m
@@ -3273,9 +3295,9 @@ def phase_pdvc(card: str, cfg=None, n_train: int = 16, n_val: int = 8):
     def timed_make_step(*a, **k):
         step = real[0](*a, **k)
 
-        def timed(state, batch, seed):
+        def timed(state, batch, seed, **kw):
             out = {}
-            steps.append(_timed_ms(lambda: out.update(step(state, batch, seed))))
+            steps.append(_timed_ms(lambda: out.update(step(state, batch, seed, **kw))))
             return out
 
         return timed
@@ -3930,10 +3952,10 @@ def phase_pretrain(card: str):
     def timed_make_step(*a, **k):
         step = real_make_step(*a, **k)
 
-        def timed(state, batch, seed):
+        def timed(state, batch, seed, **kw):
             torch.cuda.synchronize()
             t0 = time.time()
-            m = step(state, batch, seed)
+            m = step(state, batch, seed, **kw)
             torch.cuda.synchronize()
             steps.append((time.time() - t0) * 1e3)
             return m
@@ -4446,10 +4468,10 @@ def phase_vc(card: str, phase5_weights, mcfg=None, n_train: int = VC_TRAIN_VIDEO
     def timed_make_step(*a, **k):
         step = real[0](*a, **k)
 
-        def timed(state, batch, seed):
+        def timed(state, batch, seed, **kw):
             torch.cuda.synchronize()
             t0 = time.time()
-            m = step(state, batch, seed)
+            m = step(state, batch, seed, **kw)
             torch.cuda.synchronize()
             steps.append({"ms": (time.time() - t0) * 1e3,
                           "out_len": int(batch["output_tokens"].shape[1])})
@@ -4864,10 +4886,10 @@ def phase_grounding(card: str, cfg=None, n_videos: int = GROUNDING_VIDEOS,
     def timed_make_step(*a, **k):
         step = real_make_step(*a, **k)
 
-        def timed(state, batch, seed):
+        def timed(state, batch, seed, **kw):
             torch.cuda.synchronize()
             t0 = time.time()
-            m = step(state, batch, seed)
+            m = step(state, batch, seed, **kw)
             torch.cuda.synchronize()
             steps.append((time.time() - t0) * 1e3)
             return m
@@ -5177,7 +5199,7 @@ def _demo_args(video_path, clip_ckpt, pth, asr, out, device, extra=()):
 
 
 def video_demo(card: str, root: Path, vit, video_path: str, frames: int, decode, route: str,
-               mcfg=None):
+               mcfg=None, fp32_video=None):
     """(b) ``demo_vid2seq.main`` from the video at T5-base
     (``Vid2SeqConfig()`` with an untied LM head, through ``--config``: with
     random weights a tied head makes the decoder repeat its start token, 0,
@@ -5187,7 +5209,9 @@ def video_demo(card: str, root: Path, vit, video_path: str, frames: int, decode,
     (``--asr_path``), beam 4. The chapters JSON well-formed and inside the
     duration; rows 1, 3 and 4 launched exactly as the shapes and decode
     steps give; then fp32 ids and chapters at 2+2 layers and a 2-layer image
-    tower, card against CPU."""
+    tower, card against CPU, from ``fp32_video`` (the shortest video; the
+    CPU's image tower over the 900-frame one took 63 s of a run on an NVIDIA
+    H100 80GB HBM3 machine, 700 W)."""
     import torch
 
     from vidchapters_tpu_torch.config import (
@@ -5283,8 +5307,8 @@ def video_demo(card: str, root: Path, vit, video_path: str, frames: int, decode,
         say(f"[video] demo_vid2seq: {frames} frames -> {len(chapters)} chapters in {wall:.2f} s "
             f"(features {feat_s[0]:.2f} s), {len(steps)} decode steps, launches {launches} "
             f"(expected {want}), peak {peak} B on {card}")
-        summary["fp32_check"] = demo_fp32_check(root, vit, video_path, decode, route, mcfg,
-                                                seqs)
+        summary["fp32_check"] = demo_fp32_check(root, vit, fp32_video or video_path, decode,
+                                                route, mcfg, seqs)
     finally:
         (dvc_train._pick_decode_fns, demo_vid2seq.clip_features,
          dvc_train.make_generate_fn, clip.VIT_L14) = real
@@ -5563,9 +5587,9 @@ def phase_video(card: str, vit=None, counts=VIDEO_FRAMES, mcfg=None, gcfg=None, 
         feats, videos, paths, decode, route = video_features(card, root, vit, counts)
         frames = {p: len(decode(p)) if route.startswith("ffmpeg") else len(videos[Path(p).stem])
                   for p in paths}
-        longest = max(paths, key=frames.get)
+        longest, shortest = max(paths, key=frames.get), min(paths, key=frames.get)
         demo, demo_launches = video_demo(card, root, vit, longest, frames[longest], decode,
-                                         route, mcfg)
+                                         route, mcfg, fp32_video=shortest)
         mid = sorted(paths, key=frames.get)[len(paths) // 2]
         moments = video_moments(card, root, mid, frames[mid], decode, route, gcfg)
         del videos
@@ -6829,6 +6853,306 @@ def phase_demo_asr(card: str, cfg=None, seconds: float = ASR_SECONDS[0]):
     return summary, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: data parallelism over processes (train/dvc_main on N ranks)
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 3                # train steps of each dvc_main run in phase 15
+DP_TOL = 1e-4               # (b): two ranks against one process, relative
+
+
+def _dp_rank(argv) -> None:
+    """One rank of phase 15: ``python -m vidchapters_tpu_torch.train.dvc_main
+    argv`` (``runpy``, as ``-m`` runs it) with the train step and the
+    gradient all-reduce timed (a sync on each side) and each step's metrics
+    and fused-attention launches recorded; the record goes to
+    ``$SMOKE_DP_OUT`` at exit."""
+    import atexit
+    import os
+    import runpy
+
+    import torch
+
+    from vidchapters_tpu_torch.ops import fused_attention as fa
+    from vidchapters_tpu_torch.train import dvc_train
+
+    rec = {"steps": [], "allreduce_ms": []}
+    real_step, real_reduce = dvc_train.make_train_step, dvc_train.all_reduce_gradients
+
+    def reduce(params):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_reduce(params)
+        torch.cuda.synchronize()
+        rec["allreduce_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    def make_step(*a, **k):
+        step = real_step(*a, **k)
+
+        def timed(state, batch, seed, **kw):
+            f0, b0 = fa.KERNEL.launches, fa.BWD_KERNEL.launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = {key: float(v) for key, v in step(state, batch, seed, **kw).items()}
+            rec["steps"].append({"ms": (time.perf_counter() - t0) * 1e3, "metrics": m,
+                                 "fwd": fa.KERNEL.launches - f0,
+                                 "bwd": fa.BWD_KERNEL.launches - b0})
+            return m
+
+        return timed
+
+    def dump():
+        rec.update(fwd=fa.KERNEL.launches, bwd=fa.BWD_KERNEL.launches,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated())
+        Path(os.environ["SMOKE_DP_OUT"]).write_text(json.dumps(rec))
+
+    dvc_train.make_train_step, dvc_train.all_reduce_gradients = make_step, reduce
+    atexit.register(dump)
+    sys.argv = ["dvc_main", *argv]
+    runpy.run_module("vidchapters_tpu_torch.train.dvc_main", run_name="__main__",
+                     alter_sys=True)
+
+
+def _dp_launch(root: Path, name: str, cfg_path: Path, world: int, backend, port: int):
+    """Start ``world`` ranks of ``dvc_main --config cfg_path --device cuda``
+    (``--dist-backend backend`` when given), each with the ``VIDCHAPTERS_*``
+    variables (none for a plain one-process run) and one ``PYTHONHASHSEED``."""
+    import os
+
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, PYTHONHASHSEED="0",
+                   SMOKE_DP_OUT=str(root / f"{name}_rank{rank}.json"))
+        if backend:
+            env.update(VIDCHAPTERS_NUM_PROCESSES=str(world), VIDCHAPTERS_PROCESS_ID=str(rank),
+                       VIDCHAPTERS_COORDINATOR=f"localhost:{port}")
+        argv = ["--config", str(cfg_path), "--device", "cuda"]
+        if backend:
+            argv += ["--dist-backend", backend]
+        code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+                "chip_smoke._dp_rank(sys.argv[2:])")
+        log = open(root / f"{name}_rank{rank}.log", "w")
+        procs.append((subprocess.Popen([sys.executable, "-c", code, str(ROOT), *argv], cwd=ROOT,
+                                       env=env, stdout=log, stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def _dp_wait(root: Path, name: str, procs, timeout: float = 300.0):
+    """Each rank's record and printed output; fails, killing every rank of
+    the run, when one exits non-zero or outlasts ``timeout``."""
+    deadline = time.time() + timeout
+    for rank, (proc, log) in enumerate(procs):
+        try:
+            proc.wait(timeout=max(1.0, deadline - time.time()))
+        except subprocess.TimeoutExpired:
+            pass
+        log.close()
+        if proc.returncode != 0:
+            for other, _ in procs:
+                other.kill()
+                other.wait()
+            text = (root / f"{name}_rank{rank}.log").read_text()
+            check(False, f"phase 15 {name}: rank {rank} exited {proc.returncode}: "
+                         f"{text[-3000:]}")
+    out = []
+    for rank in range(len(procs)):
+        rec = json.loads((root / f"{name}_rank{rank}.json").read_text())
+        rec["printed"] = (root / f"{name}_rank{rank}.log").read_text()
+        out.append(rec)
+    return out
+
+
+class _stopping:
+    """Kills, on the way out, every process of ``procs`` still running."""
+
+    def __init__(self, procs):
+        self.procs = procs
+
+    def __enter__(self):
+        return self.procs
+
+    def __exit__(self, *exc):
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        return False
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _dp_checksums(ranks, world: int, what: str) -> str:
+    import re
+
+    found = [re.findall(rf"rank (\d+): parameters identical on {world} ranks \(checksum "
+                        rf"(\w+)\)", r["printed"]) for r in ranks]
+    check(all(len(f) == 1 for f in found) and len({f[0][1] for f in found}) == 1,
+          f"{what}: the ranks reported no common parameter checksum: {found}")
+    return found[0][0][1]
+
+
+def _dp_close(ranks, ref, what: str) -> float:
+    """Largest relative difference of every step's loss, total and norm
+    between the ranks (all equal) and the one-process run ``ref``."""
+    worst = 0.0
+    check(len(ref["steps"]) == DP_STEPS and all(len(r["steps"]) == DP_STEPS for r in ranks),
+          f"{what}: steps {[len(r['steps']) for r in ranks]} / {len(ref['steps'])}, "
+          f"expected {DP_STEPS}")
+    for i, want in enumerate(ref["steps"]):
+        for r in ranks:
+            check(r["steps"][i]["metrics"] == ranks[0]["steps"][i]["metrics"],
+                  f"{what}: step {i}: the ranks' metrics differ")
+        for key in ("loss", "total_loss", "grad_norm"):
+            got, exp = ranks[0]["steps"][i]["metrics"][key], want["metrics"][key]
+            rel = abs(got - exp) / abs(exp)
+            worst = max(worst, rel)
+            check(rel <= DP_TOL, f"{what}: step {i} {key} {got} against one process's {exp} "
+                                 f"(relative {rel:.2e} > {DP_TOL})")
+    return worst
+
+
+def phase_data_parallel(card: str, train_step_ms: float):
+    """Phase 15: ``python -m vidchapters_tpu_torch.train.dvc_main`` on N ranks
+    as a user launches it (one process a rank, the ``VIDCHAPTERS_*``
+    variables, one ``PYTHONHASHSEED``) over phase 5's synthetic dataset at
+    full width (T5-base + ViT 12 x 768), each rank recorded by ``_dp_rank``.
+
+    (a) NCCL at world size 1 (``--dist-backend nccl``: the data-parallel
+    path whole, its collectives over one rank): bf16 with dropout 0.1,
+    batch 8, 3 steps, then the val eval of 8 videos at beam 4 / max_length 32
+    (the final one: none inside the epoch, so no ``best`` to write);
+    step ms beside phase 3's, the all-reduce's ms, rows 1-2 launched exactly
+    48 a step and row 1 12 a generate call after. (b) Two ranks sharing the
+    card over gloo, fp32 with dropout 0 at 256 input tokens, batch 4 a rank,
+    3 steps with the denoising loss off (its span corruption draws in shard
+    order), against one process at batch 8 on the same global batches, run
+    at the same time: losses and ``grad_norm`` within ``DP_TOL``, the
+    parameters identical on the ranks by their gathered checksum, the
+    all-reduce's ms a step (a correctness run, no scaling figure). (c) NCCL
+    with a card a rank, as (b), when ``device_count() >= 2``; skipped
+    otherwise."""
+    import torch
+
+    from vidchapters_tpu_torch.config import (
+        CheckpointConfig,
+        DatasetPaths,
+        ExperimentConfig,
+        save_config,
+    )
+
+    t_phase = time.time()
+    base = ExperimentConfig()
+    out = {"card": card}
+    started = []  # every rank this phase starts, stopped on the way out
+
+    def launch(*a):
+        procs = _dp_launch(*a)
+        started.extend(p for p, _ in procs)
+        return procs
+
+    with tempfile.TemporaryDirectory() as tmp, _stopping(started):
+        root = _write_train_dataset(Path(tmp), n_videos=DP_STEPS * 8, n_val=8)
+        small_val = {k: v for k, v in list(json.loads((root / "val.json").read_text())
+                                           .items())[:2]}
+        (root / "val2.json").write_text(json.dumps(small_val))
+
+        def config(name, val, **train):
+            cfg = dataclasses.replace(
+                base, datasets={"chapters": DatasetPaths(
+                    train_json_path=str(root / "ann.json"), val_json_path=str(root / val),
+                    features_path=str(root / "features"), subtitles_path=str(root / "asr.pkl"))},
+                generation=dataclasses.replace(base.generation, max_length=32),
+                train=dataclasses.replace(
+                    base.train, epochs=1, print_freq=1,
+                    checkpoint=CheckpointConfig(save_dir=str(root / f"ckpt_{name}")), **train))
+            return cfg
+
+        # (a) NCCL at one rank, bf16 with dropout
+        # no eval inside the epoch: the final eval is the val eval (no best to write)
+        cfg_a = config("a", "val.json", batch_size=8, eval_batch_size=8, eval_every_epochs=2)
+        save_config(cfg_a, root / "a.json")
+        t0 = time.time()
+        (a,) = _dp_wait(root, "a", launch(root, "a", root / "a.json", 1, "nccl", _free_port()))
+        a_wall = time.time() - t0
+        check([(s["fwd"], s["bwd"]) for s in a["steps"]] == [(FUSED_PER_STEP,) * 2] * DP_STEPS,
+              f"15(a): rows 1-2 a step {[(s['fwd'], s['bwd']) for s in a['steps']]}, expected "
+              f"{FUSED_PER_STEP} each")
+        eval_fwd = a["fwd"] - FUSED_PER_STEP * DP_STEPS
+        check(a["bwd"] == FUSED_PER_STEP * DP_STEPS and eval_fwd > 0 and eval_fwd % 12 == 0,
+              f"15(a): row 1 {a['fwd']}, row 2 {a['bwd']} in the run")
+        check(len(a["allreduce_ms"]) == DP_STEPS, "15(a): the gradient all-reduce did not run")
+        check(_dp_checksums([a], 1, "15(a)") and (root / "ckpt_a" / "last").exists()
+              and len((root / "ckpt_a" / "log.txt").read_text().splitlines()) == 1
+              and "'chapters_CIDEr'" in a["printed"],
+              "15(a): no checkpoint, log or final val metrics")
+        a_ms = [s["ms"] for s in a["steps"]]
+        out["a"] = {"world": 1, "backend": "nccl", "wall_s": a_wall, "step_ms": a_ms,
+                    "step_ms_phase3": train_step_ms, "allreduce_ms": a["allreduce_ms"],
+                    "launches": {"fused_attention_fwd": a["fwd"], "fused_attention_bwd": a["bwd"],
+                                 "fwd_in_eval": eval_fwd},
+                    "peak_memory_bytes": a["peak_memory_bytes"],
+                    "losses": [s["metrics"]["total_loss"] for s in a["steps"]]}
+        say(f"[dp] (a) NCCL, 1 rank: steps {[round(x, 1) for x in a_ms]} ms (phase 3 "
+            f"{train_step_ms:.1f}), all-reduce {[round(x, 2) for x in a['allreduce_ms']]} ms, "
+            f"rows 1-2 {a['fwd']} / {a['bwd']} ({eval_fwd} of row 1 in the eval), "
+            f"{a_wall:.1f} s on {card}")
+
+        # (b) two ranks on the one card over gloo against one process, fp32
+        t5 = dataclasses.replace(base.model.t5, dtype="float32", dropout_rate=0.0,
+                                 encoder_dropout=0.0, decoder_dropout=0.0)
+        vit = dataclasses.replace(base.model.vit, dtype="float32")
+        fp32 = dict(model=dataclasses.replace(base.model, t5=t5, vit=vit),
+                    data=dataclasses.replace(base.data, max_input_tokens=256))
+        for name, bs in (("b_ranks", 4), ("b_one", 8)):
+            cfg = config(name, "val2.json", batch_size=bs, eval_batch_size=2, denoising=0.0)
+            save_config(dataclasses.replace(cfg, **fp32), root / f"{name}.json")
+        t0 = time.time()
+        procs_ranks = launch(root, "b_ranks", root / "b_ranks.json", 2, "gloo", _free_port())
+        procs_one = launch(root, "b_one", root / "b_one.json", 1, None, 0)
+        ranks = _dp_wait(root, "b_ranks", procs_ranks)
+        (one,) = _dp_wait(root, "b_one", procs_one)
+        b_wall = time.time() - t0
+        worst = _dp_close(ranks, one, "15(b)")
+        digest = _dp_checksums(ranks, 2, "15(b)")
+        logs = (root / "ckpt_b_ranks" / "log.txt").read_text().splitlines()
+        check(len(logs) == 1, f"15(b): log.txt holds {len(logs)} lines, expected 1 (rank 0's)")
+        out["b"] = {"world": 2, "backend": "gloo (one card)", "wall_s": b_wall,
+                    "max_rel_diff": worst, "checksum": digest,
+                    "step_ms": [s["ms"] for s in ranks[0]["steps"]],
+                    "step_ms_one_process": [s["ms"] for s in one["steps"]],
+                    "allreduce_ms": ranks[0]["allreduce_ms"],
+                    "losses": [s["metrics"]["total_loss"] for s in ranks[0]["steps"]],
+                    "grad_norms": [s["metrics"]["grad_norm"] for s in ranks[0]["steps"]]}
+        say(f"[dp] (b) 2 ranks over gloo on one card vs 1 process at batch 8 (fp32): largest "
+            f"relative difference {worst:.2e} (limit {DP_TOL}), checksum {digest} on both "
+            f"ranks, all-reduce {[round(x, 1) for x in ranks[0]['allreduce_ms']]} ms a step, "
+            f"{b_wall:.1f} s on {card}")
+
+        # (c) NCCL with a card a rank
+        if torch.cuda.device_count() >= 2:
+            t0 = time.time()
+            ranks_c = _dp_wait(root, "c", launch(root, "c", root / "b_ranks.json", 2, "nccl",
+                                                 _free_port()))
+            out["c"] = {"world": 2, "backend": "nccl", "wall_s": time.time() - t0,
+                        "max_rel_diff": _dp_close(ranks_c, one, "15(c)"),
+                        "checksum": _dp_checksums(ranks_c, 2, "15(c)"),
+                        "allreduce_ms": ranks_c[0]["allreduce_ms"]}
+            say(f"[dp] (c) 2 ranks over NCCL, a card each: {json.dumps(out['c'])}")
+        else:
+            out["c"] = {"skipped": f"{torch.cuda.device_count()} card(s) visible; NCCL needs "
+                                   f"a card a rank"}
+            say(f"[dp] (c) skipped: {out['c']['skipped']}")
+    out["wall_s"] = time.time() - t_phase
+    say(f"[dp] phase 15 {out['wall_s']:.1f} s")
+    return out, out["a"]["launches"]
+
+
 def main() -> int:
     try:
         import torch
@@ -6844,8 +7168,17 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 checks are full fp32
     torch.backends.cudnn.allow_tf32 = False
+    seconds = {}  # each phase's wall seconds
+    mark = [time.time()]
+
+    def done(name):
+        seconds[name] = time.time() - mark[0]
+        say(f"[phase] {name}: {seconds[name]:.1f} s")
+        mark[0] = time.time()
+
     try:
         card = phase_device_and_build()
+        done("1")
         gen = torch.Generator().manual_seed(1)
         table = [check_fused_attention(gen), check_fused_attention_bwd(gen)]
         table[0]["hmma_per_kernel"] = check_tensor_cores()
@@ -6868,32 +7201,48 @@ def main() -> int:
             say(f"[time] {row['name']}: {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, "
                 f"library {row['library_ms']}, bound {row['bound_ms']:.4f} by "
                 f"{row['bound_by']}) on {card}")
+        done("2")
         train, train_launches = phase_train(card)
+        done("3")
         e2e, serve_launches, fp32, (fp32_state, fp32_inputs) = phase_end_to_end(card)
+        done("4")
         evaluation, eval_launches, phase5_weights = phase_train_and_evaluate(
             card, fp32_state, fp32_inputs)
         del fp32_state, fp32_inputs
         torch.cuda.empty_cache()
+        done("5")
         pdvc, pdvc_launches = phase_pdvc(card)
         torch.cuda.empty_cache()
+        done("6")
         asr_run, asr_launches = phase_asr(card)
         torch.cuda.empty_cache()
+        done("7")
         pretrain, pretrain_launches = phase_pretrain(card)
         torch.cuda.empty_cache()
         reference, reference_launches = phase_reference_checkpoint(card)
         torch.cuda.empty_cache()
+        done("8")
         vc, vc_launches = phase_vc(card, phase5_weights)
         del phase5_weights
         torch.cuda.empty_cache()
+        done("9")
         grounding = phase_grounding(card)
         torch.cuda.empty_cache()
+        done("10")
         video, feature_launches, demo_launches = phase_video(card)
         torch.cuda.empty_cache()
+        done("11")
         zeroshot, zeroshot_launches = phase_zeroshot(card)
         torch.cuda.empty_cache()
+        done("12")
         last, gpt2_launches = phase_last_modules(card)
         torch.cuda.empty_cache()
+        done("13")
         demo_asr, demo_asr_launches = phase_demo_asr(card)
+        torch.cuda.empty_cache()
+        done("14")
+        dp, dp_launches = phase_data_parallel(card, train["step_ms"])
+        done("15")
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
@@ -6926,6 +7275,8 @@ def main() -> int:
     for row in table:  # rows 7 and 7b under PDVC's GPT-2 caption head (phase 13a)
         if row["name"] in gpt2_launches:
             row["launches_gpt2"] = gpt2_launches[row["name"]]
+    for row in table[:2]:  # rows 1-2 under dvc_main on an NCCL group of one (phase 15a)
+        row["launches_dp"] = dp_launches[row["name"]]
     for row in table:  # row 8 at one row in demo_asr's two runs (phase 14)
         if row["name"] == "whisper_megakernel":
             row["launches_demo_asr"] = demo_asr_launches
@@ -6956,11 +7307,15 @@ def main() -> int:
         f"{last['toxicity']['texts_per_s'][TOXIC_MAX_LENGTH]:.1f} texts/s, LLaMA load "
         f"{last['llama']['load_s']:.1f} s; demo_asr large-v2 transcribe "
         f"{demo_asr['plain']['audio_s_per_s']:.2f} audio-s/s, phase 14 "
-        f"{demo_asr['wall_s']:.1f} s")
+        f"{demo_asr['wall_s']:.1f} s; data parallel (a) "
+        f"{[round(x, 1) for x in dp['a']['step_ms']]} ms/step at 1 NCCL rank, (b) 2 gloo "
+        f"ranks within {dp['b']['max_rel_diff']:.2e} of one process; phases "
+        f"{ {k: round(v, 1) for k, v in seconds.items()} } s")
     record = {"kernels": table, "train": train, "end_to_end": e2e, "fp32_tokens": fp32,
               "evaluation": evaluation, "pdvc": pdvc, "asr": asr_run, "pretrain": pretrain,
               "reference_checkpoint": reference, "vc": vc, "grounding": grounding, "video": video,
-              "zeroshot": zeroshot, "last_modules": last, "demo_asr": demo_asr, "card": card}
+              "zeroshot": zeroshot, "last_modules": last, "demo_asr": demo_asr,
+              "data_parallel": dp, "phase_seconds": seconds, "card": card}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

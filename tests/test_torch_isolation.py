@@ -75,6 +75,8 @@ def test_package_imports_with_jax_blocked():
         "import vidchapters_tpu_torch.factory.langid, vidchapters_tpu_torch.factory.genbit\n"
         "import vidchapters_tpu_torch.utils.misc, vidchapters_tpu_torch.utils.preproc_answer\n"
         "import vidchapters_tpu_torch.data.whisper_tokenizer, vidchapters_tpu_torch.demo.demo_asr\n"
+        "import vidchapters_tpu_torch.parallel.sharding, vidchapters_tpu_torch.runtime.mesh\n"
+        "import vidchapters_tpu_torch.runtime.collectives\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'vidchapters_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

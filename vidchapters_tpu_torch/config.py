@@ -3,7 +3,9 @@
 Field for field the same tree as ``vidchapters_tpu/config.py``, so an
 ``ExperimentConfig`` JSON written by the JAX package loads here unchanged.
 Fields that only steer the JAX package (``scan_layers``, ``fused_qkv``,
-``remat``, the mesh) are kept for that round trip and ignored by the port.
+``remat``) are kept for that round trip and ignored by the port. Of the
+mesh the port runs the data axis (``runtime/mesh.py``): a
+``model_parallel_size`` above 1 raises.
 
 Replaces the reference's three coexisting config systems (flat argparse in
 args.py:4-357, PDVC argparse+chained-YAML in PDVC/opts.py, and the class-based
@@ -380,12 +382,9 @@ class OptimConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device mesh layout for pjit sharding.
-
-    The reference's parallelism is degenerate data-parallel without gradient
-    sync (SURVEY.md §2.8); here data parallelism is real (XLA collectives over
-    ICI) with optional tensor-model parallelism for larger T5 variants.
-    """
+    """The mesh of ranks: a data axis (one rank a process, gradients summed
+    over the ranks, ``parallel/sharding.py``) and a model axis, which the
+    port does not run yet (``runtime/mesh.create_mesh`` raises above 1)."""
 
     data_axis: str = "data"
     model_axis: str = "model"
@@ -417,7 +416,7 @@ class CheckpointConfig:
 @dataclass
 class TrainConfig:
     epochs: int = 10
-    batch_size: int = 64  # global batch (reference: 8/GPU x 8 GPUs)
+    batch_size: int = 64  # rows of one rank (a process; reference: 8/GPU x 8 GPUs)
     eval_batch_size: int = 32
     seed: int = 42
     print_freq: int = 100

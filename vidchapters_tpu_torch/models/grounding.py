@@ -331,7 +331,8 @@ def _scatter_true(assign: torch.Tensor, valid: torch.Tensor, q: int) -> torch.Te
 
 
 def grounding_loss(outputs: Dict[str, object], targets: Dict[str, torch.Tensor],
-                   cfg: GroundingConfig, exact_match: bool = False
+                   cfg: GroundingConfig, exact_match: bool = False,
+                   num_spans: Optional[int] = None, num_ranks: int = 1
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Weighted sum of span L1 + gIoU + label CE (+ the aux layers') +
     saliency margin (+ contrastive alignment) losses (model.py:367-434).
@@ -339,11 +340,23 @@ def grounding_loss(outputs: Dict[str, object], targets: Dict[str, torch.Tensor],
     ``targets``: spans [B, T, 2] (cxw, normalized), span_valid [B, T],
     optionally saliency_pos/neg_labels [B, P]. The label loss is
     ``(ce * weight).mean()`` over B x Q, not divided by the weights' sum;
-    the saliency loss is ``* 2 / (B * P)``."""
+    the saliency loss is ``* 2 / (B * P)``.
+
+    Data parallelism: with ``num_ranks`` ranks of equal batches, each
+    returns its share of the global batch's losses, which sum over the
+    ranks to them. The span terms divide by ``num_spans``, the global
+    batch's valid spans (this batch's by default); the per-row means (label,
+    contrastive, saliency) divide by ``num_ranks`` too."""
     losses: Dict[str, torch.Tensor] = {}
     tgt_spans = targets["spans"].float()
     tgt_valid = targets["span_valid"].bool()
-    num_spans = tgt_valid.sum().clamp(min=1).float()
+    if num_spans is None:
+        num_spans = tgt_valid.sum().clamp(min=1).float()
+    else:
+        num_spans = float(max(int(num_spans), 1))
+
+    def share(mean: torch.Tensor) -> torch.Tensor:
+        return mean / num_ranks if num_ranks > 1 else mean
     layers = [(outputs["pred_logits"], outputs["pred_spans"], "")]
     layers += [(aux["pred_logits"], aux["pred_spans"], f"aux{i}_")
                for i, aux in enumerate(outputs.get("aux_outputs", []))]
@@ -368,7 +381,7 @@ def grounding_loss(outputs: Dict[str, object], targets: Dict[str, torch.Tensor],
         logp = torch.log_softmax(pred_logits, dim=-1)
         ce = -torch.where(fg, logp[..., FOREGROUND], logp[..., BACKGROUND])
         weight = torch.where(fg, torch.ones_like(ce), torch.full_like(ce, cfg.eos_coef))
-        loss_label = (ce * weight).mean()
+        loss_label = share((ce * weight).mean())
         losses[prefix + "loss_span"] = loss_span
         losses[prefix + "loss_giou"] = loss_giou
         losses[prefix + "loss_label"] = loss_label
@@ -383,7 +396,7 @@ def grounding_loss(outputs: Dict[str, object], targets: Dict[str, torch.Tensor],
         pos_map = _scatter_true(assign, (assign >= 0) & tgt_valid, logits_nce.shape[1])
         pos_term = torch.where(pos_map, logits_nce, torch.zeros_like(logits_nce)).sum(1)
         num_pos = pos_map.sum(1).clamp(min=1)
-        loss_nce = (-pos_term / num_pos + torch.logsumexp(logits_nce, dim=1)).mean()
+        loss_nce = share((-pos_term / num_pos + torch.logsumexp(logits_nce, dim=1)).mean())
         losses["loss_contrastive_align"] = loss_nce
         total = total + loss_nce
 
@@ -392,8 +405,8 @@ def grounding_loss(outputs: Dict[str, object], targets: Dict[str, torch.Tensor],
         pos = torch.gather(s, 1, targets["saliency_pos_labels"].long())
         neg = torch.gather(s, 1, targets["saliency_neg_labels"].long())
         n_pairs = targets["saliency_pos_labels"].shape[1]
-        loss_sal = (cfg.saliency_margin + neg - pos).clamp(min=0.0).sum() / (
-            s.shape[0] * n_pairs) * 2.0
+        loss_sal = share((cfg.saliency_margin + neg - pos).clamp(min=0.0).sum() / (
+            s.shape[0] * n_pairs) * 2.0)
         losses["loss_saliency"] = loss_sal
         total = total + cfg.lw_saliency * loss_sal
 

@@ -504,14 +504,17 @@ def shift_right(labels: torch.Tensor, decoder_start_token_id: int = 0,
 
 def label_smoothed_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                                  label_smoothing: float = 0.1,
-                                 ignore_index: int = -100) -> torch.Tensor:
+                                 ignore_index: int = -100,
+                                 denom: Optional[int] = None) -> torch.Tensor:
     """Mean CE with label smoothing over non-ignored positions, as torch's
-    ``CrossEntropyLoss(ignore_index=-100, label_smoothing=s)``."""
+    ``CrossEntropyLoss(ignore_index=-100, label_smoothing=s)``. ``denom``
+    replaces the count of non-ignored labels the sum is divided by (data
+    parallelism passes the global batch's count; at least 1)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     mask = labels != ignore_index
     safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     smooth = -torch.mean(logp, dim=-1)
     loss = (1.0 - label_smoothing) * nll + label_smoothing * smooth
-    denom = torch.clamp(mask.sum(), min=1)
+    denom = torch.clamp(mask.sum(), min=1) if denom is None else max(int(denom), 1)
     return torch.where(mask, loss, torch.zeros_like(loss)).sum() / denom

@@ -75,17 +75,20 @@ class Vid2Seq(nn.Module):
 
     def forward(self, video, input_ids, attention_mask, labels,
                 video_embeds: Optional[torch.Tensor] = None,
-                rng: Optional[StepRng] = None) -> Dict[str, torch.Tensor]:
+                rng: Optional[StepRng] = None,
+                loss_denom: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """Training forward: {"loss", "video_embeds"}, with dropout when
         ``rng`` is given. ``labels`` are output ids with 0-padding, ignored
-        in the loss."""
+        in the loss. ``loss_denom``: what the loss's sum is divided by, the
+        count of nonzero ``labels`` by default."""
         enc_out, enc_mask = self.encode(video, input_ids, attention_mask, video_embeds,
                                         rng)
         targets = torch.where(labels == 0, torch.full_like(labels, -100), labels)
         logits = self.t5.decode(shift_right(labels), (labels != 0).to(torch.int32),
                                 enc_out, enc_mask, rng)
         out = {"loss": label_smoothed_cross_entropy(logits, targets,
-                                                    self.cfg.t5.label_smoothing)}
+                                                    self.cfg.t5.label_smoothing,
+                                                    denom=loss_denom)}
         if self.cfg.use_video:
             out["video_embeds"] = (video_embeds if video_embeds is not None
                                    else enc_out[:, :video.shape[1]])

@@ -12,6 +12,12 @@ A checkpoint is one ``torch.save`` file of ``{"model": state_dict,
 and renamed over ``name``, so a reader never sees half a file. At T5-base
 width with its two Adam moments that is 3.47 GB a file (3,470,764,565 bytes,
 written by ``chip_smoke.py``'s phase 5).
+
+Over several ranks (``runtime/mesh.py``) the JAX package's policy holds
+(its checkpoint.py:64-100, :127): rank 0 alone writes the files, the meta
+and ``manager.json`` and prunes the archives, and every rank waits at a
+barrier until it has; every rank restores. The best value is rank 0's, so
+that every rank takes the same ``best`` decision.
 """
 
 from __future__ import annotations
@@ -23,6 +29,9 @@ from pathlib import Path
 from typing import Any, Dict, Optional
 
 import torch
+
+from vidchapters_tpu_torch.runtime.collectives import all_gather_object
+from vidchapters_tpu_torch.runtime.mesh import barrier, is_main_process
 
 
 def state_payload(state, epoch: int) -> Dict[str, Any]:
@@ -69,16 +78,18 @@ class CheckpointManager:
             (self.dir / (p.name + ".meta.json")).unlink(missing_ok=True)
 
     def save_last(self, state, epoch: int) -> None:
-        payload = state_payload(state, epoch)
-        self._save("last", payload, {"epoch": epoch})
-        if self.keep_last > 1:
-            self._save(f"last_e{epoch}", payload, {"epoch": epoch})
-            self._prune_archives("last", self.keep_last - 1)
-        if self.save_every_epochs and (epoch + 1) % self.save_every_epochs == 0:
-            self._save(f"epoch_{epoch}", payload, {"epoch": epoch})
+        if is_main_process():
+            payload = state_payload(state, epoch)
+            self._save("last", payload, {"epoch": epoch})
+            if self.keep_last > 1:
+                self._save(f"last_e{epoch}", payload, {"epoch": epoch})
+                self._prune_archives("last", self.keep_last - 1)
+            if self.save_every_epochs and (epoch + 1) % self.save_every_epochs == 0:
+                self._save(f"epoch_{epoch}", payload, {"epoch": epoch})
+        barrier()
 
     def maybe_save_best(self, state, epoch: int, metrics: Dict[str, float]) -> bool:
-        value = metrics.get(self.best_metric)
+        value = all_gather_object(metrics.get(self.best_metric))[0]  # rank 0's
         if value is None:
             return False
         better = (self.best_value is None
@@ -86,13 +97,16 @@ class CheckpointManager:
                   or (self.best_mode == "min" and value < self.best_value))
         if better:
             self.best_value = float(value)
-            payload = state_payload(state, epoch)
-            meta = {"epoch": epoch, self.best_metric: float(value)}
-            self._save("best", payload, meta)
-            if self.keep_best > 1:
-                self._save(f"best_e{epoch}", payload, meta)
-                self._prune_archives("best", self.keep_best - 1)
-            (self.dir / "manager.json").write_text(json.dumps({"best_value": self.best_value}))
+            if is_main_process():
+                payload = state_payload(state, epoch)
+                meta = {"epoch": epoch, self.best_metric: float(value)}
+                self._save("best", payload, meta)
+                if self.keep_best > 1:
+                    self._save(f"best_e{epoch}", payload, meta)
+                    self._prune_archives("best", self.keep_best - 1)
+                (self.dir / "manager.json").write_text(
+                    json.dumps({"best_value": self.best_value}))
+            barrier()
         return better
 
     def load(self, name: str, map_location=None) -> Dict[str, Any]:

@@ -6,6 +6,11 @@ per-step key there): every random draw of a step comes from ``(seed,
 step)``, so running a step again from the same seed and step gives the same
 dropout masks. The numbers differ from JAX's: the law is the same.
 
+With data parallelism each rank folds in its rank (from rank 1 up, so rank
+0 draws what one process draws): JAX draws a global batch's masks from one
+key, so no two rows share theirs, and neither do rows of different ranks
+here.
+
 - Element masks (``_apply_dropout``) come from ``generator``, a
   ``torch.Generator`` on the device of the tensors it masks.
 - Hash-mask dropout (the fused attention kernel, the dense attention route)
@@ -20,9 +25,9 @@ import torch
 
 
 class StepRng:
-    def __init__(self, seed: int, step: int, device: "str | torch.device"):
-        torch_seed, host_seed = np.random.SeedSequence(
-            [int(seed), int(step)]).generate_state(2, np.uint64)
+    def __init__(self, seed: int, step: int, device: "str | torch.device", rank: int = 0):
+        entropy = [int(seed), int(step)] + ([int(rank)] if rank else [])
+        torch_seed, host_seed = np.random.SeedSequence(entropy).generate_state(2, np.uint64)
         self.generator = torch.Generator(device=device)
         self.generator.manual_seed(int(torch_seed))
         self._host = np.random.default_rng(int(host_seed))

@@ -1,7 +1,7 @@
 """DVC / chapter-generation training and evaluation entry point (dvc.py).
 
 Counterpart of ``vidchapters_tpu/train/dvc_main.py`` (the reference's
-dvc.py:243-475) on one GPU: build the tokenizer, datasets, model and
+dvc.py:243-475): build the tokenizer, datasets, model and
 optimizer; train epoch by epoch; evaluate on val every
 ``eval_every_epochs`` and keep the ``best`` checkpoint by CIDEr; save
 ``last`` for resume; write ``log.txt`` (one JSON line per epoch) and the
@@ -9,13 +9,23 @@ val predictions; then evaluate the ``best`` weights on the test split (val
 when there is none).
 
     python -m vidchapters_tpu_torch.train.dvc_main --config exp.json [--eval]
-        [--load CKPT] [--device cuda|cpu]
+        [--load CKPT] [--device cuda|cpu] [--dist-backend nccl|gloo]
+
+Data parallel over N processes (ranks), one launched per rank with
+``VIDCHAPTERS_NUM_PROCESSES=N``, ``VIDCHAPTERS_PROCESS_ID=r`` and
+``VIDCHAPTERS_COORDINATOR=host:port`` (``runtime/mesh.py``): NCCL with a
+card a rank by default, gloo on the CPU or for ranks sharing a card.
+``cfg.train.batch_size`` is the rows of one rank, as it is of one JAX
+process: each rank reads its strided shard of the epoch's order, the
+train step is that of the global batch (``train/dvc_train.py``), the val
+eval decodes each rank's shard and gathers, and the final eval runs whole
+on every rank. Rank 0 alone writes ``log.txt``, the predictions and the
+checkpoints; every rank resumes.
 
 ``htm`` (HowTo100M pretraining, ``configs/htm_pretrain.json``) has a train
 set only: no eval, no ``best``, ``last`` and ``log.txt`` each epoch, and
 ``main`` returns ``{}``. ``--load`` takes a checkpoint of this module or a
-reference ``.pth`` (``models/torch_import.py``). Not ported: data
-parallelism over more than one GPU (ROADMAP.md). ``profile_dir`` writes a
+reference ``.pth`` (``models/torch_import.py``). ``profile_dir`` writes a
 ``torch.profiler`` trace of the same steps the JAX package profiles.
 """
 
@@ -29,7 +39,6 @@ from typing import Dict
 import numpy as np
 import torch
 
-from vidchapters_tpu_torch import resolve_device
 from vidchapters_tpu_torch.config import ExperimentConfig, default_dataset_paths
 from vidchapters_tpu_torch.data.dvc_dataset import (
     DenseVideoCaptioningDataset,
@@ -39,14 +48,16 @@ from vidchapters_tpu_torch.data.dvc_dataset import (
 from vidchapters_tpu_torch.data.tokenizer import build_tokenizer
 from vidchapters_tpu_torch.models import torch_import
 from vidchapters_tpu_torch.models.vid2seq import Vid2Seq
+from vidchapters_tpu_torch.parallel.sharding import broadcast_parameters, replicas_agree
+from vidchapters_tpu_torch.runtime import mesh
 from vidchapters_tpu_torch.runtime.checkpoint import CheckpointManager
-from vidchapters_tpu_torch.runtime.collectives import is_main_process
 from vidchapters_tpu_torch.runtime.meters import MetricLogger
 from vidchapters_tpu_torch.train.dvc_train import (
     TrainState,
     batch_to_device,
     evaluate,
     make_train_step,
+    target_counts,
 )
 from vidchapters_tpu_torch.train.schedules import build_optimizer
 
@@ -94,8 +105,11 @@ def main(cfg: ExperimentConfig, load: str = "", eval_only: bool = False,
     ``{f"{dataset}_{metric}": value}``. ``load``: start from the weights of
     that checkpoint (and evaluate them, not ``best``, at the end).
     ``eval_only``: no training, only the final eval. ``device``: CUDA unless
-    the caller asks for the CPU; raises when CUDA is absent."""
-    device = resolve_device(device)
+    the caller asks for the CPU (a rank's own card when the process group
+    has several ranks); raises when CUDA is absent."""
+    device = mesh.rank_device(device)
+    mesh.create_mesh(cfg.train.mesh)
+    shards = dict(num_shards=mesh.world_size(), shard_index=mesh.rank())
     tok_path = cfg.tokenizer_path
     if not tok_path and cfg.paths.presave_dir:
         cand = Path(cfg.paths.presave_dir) / "t5-base" / "spiece.model"
@@ -111,7 +125,7 @@ def main(cfg: ExperimentConfig, load: str = "", eval_only: bool = False,
         _load_weights(model, load)
     print(f"number of params: {sum(p.numel() for p in model.parameters())}")  # dvc.py:339-341
 
-    steps_per_epoch = sum(len(EpochIterator(ds, cfg.train.batch_size, d))
+    steps_per_epoch = sum(len(EpochIterator(ds, cfg.train.batch_size, d, **shards))
                           for _, ds in train_sets)
     optimizer = build_optimizer(cfg.train.optim, steps_per_epoch * cfg.train.epochs,
                                 model.parameters())
@@ -126,13 +140,14 @@ def main(cfg: ExperimentConfig, load: str = "", eval_only: bool = False,
     if ckpt.has("last") and not load:  # resume (dvc.py:354-361)
         ckpt.restore("last", state)
         print(f"resumed from epoch {ckpt.meta('last').get('epoch')}")
+    broadcast_parameters(model)  # every rank starts from rank 0's weights
 
     log_path = ckpt.dir / "log.txt"
     start_epoch = int(ckpt.meta("last").get("epoch", -1)) + 1
     for epoch in range(start_epoch, start_epoch if eval_only else cfg.train.epochs):
         logger = MetricLogger()
         for name, ds in train_sets:
-            it = EpochIterator(ds, cfg.train.batch_size, d, seed=cfg.train.seed)
+            it = EpochIterator(ds, cfg.train.batch_size, d, seed=cfg.train.seed, **shards)
             it.set_epoch(epoch)
 
             def drain(pending_metrics):
@@ -154,7 +169,8 @@ def main(cfg: ExperimentConfig, load: str = "", eval_only: bool = False,
                         and step_i == cfg.train.profile_start):
                     prof = torch.profiler.profile()
                     prof.start()
-                metrics = train_step(state, batch_to_device(batch, device), cfg.train.seed)
+                metrics = train_step(state, batch_to_device(batch, device), cfg.train.seed,
+                                     counts=target_counts(batch))
                 if pending is not None:
                     drain(pending)
                 pending = metrics
@@ -163,7 +179,8 @@ def main(cfg: ExperimentConfig, load: str = "", eval_only: bool = False,
                     prof.stop()
                     out = Path(cfg.train.profile_dir)
                     out.mkdir(parents=True, exist_ok=True)
-                    prof.export_chrome_trace(str(out / f"trace_e{epoch}.json"))
+                    suffix = f"_r{mesh.rank()}" if mesh.world_size() > 1 else ""
+                    prof.export_chrome_trace(str(out / f"trace_e{epoch}{suffix}.json"))
                     print(f"profile written to {out}")
                     prof = None
             if prof is not None:  # the epoch ended inside the window
@@ -175,11 +192,11 @@ def main(cfg: ExperimentConfig, load: str = "", eval_only: bool = False,
         if (epoch + 1) % cfg.train.eval_every_epochs == 0:
             for name, ds, ref_path in val_sets:
                 it = EpochIterator(ds, cfg.train.eval_batch_size, d, shuffle=False,
-                                   drop_last=False, bucket_inputs=True)
+                                   drop_last=False, bucket_inputs=True, **shards)
                 preds, metrics = evaluate(model, it, tokenizer, cfg.generation,
                                           cfg.model.num_bins, references=[ref_path])
                 epoch_stats.update({f"{name}_{k}": v for k, v in metrics.items()})
-                if is_main_process():
+                if mesh.is_main_process():
                     with open(ckpt.dir / f"{name}_val_preds_e{epoch}.json", "w") as f:
                         json.dump({"results": preds}, f)
                 ckpt.maybe_save_best(state, epoch, metrics)
@@ -187,12 +204,17 @@ def main(cfg: ExperimentConfig, load: str = "", eval_only: bool = False,
         last_every = max(1, cfg.train.checkpoint.save_last_every_epochs)
         if (epoch + 1) % last_every == 0 or epoch == cfg.train.epochs - 1:
             ckpt.save_last(state, epoch)
-        if is_main_process():
+        if mesh.is_main_process():
             with open(log_path, "a") as f:
                 f.write(json.dumps({"epoch": epoch, **epoch_stats}) + "\n")
 
+    if mesh.distributed():  # raises unless every rank holds the same weights
+        print(f"rank {mesh.rank()}: parameters identical on {mesh.world_size()} ranks "
+              f"(checksum {replicas_agree(model)})")
+
     # the final eval with the best weights, on test when configured, else val
-    # (dvc.py:447-464); with --load, the loaded weights
+    # (dvc.py:447-464), whole on every rank as JAX's; with --load, the loaded
+    # weights
     final_metrics: Dict[str, float] = {}
     if ckpt.has("best") and not load:
         ckpt.restore("best", state)
@@ -219,6 +241,14 @@ if __name__ == "__main__":
                    help="skip training; evaluate the loaded or best weights on the test "
                         "(or val) split")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                   help="the process group's backend (VIDCHAPTERS_NUM_PROCESSES ranks; named "
+                        "with one, a group of one): nccl (the default on cuda, a card a rank) "
+                        "or gloo (the CPU, or ranks sharing a card)")
     a = p.parse_args()
+    # the rendezvous of VIDCHAPTERS_NUM_PROCESSES / _PROCESS_ID / _COORDINATOR,
+    # before any work
+    mesh.maybe_initialize_distributed(a.device, a.dist_backend)
     print(main(load_config(ExperimentConfig, a.config), load=a.load, eval_only=a.eval,
                device=a.device))
+    mesh.shutdown()

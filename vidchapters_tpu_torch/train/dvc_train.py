@@ -7,7 +7,8 @@ Counterpart of ``vidchapters_tpu/train/dvc_train.py``.
   gradient, dvc.py:78-100), the weighted sum, the global-norm clip, AdamW
   with the cosine/warmup schedule, and the time-token embedding renorm
   (dvc.py:118-126). Dropout comes from a generator derived from (seed,
-  step); the long attentions run the fused-attention kernels.
+  step, rank); the long attentions run the fused-attention kernels. Over
+  several ranks the step is the global batch's (``parallel/sharding.py``).
 - ``make_generate_fn``: encode once, then greedy, beam or nucleus decode.
   ``_pick_decode_fns`` chooses the route: greedy and beam search take the
   decode kernel (``ops/decode_megakernel``) unless ``models.t5.
@@ -18,8 +19,8 @@ Counterpart of ``vidchapters_tpu/train/dvc_train.py``.
   (beams in {1,2,4,8}, ``B*beams % block``, gated ``d_ff % 128``) do not
   apply to the CUDA kernel and are dropped; the function computed is
   unchanged.
-- ``evaluate``: generate per batch, parse the chapters, score them with
-  ``eval_dvc`` + ``eval_soda``.
+- ``evaluate``: generate per batch, parse the chapters, gather every
+  rank's, score them with ``eval_dvc`` + ``eval_soda``.
 """
 
 from __future__ import annotations
@@ -43,6 +44,12 @@ from vidchapters_tpu_torch.ops.decoding import (
     make_decode_fns,
     nucleus_sample,
 )
+from vidchapters_tpu_torch.parallel.sharding import (
+    all_reduce_gradients,
+    global_counts,
+    sum_shares,
+)
+from vidchapters_tpu_torch.runtime import mesh
 from vidchapters_tpu_torch.runtime.collectives import gather_results
 from vidchapters_tpu_torch.runtime.rng import StepRng
 from vidchapters_tpu_torch.train.schedules import ClipAdamW
@@ -93,17 +100,36 @@ def batch_to_device(batch: Mapping, device) -> Dict[str, torch.Tensor]:
     return out
 
 
+def target_counts(batch: Mapping) -> Tuple[int, int]:
+    """(generative, denoising) target tokens of a batch: the nonzero
+    ``output_tokens`` and ``denoising_output_tokens``, the labels the loss
+    does not ignore (``Vid2Seq.forward``). A host batch gives them without
+    a read from the card."""
+    return tuple(int((batch[k] != 0).sum()) if k in batch else 0
+                 for k in ("output_tokens", "denoising_output_tokens"))
+
+
 def make_train_step(model: Vid2Seq, generative: float = 1.0, denoising: float = 1.0,
                     genasr: bool = False) -> Callable:
-    """``train_step(state, batch, seed) -> metrics``: one update of
-    ``state`` (in place) on ``batch`` (``batch_to_device`` fields on the
-    model's device), with dropout drawn from ``StepRng(seed, state.step)``.
-    Metrics are 0-d tensors on the device: ``loss``, ``denoising_loss``,
-    ``total_loss``, and ``grad_norm`` of the raw gradients. After the step
-    every parameter's ``.grad`` still holds that step's raw gradient."""
-    num_bins = model.cfg.num_bins
+    """``train_step(state, batch, seed, counts=None) -> metrics``: one
+    update of ``state`` (in place) on ``batch`` (``batch_to_device`` fields
+    on the model's device), with dropout drawn from ``StepRng(seed,
+    state.step, rank)``. Metrics are 0-d tensors on the device: ``loss``,
+    ``denoising_loss``, ``total_loss``, and ``grad_norm`` of the raw
+    gradients. After the step every parameter's ``.grad`` still holds that
+    step's raw gradient.
 
-    def loss_fn(batch: Dict[str, torch.Tensor], rng: StepRng
+    In a process group (``runtime/mesh.py``), ``batch`` is this rank's rows
+    and the step is that of the global batch over the ranks, as JAX's jitted
+    step over a batch sharded on the data axis: each loss term divides its
+    sum by the global count of its target tokens (``counts``, this rank's
+    ``target_counts`` of the host batch, summed over the ranks on the host;
+    required there), the gradients are summed over the ranks before the
+    clip and the update, and the metrics are the global batch's."""
+    num_bins = model.cfg.num_bins
+    data_parallel = mesh.distributed()
+
+    def loss_fn(batch: Dict[str, torch.Tensor], rng: StepRng, denoms: Tuple
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         losses = {}
         video_embeds = None
@@ -114,31 +140,40 @@ def make_train_step(model: Vid2Seq, generative: float = 1.0, denoising: float = 
             else:
                 inp = batch["input_tokens"]
             out = model(video, inp, (inp != 0).to(torch.int32), batch["output_tokens"],
-                        rng=rng)
+                        rng=rng, loss_denom=denoms[0])
             losses["loss"] = out["loss"]
             video_embeds = out.get("video_embeds")
         if denoising:
             den = batch["denoising_input_tokens"]
             out_d = model(video, den, (den != 0).to(torch.int32),
                           batch["denoising_output_tokens"], video_embeds=video_embeds,
-                          rng=rng)
+                          rng=rng, loss_denom=denoms[1])
             losses["denoising_loss"] = out_d["loss"]
         total = (generative * losses.get("loss", 0.0)
                  + denoising * losses.get("denoising_loss", 0.0))
         return total, losses
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
-                   seed: int) -> Dict[str, torch.Tensor]:
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int,
+                   counts: Optional[Tuple[int, int]] = None) -> Dict[str, torch.Tensor]:
         device = next(state.model.parameters()).device
-        rng = StepRng(seed, state.step, device)
+        rng = StepRng(seed, state.step, device, rank=mesh.rank())
+        denoms = (None, None)
+        if data_parallel:  # each term divided by its global batch's count
+            if counts is None:
+                raise ValueError("in a process group the step takes the host batch's "
+                                 "target_counts as counts")
+            denoms = tuple(global_counts(counts))
         state.model.zero_grad(set_to_none=True)
-        total, losses = loss_fn(batch, rng)
+        total, losses = loss_fn(batch, rng, denoms)
         total.backward()
+        if data_parallel:
+            all_reduce_gradients(state.model.parameters())
         grad_norm = state.optimizer.step()
         renorm_time_tokens(state.model, num_bins)
         state.step += 1
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total_loss"] = total.detach()
+        metrics = sum_shares(metrics)  # the ranks' shares sum to the global losses
         metrics["grad_norm"] = grad_norm
         return metrics
 
@@ -203,9 +238,10 @@ def evaluate(model: Vid2Seq, data_iter: Iterable[Mapping], tokenizer,
              references: Optional[List] = None,
              seed: int = 0) -> Tuple[Dict[str, list], Dict[str, float]]:
     """Decode every batch on the device of ``model``'s parameters, parse the
-    chapters, and score them when ``references`` are given (dvc_train.py:
-    192-226 there). Batch n of a nucleus run samples from a generator
-    seeded ``seed + n``.
+    chapters, gather every rank's predictions (each rank decodes its shard
+    of the videos), and score them when ``references`` are given
+    (dvc_train.py:192-226 there). Batch n of a nucleus run samples from a
+    generator seeded ``seed + n``.
 
     Returns (predictions in the submission schema ``{vid: [{sentence,
     timestamp}]}``, metrics of ``eval_dvc`` + ``eval_soda``)."""

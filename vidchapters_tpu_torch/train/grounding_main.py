@@ -1,7 +1,7 @@
 """Chapter-grounding (Moment-DETR) training and evaluation entry point.
 
 Counterpart of ``vidchapters_tpu/train/grounding_main.py`` (the reference's
-moment_detr train.py) on one GPU: the epoch loop with AdamW and StepLR, an
+moment_detr train.py): the epoch loop with AdamW and StepLR, an
 eval every ``eval_every`` epochs, early stop when MR-full-mAP has not
 improved for ``early_stop_patience`` epochs (train.py:155-179), ``best`` /
 ``last`` checkpoints and ``log.txt`` (160-208), a final eval with the
@@ -12,15 +12,22 @@ host prepares the next batch while the card runs the step.
     python -m vidchapters_tpu_torch.train.grounding_main \\
         --recipe configs/chapters_momentdetr.json --save-dir D \\
         [--train-jsonl T --val-jsonl V --v-feat-dirs F ...] \\
-        [--clip-text-ckpt ViT-L-14.pt] [--device cuda|cpu]
+        [--clip-text-ckpt ViT-L-14.pt] [--device cuda|cpu] [--dist-backend nccl|gloo]
 
 ``--clip-text-ckpt`` takes OpenAI's released TorchScript archive or a
 plain state dict under its names; without it the text tower is one seeded
 random layer (smoke mode). With ``use_speech`` and no ``--bert-ckpt`` the
 speech tower is one seeded random BERT layer behind a per-process hash
 tokenizer (smoke mode); ``--bert-ckpt`` takes an HF BERT checkpoint
-directory (``bert_speech_tower``). Not ported: the data-parallel mesh (one
-process; ROADMAP.md §1, "More than one GPU").
+directory (``bert_speech_tower``).
+
+Data parallel over N ranks as ``train/dvc_main`` (``VIDCHAPTERS_*``
+variables, ``runtime/mesh.py``): ``--batch-size`` is the rows of one rank,
+each rank trains on its strided shard of the epoch's order and the step is
+the global batch's; the evals run whole on every rank, as JAX's; rank 0
+alone writes ``log.txt``, the checkpoints and ``test_preds.jsonl``. The
+smoke-mode hash tokenizer (and CLIP's offline fallback) salt their ids by
+``PYTHONHASHSEED``: launch every rank with the same one.
 """
 
 from __future__ import annotations
@@ -32,10 +39,11 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from vidchapters_tpu_torch import resolve_device
 from vidchapters_tpu_torch.config import GroundingConfig
 from vidchapters_tpu_torch.data.grounding_dataset import GroundingDataset, grounding_collate
 from vidchapters_tpu_torch.models.grounding import MomentDETR
+from vidchapters_tpu_torch.parallel.sharding import broadcast_parameters, replicas_agree
+from vidchapters_tpu_torch.runtime import mesh
 from vidchapters_tpu_torch.runtime.checkpoint import CheckpointManager
 from vidchapters_tpu_torch.runtime.meters import MetricLogger
 from vidchapters_tpu_torch.train.grounding_train import (
@@ -45,15 +53,20 @@ from vidchapters_tpu_torch.train.grounding_train import (
     grounding_batch_to_device,
     make_grounding_infer,
     make_grounding_train_step,
+    valid_spans,
 )
 from vidchapters_tpu_torch.utils.io import load_jsonl
 
 
 def batches(dataset: GroundingDataset, batch_size: int, max_v_l: int, max_spans: int,
             shuffle: bool, seed: int, text_featurizer=None, speech_featurizer=None,
-            max_q_l: int = 32):
+            max_q_l: int = 32, num_shards: int = 1, shard_index: int = 0):
     """Collated batches of ``dataset`` (the last partial batch dropped), in a
-    ``default_rng(seed)`` shuffle when ``shuffle``. ``text_featurizer``
+    ``default_rng(seed)`` shuffle when ``shuffle``; with ``num_shards`` > 1
+    the rank ``shard_index``'s strided slice of that order, cut first to a
+    multiple of ``num_shards`` (as ``EpochIterator``), so that every rank
+    yields as many batches: JAX's does not cut, and ranks whose slices
+    differ by a batch there fall out of step (ROADMAP.md §3). ``text_featurizer``
     adds CLIP ``query_tokens``; ``speech_featurizer`` turns the ASR strings
     into static-shape BERT ids (prepare_batch_inputs,
     start_end_dataset.py:299-306)."""
@@ -61,6 +74,7 @@ def batches(dataset: GroundingDataset, batch_size: int, max_v_l: int, max_spans:
     rng = np.random.default_rng(seed)
     if shuffle:
         rng.shuffle(order)
+    order = order[:len(order) // num_shards * num_shards][shard_index::num_shards]
     for s in range(0, len(order) - batch_size + 1, batch_size):
         batch = grounding_collate([dataset[int(i)] for i in order[s:s + batch_size]],
                                   max_v_l, max_spans, max_q_l=max_q_l)
@@ -82,8 +96,10 @@ def main(train_jsonl: str, val_jsonl: str, v_feat_dirs: List[str], cfg: Groundin
     val (and on ``test_jsonl``); returns the brief metrics (``test_``
     prefixed for the test split when it has ground truth). The towers
     (``text_encoder``, ``speech_encoder``: the port's CLIP text and BERT
-    modules) are frozen and moved to ``device``."""
-    device = resolve_device(device)
+    modules) are frozen and moved to ``device`` (a rank's own card when the
+    process group has several ranks)."""
+    device = mesh.rank_device(device)
+    world, rank = mesh.world_size(), mesh.rank()
     use_speech = cfg.use_speech and speech_encoder is not None
     ds_kw = dict(max_v_l=cfg.max_v_l, clip_len=cfg.clip_length, use_speech=use_speech,
                  subtitles_path=subtitles_path)
@@ -97,6 +113,7 @@ def main(train_jsonl: str, val_jsonl: str, v_feat_dirs: List[str], cfg: Groundin
     if not use_speech:
         speech_encoder = None
     model = MomentDETR(cfg).init_weights(torch.Generator().manual_seed(seed)).to(device)
+    broadcast_parameters(model)
     print(f"number of params: {sum(p.numel() for p in model.parameters())}")
     tokenize = (lambda qs: np.asarray(clip_tokenizer(qs))) if clip_tokenizer else None
     # static-shape BERT ids for the ASR stream (max_speech_l, start_end_dataset.py:122)
@@ -107,6 +124,7 @@ def main(train_jsonl: str, val_jsonl: str, v_feat_dirs: List[str], cfg: Groundin
         return batches(ds, min(batch_size, len(ds)), cfg.max_v_l, max_spans, False, 0,
                        tokenize, speech_featurizer=sp_tok, max_q_l=cfg.max_q_l)
 
+    # the lr drop counts steps of the whole set, as JAX's (ROADMAP.md §3)
     steps_per_epoch = max(len(train_ds) // batch_size, 1)
     optimizer = build_grounding_optimizer(model.parameters(), lr=lr,
                                           steps_per_epoch=steps_per_epoch)
@@ -123,10 +141,12 @@ def main(train_jsonl: str, val_jsonl: str, v_feat_dirs: List[str], cfg: Groundin
         pending = None  # the step before's losses are read after this step is queued
         for bi, batch in enumerate(batches(train_ds, batch_size, cfg.max_v_l, max_spans, True,
                                            seed + epoch, tokenize, speech_featurizer=sp_tok,
-                                           max_q_l=cfg.max_q_l)):
+                                           max_q_l=cfg.max_q_l, num_shards=world,
+                                           shard_index=rank)):
             if max_train_batches and bi >= max_train_batches:
                 break
-            metrics = train_step(state, grounding_batch_to_device(batch, device), seed)
+            metrics = train_step(state, grounding_batch_to_device(batch, device), seed,
+                                 num_spans=valid_spans(batch))
             if pending is not None:
                 logger.update(loss=float(pending["total"]))
             pending = metrics
@@ -145,9 +165,13 @@ def main(train_jsonl: str, val_jsonl: str, v_feat_dirs: List[str], cfg: Groundin
                 ckpt.save_last(state, epoch)
                 break
         ckpt.save_last(state, epoch)
-        with open(log_path, "a") as f:
-            f.write(json.dumps(stats) + "\n")
+        if mesh.is_main_process():
+            with open(log_path, "a") as f:
+                f.write(json.dumps(stats) + "\n")
 
+    if mesh.distributed():  # raises unless every rank holds the same weights
+        print(f"rank {rank}: parameters identical on {world} ranks "
+              f"(checksum {replicas_agree(model)})")
     if ckpt.has("best"):
         ckpt.restore("best", state)
     _, final_metrics = evaluate_grounding(infer, eval_batches(val_ds), ground_truth,
@@ -161,9 +185,10 @@ def main(train_jsonl: str, val_jsonl: str, v_feat_dirs: List[str], cfg: Groundin
         test_gt = load_jsonl(test_jsonl)
         submission, test_metrics = evaluate_grounding(infer, eval_batches(test_ds), test_gt,
                                                       tokenizer=eval_tokenizer)
-        with open(Path(save_dir) / "test_preds.jsonl", "w") as f:
-            for row in submission:
-                f.write(json.dumps(row) + "\n")
+        if mesh.is_main_process():
+            with open(Path(save_dir) / "test_preds.jsonl", "w") as f:
+                for row in submission:
+                    f.write(json.dumps(row) + "\n")
         if any("relevant_windows" in g for g in test_gt):
             results.update({f"test_{k}": v for k, v in test_metrics["brief"].items()})
     return results
@@ -265,6 +290,10 @@ def _cli(argv=None) -> None:
                    help="OpenAI CLIP .pt (TorchScript archive or state dict) for the frozen "
                         "text tower; omitted = one random layer (smoke/debug only)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                   help="the process group's backend (VIDCHAPTERS_NUM_PROCESSES ranks; named "
+                        "with one, a group of one): nccl (the default on cuda, a card a rank) "
+                        "or gloo (the CPU, or ranks sharing a card)")
     # recipe defaults are applied before re-parsing so explicit flags win
     pre, _ = p.parse_known_args(argv)
     recipe = {}
@@ -280,6 +309,8 @@ def _cli(argv=None) -> None:
             test_jsonl=da.get("test_jsonl"), subtitles_path=da.get("subtitles_path"),
             v_feat_dirs=da.get("v_feat_dirs"))
     a = p.parse_args(argv)
+    # the rendezvous of VIDCHAPTERS_NUM_PROCESSES / _PROCESS_ID / _COORDINATOR
+    mesh.maybe_initialize_distributed(a.device, a.dist_backend)
     ds_paths = DatasetPaths(train_jsonl_path=a.train_jsonl or "",
                             val_jsonl_path=a.val_jsonl or "",
                             test_jsonl_path=a.test_jsonl or "",
@@ -321,6 +352,7 @@ def _cli(argv=None) -> None:
                           subtitles_path=ds_paths.subtitles_path or None,
                           speech_encoder=speech_encoder, speech_tokenizer=speech_tokenizer,
                           device=a.device)))
+    mesh.shutdown()
 
 
 if __name__ == "__main__":

@@ -7,7 +7,8 @@ that runs the frozen CLIP text tower (and the frozen BERT speech tower of
 Hungarian-matched losses, the global-norm clip and AdamW with a StepLR
 staircase; inference decodes spans and scores, and ``evaluate_grounding``
 builds the submission (optional temporal NMS) and scores it with
-``evals.moment.eval_submission``.
+``evals.moment.eval_submission``. Over several ranks the train step is that
+of the global batch (``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,12 @@ from vidchapters_tpu_torch.models.grounding import (
     postprocess_predictions,
 )
 from vidchapters_tpu_torch.ops.span_ops import temporal_nms_indices
+from vidchapters_tpu_torch.parallel.sharding import (
+    all_reduce_gradients,
+    global_count,
+    sum_shares,
+)
+from vidchapters_tpu_torch.runtime import mesh
 from vidchapters_tpu_torch.runtime.rng import StepRng
 from vidchapters_tpu_torch.train.schedules import ClipAdamW, staircase_decay
 
@@ -82,19 +89,40 @@ def _speech_inputs(speech_encoder, speech_tokens: Optional[torch.Tensor]):
         return speech_encoder(speech_tokens, attention_mask=mask), mask
 
 
+def valid_spans(batch: Mapping) -> int:
+    """The valid target spans of a batch (``span_valid``): the count the
+    span losses divide by."""
+    return int((batch["span_valid"] != 0).sum())
+
+
 def make_grounding_train_step(model: MomentDETR, text_encoder, cfg: GroundingConfig,
                               speech_encoder=None) -> Callable:
-    """``train_step(state, batch, seed) -> metrics``: one update of
-    ``state`` in place on ``batch`` (``grounding_batch_to_device`` fields
-    on the model's device), dropout drawn from ``StepRng(seed,
-    state.step)``. Only the grounding model trains: the text tower
+    """``train_step(state, batch, seed, num_spans=None) -> metrics``: one
+    update of ``state`` in place on ``batch`` (``grounding_batch_to_device``
+    fields on the model's device), dropout drawn from ``StepRng(seed,
+    state.step, rank)``. Only the grounding model trains: the text tower
     (model.py:53-56) and the speech tower (model.py:131-136) run without
     gradients. Metrics are 0-d device tensors: every loss term, ``total``
-    and ``grad_norm`` of the raw gradients."""
+    and ``grad_norm`` of the raw gradients.
+
+    In a process group (``runtime/mesh.py``) the ranks hold equal batches
+    and the step is the global batch's:
+    the span losses divide by the global count of valid spans
+    (``num_spans``, this rank's ``valid_spans`` of the host batch, summed
+    over the ranks; required there), the per-row means
+    by the number of ranks, the gradients are summed over the ranks before
+    the clip, and the metrics are the global batch's."""
+    data_parallel = mesh.distributed()
 
     def train_step(state: GroundingTrainState, batch: Mapping[str, torch.Tensor],
-                   seed: int) -> Dict[str, torch.Tensor]:
-        rng = StepRng(seed, state.step, batch["video_feat"].device)
+                   seed: int, num_spans: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        share = {}
+        if data_parallel:
+            if num_spans is None:
+                raise ValueError("in a process group the step takes the host batch's "
+                                 "valid_spans as num_spans")
+            share = dict(num_spans=global_count(num_spans), num_ranks=mesh.world_size())
+        rng = StepRng(seed, state.step, batch["video_feat"].device, rank=mesh.rank())
         state.model.zero_grad(set_to_none=True)
         src_txt, txt_mask = _text_inputs(text_encoder, batch)
         src_speech, speech_mask = _speech_inputs(speech_encoder, batch.get("speech_tokens"))
@@ -102,11 +130,14 @@ def make_grounding_train_step(model: MomentDETR, text_encoder, cfg: GroundingCon
                           src_speech=src_speech, src_speech_mask=speech_mask, rng=rng)
         targets = {k: batch[k] for k in ("spans", "span_valid", "saliency_pos_labels",
                                          "saliency_neg_labels")}
-        total, losses = grounding_loss(out, targets, cfg)
+        total, losses = grounding_loss(out, targets, cfg, **share)
         total.backward()
+        if data_parallel:
+            all_reduce_gradients(state.model.parameters())
         grad_norm = state.optimizer.step()
         state.step += 1
         metrics = {k: v.detach() for k, v in losses.items()}
+        metrics = sum_shares(metrics)  # the ranks' shares sum to the global losses
         metrics["grad_norm"] = grad_norm
         return metrics
 
