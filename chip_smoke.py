@@ -17,8 +17,10 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    route) also at head widths 32 and 128 and at a train step's ragged
    lengths (the encoder's 1100 padded to 1152, the denoising
    cross-attention's 304 queries over 904 keys padded to 1024), two
-   backward runs bit-identical; the bf16 kernels' SASS (cuobjdump) must
-   hold tensor-core instructions (HMMA); top-k exactly over [8, 4*32200]
+   backward runs bit-identical; both at one rank's 6 of 12 heads from head
+   offset 6 (phase 16's forms: encoder and cross, fp32 and bf16, dropout
+   0.1, timed beside SDPA and the bound); the bf16 kernels' SASS (cuobjdump)
+   must hold tensor-core instructions (HMMA); top-k exactly over [8, 4*32200]
    f32 and bf16 (k 8, forced ties) and the Whisper beam's [1 and 8,
    5*51865] and [8, 51865] (k 5), each with rows on which the plain version
    re-picks an entry at finfo.min; the T5 decode kernel at T5-base width
@@ -76,7 +78,7 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    8, both merges, one transcribe at beam 5 with the VAD; the Whisper
    kernel's launches exactly 223 per decode call plus one per language
    detection; audio-seconds per second, peak memory, a profiled decode
-   call; fp32 tokens and beam ancestry at 4+4 layers, card against CPU.
+   call; fp32 tokens and beam ancestry at 2+2 layers, card against CPU.
 8. (a) HowTo100M pretraining at full width through train/dvc_main.main:
    configs/htm_pretrain.json (T5-base with ReLU, ViT 12 x 768, bf16,
    genasr, generative + denoising) with bf16 Adam moments, over a
@@ -139,7 +141,7 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    alignment (factory/align.align_words_batch) at large-v2 width over 24
    segments of phase 7's audio in chunks of 8: word times finite, monotone
    and inside their segments, seconds and peak memory; align_segments on
-   phase 7's pickle read back by merge_and_process; fp32 word times at 4+4
+   phase 7's pickle read back by merge_and_process; fp32 word times at 2+2
    layers card vs CPU, identical. Phase 2 also holds row 1 at the image
    towers' forms, ViT-L/14's [64, 16, 257, 64] (keys padded to 320) and
    ViT-B/32's [64, 12, 50, 64] and [8, 12, 50, 64] (keys padded to 64),
@@ -148,7 +150,7 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    kernel at demo_vid2seq's 1 x 4 rows and the top-k at [1, 4*32200].
 12. The paper's zero-shot baselines at full width, seeded random weights,
    bf16, each tower freed before the next. (a) Speech chapters at LLaMA-7B's
-   widths cut to 16 of its 32 layers (7.0 GB, built on the card; the cut
+   widths cut to 8 of its 32 layers (3.5 GB, built on the card; the cut
    keeps the smoke inside its time limit): run_speech_vcg over 8 synthetic videos of
    four topics with make_llm_titler(make_llama_generate_fn(...)) (a
    synthetic word-hash tokenizer stands in for LLaMA's, which the port
@@ -166,7 +168,7 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    which). (c) run_vcgr in clip mode with the CLIP ViT-L/14 text tower over
    phase 11's features, and in random mode. (d) vc_main --eval
    --model-type blip2 and zeroshot.run visual from a synthetic HF BLIP-2
-   directory (config.json, pytorch_model.bin, spiece.model; 2 layers a
+   directory (config.json, pytorch_model.bin, spiece.model; 1 layer a
    tower at full width). (e) fp32 tokens card vs CPU: LLaMA at 2 layers, d 256,
    GQA 8/2, and BLIP-2 at 2 + 2 + 2 + 2 layers (greedy and beam 2). Phase 2
    also holds rows 5 and 6 at every form (b) launches, 32 heads x 64 (self:
@@ -178,7 +180,7 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
 13. The last single-GPU modules. (a) PDVC with the GPT-2 caption head (HF
    gpt2: 12 layers, 12 heads, 768 wide, vocab 50257) through
    train/pdvc_main at the width of configs/chapters_pdvc.json, as phase 6
-   on 8 + 4 videos: rows 7 and 7b launched exactly 4 per forward pass and
+   on 4 + 2 videos: rows 7 and 7b launched exactly 4 per forward pass and
    4 backward per step, and only at forms phase 2 checks (phase 6 holds
    its own run to that too); ms a train step, eval videos/s, peak memory;
    an fp32 gradient check and fp32 GPT-2 caption tokens of 4 queries,
@@ -193,7 +195,7 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    bert-base directory, sharded pytorch_model.bin) at
    configs/chapters_momentdetr.json with use_speech on, one epoch at phase
    10's batch. (f) build_llama_titler from a synthetic HF directory at
-   LLaMA-7B's widths cut to 2 layers (fp16 safetensors shards, a synthetic
+   LLaMA-7B's widths cut to 1 layer (fp16 safetensors shards, a synthetic
    SentencePiece BPE tokenizer.model of 32,000 pieces): load seconds, 4
    titles, ms a title; fp32 titles card vs CPU at d 256; vc_main
    --model-type llama.
@@ -210,13 +212,13 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    the pickles in the JAX demo's schema, the Whisper kernel's launches exactly
    223 x decode calls + detection calls and only at its one-row form (phase
    2 checks it); seconds of each load part, transcription (audio-s/s) and
-   alignment, peak memory; the same at 4+4 layers in fp32 from a directory
+   alignment, peak memory; the same at 2+2 layers in fp32 from a directory
    (--model DIR), card vs CPU at the greedy rung: identical pickles.
 15. Data parallelism: python -m vidchapters_tpu_torch.train.dvc_main
    launched as a user launches it, one process a rank with the
    VIDCHAPTERS_* variables and one PYTHONHASHSEED, over phase 5's synthetic
    dataset at full width. (a) An NCCL group of one rank (--dist-backend
-   nccl): bf16, dropout 0.1, batch 8, 3 steps and the val eval; step ms
+   nccl): bf16, dropout 0.1, batch 8, 2 steps and the val eval; step ms
    beside phase 3's, the gradient all-reduce's ms, rows 1-2 launched
    exactly 48 a step. (b) Two ranks sharing the card over gloo, fp32,
    dropout 0, 256 input tokens, batch 4 a rank, against one process at
@@ -224,6 +226,19 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    relative, the same parameter checksum on both ranks, the all-reduce's ms
    a step. (c) NCCL with a card a rank when device_count() >= 2, else
    reported as skipped. Any rank exiting non-zero fails the run.
+16. Tensor and sequence parallelism: dvc_main at model_parallel_size 2
+   launched as in 15, two ranks sharing the card over gloo (grid 1 x 2).
+   (b)'s one process first, in this process, then freed: fp32, dropout 0.1,
+   640 input tokens, batch 4, two train steps on the dataset's batches.
+   Then the ranks: (a) bf16, dropout 0.1, the recipe's 1000 tokens (rows
+   1-2 at 6 heads a rank, 48 a step on each), batch 8, 2 steps, the whole
+   `last` and the final eval on the gathered weights; each rank's step ms,
+   the model group's collectives' ms, peak memory beside phase 3's, one
+   checksum of the gathered weights; (b) in the same processes, the steps
+   of the one process at grid 1 x 2: losses and grad_norm within 1e-4, the
+   gathered weights within 1e-4 of their norm (zero-initialised biases
+   2e-3 of their update). (c) (b) over NCCL with a card a rank when
+   device_count() >= 2, else reported as skipped.
 
 Each phase's wall seconds are printed as it ends ([phase] lines) and kept
 in the record. The kernels' launch counts are zeroed just before each main path (phases
@@ -240,8 +255,9 @@ attention, phase 7's sweep for the Whisper kernel); rows 1-2 also carry
 ``launches_zeroshot`` from phase 12(b)'s BLIP-2 calls, rows 7 and 7b
 ``launches_gpt2`` from phase 13(a)'s pdvc_main run, row 8
 ``launches_demo_asr`` from phase 14's two demo_asr runs, rows 1-2
-``launches_dp`` from phase 15(a)'s dvc_main rank. The probes lie on no
-path: their count is phase 2's.
+``launches_dp`` from phase 15(a)'s dvc_main rank and
+``launches_tp_per_rank`` from phase 16(a)'s rank 0 (rank 1's equal). The
+probes lie on no path: their count is phase 2's.
 
 The last lines are the kernel table as one JSON object, the nvidia-smi
 line, and {"ok": true, "device": {...}}. The full record also goes to
@@ -821,6 +837,116 @@ def check_fused_attention_bwd(gen):
                                              f"backend {backend}",
             "shape": "q/k/v/out/dout [8,12,1024,64] bf16, bias [1,12,1024,1024], dropout 0.1",
             "ptxas": _ptxas_lines("fused_attention_bwd")}
+
+
+TP_HEADS = 6  # rows 1-2 on one rank of phase 16's model axis of 2: 6 of T5-base's 12 heads
+TP_H0 = 6     # the second rank's first head
+
+
+def _attention_bytes_flops(b, h, lq, lk, d, bias: bool, backward: bool):
+    """Each input read once and each output written once (bf16 operands;
+    lse, dq / dk / dv and dbias fp32), and the products' operations: the
+    forward's two Lq x Lk x D products, the backward's five."""
+    io = b * h * d * 2
+    if not backward:
+        nbytes = 2 * io * (lq + lk) + b * lk * 4 + b * h * lq * 4
+        flops = 4 * b * h * lq * lk * d
+    else:
+        nbytes = (3 * io * lq + 2 * io * lk + b * lk * 4 + b * h * lq * 4
+                  + b * h * d * 4 * (lq + 2 * lk))
+        flops = 10 * b * h * lq * lk * d
+    if bias:
+        nbytes += h * lq * lk * (2 + (4 if backward else 0))
+    return nbytes, flops
+
+
+def check_fused_attention_heads(gen):
+    """Rows 1-2 as one rank of a model axis of 2 runs them (phase 16): 6
+    heads, the second rank's (``h0`` 6), at the encoder form (1024 x 1024,
+    the relative-position bias) and the cross form (256 x 1152), with
+    dropout. The kernels against their plain versions at ``h0`` (fp32 and
+    bf16), the plain version at ``h0`` against the 12-head one's heads 6-11,
+    then the bf16 times beside the bound and SDPA at the same forms (forward
+    with dropout; forward + backward, the bias with its gradient)."""
+    import torch
+
+    from vidchapters_tpu_torch.ops import fused_attention as fa
+
+    hs = slice(TP_H0, TP_H0 + TP_HEADS)
+    out = {"heads": TP_HEADS, "h0": TP_H0}
+
+    def rank_heads(form, dtype):
+        """The 12-head inputs at the wrapper's lengths, and the rank's heads."""
+        whole = _pad_as_wrapper(*_attention_inputs(gen, form, dtype))
+        return whole, [None if t is None or t.dim() < 4 else t[:, hs].contiguous()
+                       for t in whole[:4]] + [whole[4], whole[5][:, hs].contiguous()]
+
+    for form in ("encoder", "cross"):
+        for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+            whole, (q, k, v, bias, mask, dout) = rank_heads(form, dtype)
+            whole = fa.fused_attention_plain(*whole[:5], SEED, RATE)
+            got, lse = fa._forward(q, k, v, bias, mask, SEED, RATE, want_lse=True, h0=TP_H0)
+            ref = fa.fused_attention_plain(q, k, v, bias, mask, SEED, RATE, h0=TP_H0)
+            grads = fa.fused_attention_bwd(q, k, v, bias, mask, SEED, RATE, got, dout, lse,
+                                           h0=TP_H0)
+            refs = fa.fused_attention_bwd_plain(q, k, v, bias, mask, SEED, RATE, got, dout,
+                                                h0=TP_H0)
+            torch.cuda.synchronize()
+            lq, lk = q.shape[2], k.shape[2]
+            check(torch.equal(fa._keep_full(SEED, q.shape[0], TP_HEADS, lq, lk, RATE, q.device,
+                                            TP_H0),
+                              fa._keep_full(SEED, q.shape[0], 12, lq, lk, RATE, q.device)[:, hs])
+                  and (whole[:, hs].float() - ref.float()).abs().max().item() <= tol,
+                  f"plain {form} at h0 {TP_H0}: not the 12-head call's heads")
+            per = {"out": (got.float() - ref.float()).abs().max().item()}
+            per.update({n: (a - r).abs().max().item()
+                        for n, a, r in zip(("dq", "dk", "dv", "dbias"), grads, refs)
+                        if r is not None})
+            say(f"[check] fused_attention {form} {TP_HEADS} heads at h0 {TP_H0} {dtype} "
+                f"dropout {RATE}: max_abs_err " + ", ".join(f"{n} {e:.3e}" for n, e in
+                                                            per.items()) + f" (tol {tol})")
+            check(max(per.values()) <= tol, f"fused_attention {form} at h0 {TP_H0} {dtype}: "
+                                            f"{per} > {tol}")
+            out[f"max_abs_err_{form}_{str(dtype)[6:]}"] = max(per.values())
+        # the times, bf16
+        q, k, v, bias, mask, dout = rank_heads(form, torch.bfloat16)[1]
+        b, h, lq, d = q.shape
+        lk = k.shape[2]
+        o, lse = fa._forward(q, k, v, bias, mask, SEED, RATE, want_lse=True, h0=TP_H0)
+        fwd_ms = time_ms(lambda: fa._forward(q, k, v, bias, mask, SEED, RATE, want_lse=True,
+                                             h0=TP_H0))
+        bwd_ms = time_ms(lambda: fa.fused_attention_bwd(q, k, v, bias, mask, SEED, RATE, o,
+                                                        dout, lse, h0=TP_H0), 10)
+        madd = (mask[:, None, None, :].to(q.dtype) - 1) * 1e9
+        float_mask = (madd if bias is None else bias + madd).expand(-1, h, lq, -1).contiguous()
+        lib_fwd = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=float_mask, dropout_p=RATE, scale=1.0))
+        if bias is not None:
+            lib_fwd_bwd, backend = _sdpa_fwd_bwd(q, k, v, bias, mask, dout)
+        else:
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+            def run():
+                for t in leaves:
+                    t.grad = None
+                torch.nn.functional.scaled_dot_product_attention(
+                    *leaves, attn_mask=float_mask, dropout_p=RATE, scale=1.0).backward(dout)
+
+            lib_fwd_bwd, backend = time_ms(run, 5), "default"
+        fb, ff = _attention_bytes_flops(b, h, lq, lk, d, bias is not None, False)
+        bb, bf = _attention_bytes_flops(b, h, lq, lk, d, bias is not None, True)
+        fwd_bound, fwd_by = bound(fb, ff, H100_BF16_FLOPS)
+        bwd_bound, bwd_by = bound(bb, bf, H100_BF16_FLOPS)
+        out[form] = {"shape": f"[{b},{h},{lq},{d}] x {lk} keys bf16, h0 {TP_H0}"
+                              + (", bias" if bias is not None else ""),
+                     "fwd_ms": fwd_ms, "fwd_bound_ms": fwd_bound, "fwd_bound_by": fwd_by,
+                     "fwd_library_ms": lib_fwd, "bwd_ms": bwd_ms, "bwd_bound_ms": bwd_bound,
+                     "bwd_bound_by": bwd_by, "fwd_bwd_library_ms": lib_fwd_bwd,
+                     "library_backend": backend}
+        say(f"[time] fused_attention {form} {TP_HEADS} heads at h0 {TP_H0}: "
+            f"{json.dumps(out[form])}")
+    torch.cuda.synchronize()
+    return out
 
 
 TC_KERNELS = ("fused_attention_fwd_tc", "fused_attention_bwd_dkdv_tc",
@@ -3538,7 +3664,7 @@ def _profile_asr_decode(tr, enc, prefix):
 
 
 def asr_fp32_token_check(cfg):
-    """Large-v2 widths cut to 4+4 layers, fp32, seeded weights: one 30 s
+    """Large-v2 widths cut to 2+2 layers, fp32, seeded weights: one 30 s
     window decoded greedily under the timestamp rules and one beam-5 window,
     with the decode kernel on the card and its plain version on the CPU; the
     tokens and the beam ancestry (each step's parent rows) must be
@@ -3551,14 +3677,14 @@ def asr_fp32_token_check(cfg):
     from vidchapters_tpu_torch.factory.audio import log_mel_spectrogram
     from vidchapters_tpu_torch.factory.whisper_transcribe import WhisperTranscriber
 
-    cut = dataclasses.replace(cfg, encoder_layers=4, decoder_layers=4, dtype="float32")
+    cut = dataclasses.replace(cfg, encoder_layers=2, decoder_layers=2, dtype="float32")
     card_model = _whisper_model(cut, DEVICE, seed=11)
     cpu_model = copy.deepcopy(card_model).to("cpu")
     rng = np.random.default_rng(5)
     t = np.arange(16000 * 30) / 16000
     mel = log_mel_spectrogram((0.3 * np.sin(2 * np.pi * 220 * t)
                                + rng.normal(size=t.shape) * 0.05).astype(np.float32))
-    out = {"config": "large-v2 widths, 4+4 layers, fp32"}
+    out = {"config": "large-v2 widths, 2+2 layers, fp32"}
     for name, beam in (("greedy", None), ("beam5", 5)):
         runs = []
         for model, dev in ((card_model, DEVICE), (cpu_model, "cpu")):
@@ -3603,7 +3729,7 @@ def phase_asr(card: str, cfg=None, seconds=ASR_SECONDS):
        form gives back their non-empty texts, times and language;
     2. one ``transcribe`` of the first file with beam 5 and the VAD;
     3. one greedy decode call at batch 8 under torch.profiler;
-    4. the fp32 token check (4+4 layers, card against CPU).
+    4. the fp32 token check (2+2 layers, card against CPU).
 
     The decode kernel's launches are zeroed before 1 and 2 and read after:
     each must equal 223 x (decode calls) + (language-detection calls). With
@@ -5491,7 +5617,7 @@ def video_align(card: str, wcfg=None, seconds=ASR_SECONDS, chunk: int = 8):
     chunks of 8: word times finite, monotone and inside their segments;
     seconds and peak memory. ``align_segments`` turns phase 7's pickle with
     the most segments into whisperx segments that ``merge_and_process``
-    reads back. Then fp32 word times at 4+4 layers, card against CPU,
+    reads back. Then fp32 word times at 2+2 layers, card against CPU,
     identical."""
     import numpy as np
     import torch
@@ -5550,7 +5676,7 @@ def video_align(card: str, wcfg=None, seconds=ASR_SECONDS, chunk: int = 8):
     return summary
 
 
-def align_fp32_check(wcfg, mels, ids, words, secs, layers: int = 4):
+def align_fp32_check(wcfg, mels, ids, words, secs, layers: int = 2):
     """fp32 word times at ``layers``+``layers`` layers of ``wcfg``'s width,
     card against CPU: identical."""
     import copy
@@ -5622,7 +5748,7 @@ def _fresh_peak() -> int:
 
 
 ZS_VIDEOS = 8              # phase 12(a)'s speech videos
-ZS_LLAMA_LAYERS = 16       # 12(a)'s LLaMA-7B widths, cut from 32 layers for the smoke's time
+ZS_LLAMA_LAYERS = 8        # 12(a)'s LLaMA-7B widths, cut from 32 layers for the smoke's time
 ZS_TOPICS = (("pasta", "boil", "salt", "sauce", "noodle", "simmer", "garlic", "basil"),
              ("engine", "race", "track", "tyre", "brake", "gear", "lap", "pit"),
              ("canvas", "brush", "paint", "colour", "sketch", "easel", "oil", "shade"),
@@ -6061,15 +6187,15 @@ def _torch_test_helpers():
 
 
 def zeroshot_clis(card: str, root: Path, cfg=None):
-    """(d) The CLIs on the card from a synthetic HF BLIP-2 directory (2
-    layers a tower at full width, fp32 weights): ``vc_main --eval
+    """(d) The CLIs on the card from a synthetic HF BLIP-2 directory (1
+    layer a tower at full width, fp32 weights): ``vc_main --eval
     --model-type blip2`` and ``zeroshot.run visual``."""
     import numpy as np
 
     from vidchapters_tpu_torch.train import vc_main
     from vidchapters_tpu_torch.zeroshot import run as zs_run
 
-    cfg = cfg or _small_blip2_cfg()
+    cfg = cfg or _small_blip2_cfg(layers=1)
     t0 = time.time()
     blip2_dir = _torch_test_helpers().write_blip2_dir(root / "blip2_hf", cfg, seed=25)
     feats = root / "zs_cli_feats"
@@ -6172,10 +6298,10 @@ def phase_zeroshot(card: str, llama_cfg=None, blip2_cfg=None, cli_cfg=None, text
 # phase 13: the last single-GPU modules
 # ---------------------------------------------------------------------------
 
-LAST_PDVC_VIDEOS = (8, 4)   # 13(a)'s train and val videos (phase 6: 16 and 8)
+LAST_PDVC_VIDEOS = (4, 2)   # 13(a)'s train and val videos (phase 6: 16 and 8)
 TOXIC_TEXTS = 64
 TOXIC_MAX_LENGTH = 128      # 13(c)'s card-vs-CPU comparison; the rate also at the default 256
-LLAMA_LAST_LAYERS = 2       # 13(f)'s LLaMA-7B-wide checkpoint, cut from 32 layers
+LLAMA_LAST_LAYERS = 1       # 13(f)'s LLaMA-7B-wide checkpoint, cut from 32 layers
 # 13(e)'s batch, cut from phase 10's 128: each query adds 512 speech tokens
 # to the transformer's input; a step took 43.4 GB at 64 on the H100 and ran
 # out of its 80 GB at 128
@@ -6532,7 +6658,7 @@ def phase_last_modules(card: str, pdvc_cfg=None, light_cfg=None, bert_cfg=None,
 
 DEMO_ASR_NAME = "openai/whisper-large-v2"  # demo_asr's default --model, large-v2
 DEMO_ASR_REVISION = "5ca1ab1e" * 5         # the synthetic hub snapshot's commit
-DEMO_ASR_FP32_LAYERS = 4
+DEMO_ASR_FP32_LAYERS = 2
 
 
 def _hub_snapshot(hub: Path, name: str) -> Path:
@@ -6857,16 +6983,18 @@ def phase_demo_asr(card: str, cfg=None, seconds: float = ASR_SECONDS[0]):
 # phase 15: data parallelism over processes (train/dvc_main on N ranks)
 # ---------------------------------------------------------------------------
 
-DP_STEPS = 3                # train steps of each dvc_main run in phase 15
+DP_STEPS = 2                # train steps of each dvc_main run in phase 15
 DP_TOL = 1e-4               # (b): two ranks against one process, relative
 
 
 def _dp_rank(argv) -> None:
-    """One rank of phase 15: ``python -m vidchapters_tpu_torch.train.dvc_main
-    argv`` (``runpy``, as ``-m`` runs it) with the train step and the
-    gradient all-reduce timed (a sync on each side) and each step's metrics
-    and fused-attention launches recorded; the record goes to
-    ``$SMOKE_DP_OUT`` at exit."""
+    """One rank of phases 15 and 16: ``python -m
+    vidchapters_tpu_torch.train.dvc_main argv`` (``runpy``, as ``-m`` runs
+    it) with the train step, the gradient all-reduce and the model group's
+    collectives (``parallel/tensor_parallel``'s all-reduce, all-gather and
+    reduce-scatter) timed, a sync on each side, and each step's metrics and
+    fused-attention launches recorded; the record goes to ``$SMOKE_DP_OUT``
+    at exit."""
     import atexit
     import os
     import runpy
@@ -6874,10 +7002,27 @@ def _dp_rank(argv) -> None:
     import torch
 
     from vidchapters_tpu_torch.ops import fused_attention as fa
+    from vidchapters_tpu_torch.parallel import tensor_parallel as tp
     from vidchapters_tpu_torch.train import dvc_train
 
-    rec = {"steps": [], "allreduce_ms": []}
+    rec = {"steps": [], "allreduce_ms": [], "t_start": time.time()}
     real_step, real_reduce = dvc_train.make_train_step, dvc_train.all_reduce_gradients
+    collective = {"ms": 0.0, "calls": 0}
+
+    def timed_collective(fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            collective["ms"] += (time.perf_counter() - t0) * 1e3
+            collective["calls"] += 1
+            return out
+
+        return run
+
+    for name in ("all_reduce", "all_gather", "reduce_scatter"):
+        setattr(tp, name, timed_collective(getattr(tp, name)))
 
     def reduce(params):
         torch.cuda.synchronize()
@@ -6891,19 +7036,27 @@ def _dp_rank(argv) -> None:
 
         def timed(state, batch, seed, **kw):
             f0, b0 = fa.KERNEL.launches, fa.BWD_KERNEL.launches
+            c0, n0 = collective["ms"], collective["calls"]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             m = {key: float(v) for key, v in step(state, batch, seed, **kw).items()}
             rec["steps"].append({"ms": (time.perf_counter() - t0) * 1e3, "metrics": m,
+                                 "t_end": time.time(),
                                  "fwd": fa.KERNEL.launches - f0,
-                                 "bwd": fa.BWD_KERNEL.launches - b0})
+                                 "bwd": fa.BWD_KERNEL.launches - b0,
+                                 "model_collective_ms": collective["ms"] - c0,
+                                 "model_collectives": collective["calls"] - n0})
             return m
 
         return timed
 
-    def dump():
+    def totals():  # dvc_main's run: its launches and peak memory
         rec.update(fwd=fa.KERNEL.launches, bwd=fa.BWD_KERNEL.launches,
-                   peak_memory_bytes=torch.cuda.max_memory_allocated())
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(), t_exit=time.time())
+
+    def dump():
+        if "fwd" not in rec:
+            totals()
         Path(os.environ["SMOKE_DP_OUT"]).write_text(json.dumps(rec))
 
     dvc_train.make_train_step, dvc_train.all_reduce_gradients = make_step, reduce
@@ -6911,29 +7064,42 @@ def _dp_rank(argv) -> None:
     sys.argv = ["dvc_main", *argv]
     runpy.run_module("vidchapters_tpu_torch.train.dvc_main", run_name="__main__",
                      alter_sys=True)
+    rec["t_a_done"] = time.time()
+    if os.environ.get("SMOKE_TP_B"):  # phase 16(b), in the same processes
+        totals()
+        dvc_train.make_train_step, dvc_train.all_reduce_gradients = real_step, real_reduce
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rec["b"] = _tp_b_rank(os.environ["SMOKE_TP_B"])
+        rec["b"]["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
 
 
-def _dp_launch(root: Path, name: str, cfg_path: Path, world: int, backend, port: int):
+def _dp_launch(root: Path, name: str, cfg_path: Path, world: int, backend, port: int,
+               entry: str = "_dp_rank", env=None):
     """Start ``world`` ranks of ``dvc_main --config cfg_path --device cuda``
     (``--dist-backend backend`` when given), each with the ``VIDCHAPTERS_*``
-    variables (none for a plain one-process run) and one ``PYTHONHASHSEED``."""
+    variables (none for a plain one-process run), one ``PYTHONHASHSEED`` and
+    ``env``; ``entry``: the function of this module each rank runs."""
     import os
 
     procs = []
     for rank in range(world):
-        env = dict(os.environ, PYTHONHASHSEED="0",
-                   SMOKE_DP_OUT=str(root / f"{name}_rank{rank}.json"))
+        rank_env = dict(os.environ, PYTHONHASHSEED="0",
+                        SMOKE_DP_OUT=str(root / f"{name}_rank{rank}.json"), **(env or {}))
         if backend:
-            env.update(VIDCHAPTERS_NUM_PROCESSES=str(world), VIDCHAPTERS_PROCESS_ID=str(rank),
-                       VIDCHAPTERS_COORDINATOR=f"localhost:{port}")
+            rank_env.update(VIDCHAPTERS_NUM_PROCESSES=str(world),
+                            VIDCHAPTERS_PROCESS_ID=str(rank),
+                            VIDCHAPTERS_COORDINATOR=f"localhost:{port}")
         argv = ["--config", str(cfg_path), "--device", "cuda"]
         if backend:
             argv += ["--dist-backend", backend]
         code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
-                "chip_smoke._dp_rank(sys.argv[2:])")
+                f"chip_smoke.{entry}(sys.argv[2:])")
         log = open(root / f"{name}_rank{rank}.log", "w")
         procs.append((subprocess.Popen([sys.executable, "-c", code, str(ROOT), *argv], cwd=ROOT,
-                                       env=env, stdout=log, stderr=subprocess.STDOUT), log))
+                                       env=rank_env, stdout=log, stderr=subprocess.STDOUT),
+                      log))
     return procs
 
 
@@ -6952,7 +7118,7 @@ def _dp_wait(root: Path, name: str, procs, timeout: float = 300.0):
                 other.kill()
                 other.wait()
             text = (root / f"{name}_rank{rank}.log").read_text()
-            check(False, f"phase 15 {name}: rank {rank} exited {proc.returncode}: "
+            check(False, f"{name}: rank {rank} exited {proc.returncode}: "
                          f"{text[-3000:]}")
     out = []
     for rank in range(len(procs)):
@@ -7025,12 +7191,12 @@ def phase_data_parallel(card: str, train_step_ms: float):
 
     (a) NCCL at world size 1 (``--dist-backend nccl``: the data-parallel
     path whole, its collectives over one rank): bf16 with dropout 0.1,
-    batch 8, 3 steps, then the val eval of 8 videos at beam 4 / max_length 32
+    batch 8, 2 steps, then the val eval of 8 videos at beam 4 / max_length 32
     (the final one: none inside the epoch, so no ``best`` to write);
     step ms beside phase 3's, the all-reduce's ms, rows 1-2 launched exactly
     48 a step and row 1 12 a generate call after. (b) Two ranks sharing the
     card over gloo, fp32 with dropout 0 at 256 input tokens, batch 4 a rank,
-    3 steps with the denoising loss off (its span corruption draws in shard
+    2 steps with the denoising loss off (its span corruption draws in shard
     order), against one process at batch 8 on the same global batches, run
     at the same time: losses and ``grad_norm`` within ``DP_TOL``, the
     parameters identical on the ranks by their gathered checksum, the
@@ -7153,6 +7319,335 @@ def phase_data_parallel(card: str, train_step_ms: float):
     return out, out["a"]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 16: tensor and sequence parallelism (train/dvc_main on a model axis)
+# ---------------------------------------------------------------------------
+
+TP_STEPS = 2        # train steps of each dvc_main run in phase 16
+TP_TOL = 1e-4       # (b): the model axis of 2 against one process, relative
+TP_BIAS_TOL = 2e-3  # (b): zero-initialised biases, of their update
+TP_TOKENS = 640     # (b)'s input tokens: cut from 1000; the T5 encoder's 640 rows take row 1
+
+
+def _tp_param_errors(got: dict, want: dict) -> dict:
+    """Each parameter of ``got`` against ``want`` (whole state dicts, one
+    process's names), relative to ``want``'s norm: the largest of the
+    weights and of the zero-initialised biases (``.bias``: all of their value
+    is Adam's update, a ratio that turns fp32 rounding in a near-cancelling
+    gradient element into a share of the update), and the names past
+    ``TP_TOL`` / ``TP_BIAS_TOL``. The key third of ViT ``qkv.bias`` is left
+    out: its gradient is 0 exactly (a bias on every key shifts a row's
+    scores by one constant), so Adam moves it by rounding noise alone."""
+    import torch
+
+    out = {"weights": 0.0, "biases": 0.0, "worst": {}, "over": [],
+           "names_differ": sorted(set(got) ^ set(want))}
+    for name, w in want.items():
+        g, w = got[name].float().cpu().reshape(-1), w.float().reshape(-1)
+        if name.endswith("qkv.bias"):
+            keep = torch.ones_like(w, dtype=torch.bool)
+            keep[w.numel() // 3:2 * w.numel() // 3] = False
+            g, w = g[keep], w[keep]
+        err = float((g - w).norm() / w.norm().clamp(min=1e-30))
+        kind, limit = ("biases", TP_BIAS_TOL) if name.endswith(".bias") else ("weights", TP_TOL)
+        if err >= out[kind]:
+            out[kind], out["worst"][kind] = err, name
+        if err > limit:
+            out["over"].append(f"{name} {err:.2e}")
+    return out
+
+
+def _tp_b_steps(cfg, batches, shard: bool) -> dict:
+    """16(b)'s steps: the model of ``cfg`` from its seed on the card, cut by
+    ``shard_params`` when ``shard``, ``make_train_step`` on each host batch
+    of ``batches``; each step's ms, metrics and rows 1-2 launches, and the
+    model."""
+    import torch
+
+    from vidchapters_tpu_torch.models.vid2seq import Vid2Seq
+    from vidchapters_tpu_torch.ops import fused_attention as fa
+    from vidchapters_tpu_torch.parallel.sharding import shard_params
+    from vidchapters_tpu_torch.train.dvc_train import (
+        TrainState,
+        batch_to_device,
+        make_train_step,
+        target_counts,
+    )
+    from vidchapters_tpu_torch.train.schedules import build_optimizer
+
+    model = Vid2Seq(cfg.model).init_weights(torch.Generator().manual_seed(cfg.train.seed))
+    model.to(DEVICE)
+    if shard:
+        shard_params(model)
+    state = TrainState(model, build_optimizer(cfg.train.optim, len(batches), model.parameters()))
+    step = make_train_step(model, generative=cfg.train.generative, denoising=cfg.train.denoising)
+    steps = []
+    for batch in batches:
+        f0, b0 = fa.KERNEL.launches, fa.BWD_KERNEL.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(state, batch_to_device(batch, DEVICE), cfg.train.seed,
+                 counts=target_counts(batch))
+        steps.append({"metrics": {k: float(v) for k, v in m.items()},
+                      "ms": (time.perf_counter() - t0) * 1e3,
+                      "fwd": fa.KERNEL.launches - f0, "bwd": fa.BWD_KERNEL.launches - b0})
+    return {"steps": steps, "model": model}
+
+
+def _tp_b_rank(spec_path: str) -> dict:
+    """16(b) on one rank: join a process group at ``$SMOKE_TP_B_COORDINATOR``
+    over the spec's backend, grid 1 x 2 with sequence parallelism, the
+    steps of ``_tp_b_steps`` on the spec's batches; rank 0 holds the
+    gathered weights against the one-process run's (``_tp_param_errors``)."""
+    import os
+
+    import torch
+
+    from vidchapters_tpu_torch.config import ExperimentConfig, load_config
+    from vidchapters_tpu_torch.parallel.sharding import parameter_checksum
+    from vidchapters_tpu_torch.runtime import mesh
+    from vidchapters_tpu_torch.train.dvc_train import gathered_model
+
+    spec = torch.load(spec_path, weights_only=False)
+    t0 = time.time()
+    mesh.maybe_initialize_distributed(DEVICE, spec["backend"],
+                                      coordinator=os.environ["SMOKE_TP_B_COORDINATOR"])
+    try:
+        cfg = load_config(ExperimentConfig, spec["config"])
+        mesh.enable_sequence_parallelism(mesh.create_mesh(cfg.train.mesh, cfg.model))
+        out = _tp_b_steps(cfg, spec["batches"], shard=True)
+        whole = gathered_model(out.pop("model"))
+        out["checksum"] = parameter_checksum(whole)
+        if mesh.is_main_process():
+            ref = torch.load(spec["reference"], map_location="cpu", weights_only=True)
+            out["params"] = _tp_param_errors(whole.state_dict(), ref)
+    finally:
+        mesh.disable_sequence_parallelism()
+        mesh.shutdown()
+    out["wall_s"] = time.time() - t0
+    return out
+
+
+def _tp_b_main(argv=()) -> None:
+    """A rank of 16(c): ``_tp_b_rank`` alone (``argv`` unused), its record to
+    ``$SMOKE_DP_OUT``."""
+    import os
+
+    rec = {"b": _tp_b_rank(os.environ["SMOKE_TP_B"])}
+    Path(os.environ["SMOKE_DP_OUT"]).write_text(json.dumps(rec))
+
+
+def _tp_b_check(ranks, ref, what: str) -> dict:
+    """16(b)'s ranks against the one-process run: each step's losses and norm
+    within ``TP_TOL`` (the ranks' own equal), the ranks' checksums equal,
+    rank 0's parameters within ``TP_TOL`` / ``TP_BIAS_TOL``."""
+    bs = [r["b"] for r in ranks]
+    check(all(len(b["steps"]) == len(ref["steps"]) == TP_STEPS for b in bs),
+          f"{what}: steps {[len(b['steps']) for b in bs]} / {len(ref['steps'])}")
+    worst = 0.0
+    for i, want in enumerate(ref["steps"]):
+        check(all(b["steps"][i]["metrics"] == bs[0]["steps"][i]["metrics"] for b in bs),
+              f"{what}: step {i}: the ranks' metrics differ")
+        check(all(b["steps"][i]["fwd"] > 0 and b["steps"][i]["bwd"] > 0 for b in bs),
+              f"{what}: step {i}: rows 1-2 not launched on every rank")
+        for key in ("loss", "denoising_loss", "total_loss", "grad_norm"):
+            got, exp = bs[0]["steps"][i]["metrics"][key], want["metrics"][key]
+            rel = abs(got - exp) / abs(exp)
+            worst = max(worst, rel)
+            check(rel <= TP_TOL, f"{what}: step {i} {key} {got} against one process's {exp} "
+                                 f"(relative {rel:.2e} > {TP_TOL})")
+    check(len({b["checksum"] for b in bs}) == 1, f"{what}: the ranks' gathered weights differ")
+    params = bs[0]["params"]
+    check(not params["over"] and not params["names_differ"],
+          f"{what}: parameters off the one process's: {params}")
+    return {"max_rel_diff_metrics": worst, "max_rel_diff_params": params,
+            "checksum": bs[0]["checksum"], "step_ms": [st["ms"] for st in bs[0]["steps"]],
+            "launches_a_step": [(st["fwd"], st["bwd"]) for st in bs[0]["steps"]],
+            "rank_wall_s": bs[0]["wall_s"],
+            "peak_memory_bytes": [b.get("peak_memory_bytes") for b in bs]}
+
+
+def phase_tensor_parallel(card: str, train: dict):
+    """Phase 16: ``python -m vidchapters_tpu_torch.train.dvc_main`` at
+    ``model_parallel_size`` 2 as a user launches it (one process a rank,
+    the ``VIDCHAPTERS_*`` variables), over phase 5's synthetic dataset at
+    full width (T5-base + ViT 12 x 768), each rank recorded by ``_dp_rank``.
+    Two ranks share the one card over gloo (NCCL puts no two ranks on one
+    card).
+
+    (b)'s one process runs first, in this process, and is freed: fp32 with
+    dropout 0.1 at ``TP_TOKENS`` input tokens, batch 4, ``TP_STEPS`` steps of
+    ``make_train_step`` on host batches of the dataset. Then the two ranks:
+    (a) grid 1 x 2, bf16 with dropout 0.1, the recipe's 1000 input tokens
+    (rows 1-2 at 6 heads a rank: the encoder's 1024 rows, the cross form's
+    1152 keys), batch 8, 2 steps, a checkpoint (``last``, whole) and the
+    final eval of 2 val videos on the gathered weights: each rank's step
+    ms, the model group's collectives' ms, rows 1-2 launched 48 a step on
+    each rank, peak memory per rank beside phase 3's, the ranks' checksum
+    of the gathered weights; then, in the same processes, (b) at grid 1 x 2
+    on the same batches (``_tp_b_rank``): losses and ``grad_norm`` within
+    ``TP_TOL``, the gathered weights as ``_tp_param_errors``. (c) (b) over
+    NCCL with a card a rank when ``device_count() >= 2``; skipped
+    otherwise."""
+    import torch
+
+    from vidchapters_tpu_torch.config import (
+        CheckpointConfig,
+        DatasetPaths,
+        ExperimentConfig,
+        MeshConfig,
+        save_config,
+    )
+    from vidchapters_tpu_torch.data.dvc_dataset import (
+        DenseVideoCaptioningDataset,
+        EpochIterator,
+    )
+    from vidchapters_tpu_torch.data.tokenizer import build_tokenizer
+
+    t_phase = time.time()
+    base = ExperimentConfig()
+    out = {"card": card}
+    started = []
+
+    def launch(*a, **k):
+        procs = _dp_launch(*a, **k)
+        started.extend(p for p, _ in procs)
+        return procs
+
+    with tempfile.TemporaryDirectory() as tmp, _stopping(started):
+        root = _write_train_dataset(Path(tmp), n_videos=TP_STEPS * 8, n_val=2)
+
+        def config(name, mp, **train_kw):
+            return dataclasses.replace(
+                base, datasets={"chapters": DatasetPaths(
+                    train_json_path=str(root / "ann.json"), val_json_path=str(root / "val.json"),
+                    features_path=str(root / "features"), subtitles_path=str(root / "asr.pkl"))},
+                generation=dataclasses.replace(base.generation, max_length=32),
+                train=dataclasses.replace(
+                    base.train, epochs=1, print_freq=1, eval_batch_size=2, eval_every_epochs=2,
+                    mesh=MeshConfig(model_parallel_size=mp),
+                    checkpoint=CheckpointConfig(save_dir=str(root / f"ckpt_{name}")),
+                    **train_kw))
+
+        # (b)'s one process, here, first: fp32 with dropout on the dataset's batches
+        t5 = dataclasses.replace(base.model.t5, dtype="float32")
+        vit = dataclasses.replace(base.model.vit, dtype="float32")
+        cfg_b = dataclasses.replace(
+            config("b", 2, batch_size=4), model=dataclasses.replace(base.model, t5=t5, vit=vit),
+            data=dataclasses.replace(base.data, max_input_tokens=TP_TOKENS))
+        save_config(cfg_b, root / "tp_b.json")
+        ds = DenseVideoCaptioningDataset(str(root / "ann.json"), str(root / "features"),
+                                         build_tokenizer("", num_bins=cfg_b.model.num_bins),
+                                         cfg_b.data, subtitles_path=str(root / "asr.pkl"))
+        it = EpochIterator(ds, 4, cfg_b.data, seed=cfg_b.train.seed)
+        it.set_epoch(0)
+        batches = [b for _, b in zip(range(TP_STEPS), it)]
+        t0 = time.time()
+        one = _tp_b_steps(cfg_b, batches, shard=False)
+        model = one.pop("model")
+        torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+                   root / "tp_b_ref.pt")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        one_s = time.time() - t0
+        spec = {"config": str(root / "tp_b.json"), "batches": batches, "backend": "gloo",
+                "reference": str(root / "tp_b_ref.pt")}
+        torch.save(spec, root / "tp_b_spec.pt")
+
+        # (a) grid 1 x 2, bf16, as a user launches it; then (b) in the same ranks
+        save_config(config("a", 2, batch_size=8), root / "tp_a.json")
+        t0 = time.time()
+        ranks = _dp_wait(root, "tp_a", launch(
+            root, "tp_a", root / "tp_a.json", 2, "gloo", _free_port(),
+            env={"SMOKE_TP_B": str(root / "tp_b_spec.pt"),
+                 "SMOKE_TP_B_COORDINATOR": f"localhost:{_free_port()}"}))
+        a_wall = time.time() - t0
+        for r, rank in enumerate(ranks):
+            got = [(st["fwd"], st["bwd"]) for st in rank["steps"]]
+            check(got == [(FUSED_PER_STEP,) * 2] * TP_STEPS,
+                  f"16(a) rank {r}: rows 1-2 a step {got}, expected {FUSED_PER_STEP} each")
+            check(rank["steps"][0]["model_collectives"] > 0,
+                  f"16(a) rank {r}: no collective of the model group ran")
+            check(rank["steps"][-1]["metrics"] == ranks[0]["steps"][-1]["metrics"],
+                  "16(a): the ranks' metrics differ")
+        digest = _dp_checksums(ranks, 2, "16(a)")
+        last = root / "ckpt_a" / "last"
+        check(last.exists() and "'chapters_CIDEr'" in ranks[0]["printed"],
+              "16(a): no checkpoint or final metrics")
+        payload = torch.load(last, map_location="cpu", weights_only=True, mmap=True)
+        check(payload["model"]["t5.shared.weight"].shape == (32200, 768),
+              "16(a): the checkpoint is not whole")
+        del payload
+        out["a"] = {"grid": [1, 2], "backend": "gloo (one card)", "wall_s_with_b": a_wall,
+                    "checksum": digest, "checkpoint_bytes": last.stat().st_size,
+                    "step_ms_phase3": train["step_ms"],
+                    "peak_memory_bytes_phase3": train["peak_memory_bytes"],
+                    "ranks": [{"step_ms": [st["ms"] for st in rk["steps"]],
+                               "model_collective_ms": [st["model_collective_ms"]
+                                                       for st in rk["steps"]],
+                               "model_collectives": [st["model_collectives"]
+                                                     for st in rk["steps"]],
+                               "launches": {"fused_attention_fwd": rk["fwd"],
+                                            "fused_attention_bwd": rk["bwd"]},
+                               "peak_memory_bytes": rk["peak_memory_bytes"],
+                               "seconds": _tp_split(rk)} for rk in ranks],
+                    "losses": [st["metrics"]["total_loss"] for st in ranks[0]["steps"]]}
+        for r, rk in enumerate(out["a"]["ranks"]):
+            say(f"[tp] (a) 1 x 2, rank {r}: steps {[round(x, 1) for x in rk['step_ms']]} ms "
+                f"(phase 3 {train['step_ms']:.1f}), model-group collectives "
+                f"{[round(x, 1) for x in rk['model_collective_ms']]} ms in "
+                f"{rk['model_collectives']} calls, rows 1-2 {rk['launches']}, peak "
+                f"{rk['peak_memory_bytes'] / 1e9:.2f} GB (phase 3 "
+                f"{train['peak_memory_bytes'] / 1e9:.2f}) on {card}")
+        say(f"[tp] (a) checksum {digest} on both ranks, `last` {last.stat().st_size} B, "
+            f"{a_wall:.1f} s with (b) (rank 0: {json.dumps(out['a']['ranks'][0]['seconds'])})")
+        out["b"] = dict(_tp_b_check(ranks, one, "16(b)"), grid=[1, 2], input_tokens=TP_TOKENS,
+                        step_ms_one_process=[st["ms"] for st in one["steps"]],
+                        one_process_s=one_s,
+                        losses=[st["metrics"]["total_loss"] for st in one["steps"]],
+                        grad_norms=[st["metrics"]["grad_norm"] for st in one["steps"]])
+        b = out["b"]
+        say(f"[tp] (b) 1 x 2 against one process, fp32, dropout 0.1, {TP_TOKENS} tokens: "
+            f"metrics within {b['max_rel_diff_metrics']:.2e}, parameters within "
+            f"{b['max_rel_diff_params']['weights']:.2e} (biases "
+            f"{b['max_rel_diff_params']['biases']:.2e} of their update; the largest "
+            f"{b['max_rel_diff_params']['worst']}), steps "
+            f"{[round(x, 1) for x in b['step_ms']]} ms (one process "
+            f"{[round(x, 1) for x in b['step_ms_one_process']]}), rows 1-2 "
+            f"{b['launches_a_step']} a step; one process {one_s:.1f} s, the ranks' part "
+            f"{b['rank_wall_s']:.1f} s on {card}")
+
+        # (c) NCCL with a card a rank
+        if torch.cuda.device_count() >= 2:
+            torch.save(dict(spec, backend="nccl"), root / "tp_c_spec.pt")
+            ranks_c = _dp_wait(root, "tp_c", launch(
+                root, "tp_c", None, 2, "nccl", 0, entry="_tp_b_main",
+                env={"SMOKE_TP_B": str(root / "tp_c_spec.pt"),
+                     "SMOKE_TP_B_COORDINATOR": f"localhost:{_free_port()}"}))
+            out["c"] = _tp_b_check(ranks_c, one, "16(c)")
+            say(f"[tp] (c) 1 x 2 over NCCL, a card a rank: {json.dumps(out['c'])}")
+        else:
+            out["c"] = {"skipped": f"{torch.cuda.device_count()} card(s) visible; NCCL needs "
+                                   f"a card a rank"}
+            say(f"[tp] (c) skipped: {out['c']['skipped']}")
+    out["wall_s"] = time.time() - t_phase
+    say(f"[tp] phase 16 {out['wall_s']:.1f} s")
+    launches = [rk["launches"] for rk in out["a"]["ranks"]]
+    check(launches[0] == launches[1], f"16(a): the ranks launched rows 1-2 {launches}")
+    return out, launches[0]
+
+
+def _tp_split(rank) -> dict:
+    """Seconds of one rank's (a): to the first step's start (start-up, the
+    model's build, the broadcast), the steps, and after them (the
+    checkpoint, the final eval, the checksum)."""
+    first = rank["steps"][0]["t_end"] - rank["steps"][0]["ms"] / 1e3
+    last = rank["steps"][-1]["t_end"]
+    return {"before_steps_s": first - rank["t_start"], "steps_s": last - first,
+            "after_steps_s": rank["t_a_done"] - last}
+
+
 def main() -> int:
     try:
         import torch
@@ -7183,6 +7678,9 @@ def main() -> int:
         table = [check_fused_attention(gen), check_fused_attention_bwd(gen)]
         table[0]["hmma_per_kernel"] = check_tensor_cores()
         table[0].update(check_fused_attention_vision(gen))
+        heads = check_fused_attention_heads(gen)  # rows 1-2 on a rank of phase 16
+        for row in table[:2]:
+            row["tensor_parallel_form"] = heads
         gen = serving_checks_generator()
         table += [check_topk(gen), check_megakernel(gen)]
         gen = torch.Generator().manual_seed(2)
@@ -7243,6 +7741,8 @@ def main() -> int:
         done("14")
         dp, dp_launches = phase_data_parallel(card, train["step_ms"])
         done("15")
+        tp, tp_launches = phase_tensor_parallel(card, train)
+        done("16")
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
@@ -7277,6 +7777,8 @@ def main() -> int:
             row["launches_gpt2"] = gpt2_launches[row["name"]]
     for row in table[:2]:  # rows 1-2 under dvc_main on an NCCL group of one (phase 15a)
         row["launches_dp"] = dp_launches[row["name"]]
+    for row in table[:2]:  # rows 1-2 on each rank of a model axis of 2 (phase 16a)
+        row["launches_tp_per_rank"] = tp_launches[row["name"]]
     for row in table:  # row 8 at one row in demo_asr's two runs (phase 14)
         if row["name"] == "whisper_megakernel":
             row["launches_demo_asr"] = demo_asr_launches
@@ -7309,13 +7811,16 @@ def main() -> int:
         f"{demo_asr['plain']['audio_s_per_s']:.2f} audio-s/s, phase 14 "
         f"{demo_asr['wall_s']:.1f} s; data parallel (a) "
         f"{[round(x, 1) for x in dp['a']['step_ms']]} ms/step at 1 NCCL rank, (b) 2 gloo "
-        f"ranks within {dp['b']['max_rel_diff']:.2e} of one process; phases "
+        f"ranks within {dp['b']['max_rel_diff']:.2e} of one process; tensor parallel (a) "
+        f"{[round(x, 1) for x in tp['a']['ranks'][0]['step_ms']]} ms/step at 1 x 2, (b) within "
+        f"{tp['b']['max_rel_diff_metrics']:.2e} of one process; phases "
         f"{ {k: round(v, 1) for k, v in seconds.items()} } s")
     record = {"kernels": table, "train": train, "end_to_end": e2e, "fp32_tokens": fp32,
               "evaluation": evaluation, "pdvc": pdvc, "asr": asr_run, "pretrain": pretrain,
               "reference_checkpoint": reference, "vc": vc, "grounding": grounding, "video": video,
               "zeroshot": zeroshot, "last_modules": last, "demo_asr": demo_asr,
-              "data_parallel": dp, "phase_seconds": seconds, "card": card}
+              "data_parallel": dp, "tensor_parallel": tp, "phase_seconds": seconds,
+              "card": card}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

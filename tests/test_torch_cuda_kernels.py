@@ -190,6 +190,29 @@ def test_fused_attention_forward_with_dropout_matches_plain(dtype, tol, bias):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h0", [1, 6])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_fused_attention_head_offset_matches_plain(dtype, tol, h0):
+    """Rows 1-2 at a head offset (a rank's heads under tensor parallelism):
+    the kernels against the plain versions at the same ``h0``."""
+    require_cuda()
+    from vidchapters_tpu_torch.ops import fused_attention as fa
+
+    q, k, v, b, mask, dout = _attention_case(dtype, True)
+    out, lse = fa._forward(q, k, v, b, mask, 4321, 0.1, want_lse=True, h0=h0)
+    ref = fa.fused_attention_plain(q, k, v, b, mask, 4321, 0.1, h0=h0)
+    got = fa.fused_attention_bwd(q, k, v, b, mask, 4321, 0.1, out, dout, lse, h0=h0)
+    refs = fa.fused_attention_bwd_plain(q, k, v, b, mask, 4321, 0.1, out, dout, h0=h0)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), got, refs):
+        err = (a - r).abs().max().item()
+        assert err <= tol, f"{name}: max abs err {err} > {tol}"
+    at_zero = fa.fused_attention_plain(q, k, v, b, mask, 4321, 0.1)
+    assert (at_zero.float() - ref.float()).abs().max().item() > tol  # other masks
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("bias", [True, False])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])

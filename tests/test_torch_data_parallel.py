@@ -408,8 +408,8 @@ def test_grounding_step_is_the_global_batch_step(setup):
 
 
 def test_one_process_and_what_raises(monkeypatch):
-    """One process: no group, rank 0, the identities; a model axis raises
-    naming the next slice; NCCL on the CPU and CUDA without a card raise
+    """One process: no group, rank 0, the identities; a model axis that one
+    rank cannot tile raises; NCCL on the CPU and CUDA without a card raise
     before any rendezvous; a rendezvous nobody answers raises at its
     timeout and leaves no group; NCCL ranks over several hosts reach the
     rendezvous, each on its card."""
@@ -424,7 +424,8 @@ def test_one_process_and_what_raises(monkeypatch):
     assert collectives.all_gather_object({"a": 1}) == [{"a": 1}]
     assert collectives.reduce_dict_mean({"a": 2.5}) == {"a": 2.5}
     assert global_count(7) == 7
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(ValueError, match="a world of 1 rank.* does not tile a grid with "
+                                         "model axis 2"):
         mesh.create_mesh(MeshConfig(model_parallel_size=2))
     with pytest.raises(ValueError, match="NCCL needs CUDA"):
         mesh.maybe_initialize_distributed("cpu", backend="nccl", num_processes=2, process_id=0)

@@ -92,6 +92,38 @@ def test_emulated_kernels_match_plain(kernels, b, h, lq, lk, d, bias, rate, dtyp
         assert err <= tol, f"{name}: max abs err {err} > {tol}"
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_emulated_kernels_take_a_head_offset(kernels, dtype):
+    """Heads [3, 5) of a 5-head call launched alone at ``h0`` 3 (a rank's
+    heads under tensor parallelism): the keep mask of those heads, so the
+    forward and backward equal the plain versions at ``h0`` and the whole
+    call's heads."""
+    q, k, v, bb, mask, dout = _inputs(2, 5, 72, 128, 64, True, dtype, seed=3)
+    whole = fa.fused_attention_plain(q, k, v, bb, mask, 4321, 0.2)
+    grads = fa.fused_attention_bwd_plain(q, k, v, bb, mask, 4321, 0.2, whole, dout)
+    hs = slice(3, 5)
+    q, k, v, bb, dout = (t[:, hs].contiguous() for t in (q, k, v, bb, dout))
+    out, lse = fa._launch_forward(q, k, v, bb, mask, 4321, 0.2, True, h0=3)
+    ref = fa.fused_attention_plain(q, k, v, bb, mask, 4321, 0.2, h0=3)
+    assert torch.equal(fa._keep_full(4321, 2, 2, 72, 128, 0.2, "cpu", h0=3),
+                       fa._keep_full(4321, 2, 5, 72, 128, 0.2, "cpu")[:, hs])
+    assert torch.allclose(ref.float(), whole[:, hs].float(), atol=1e-2 if dtype != torch.float32
+                          else 1e-6)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+    got = fa._launch_backward(q, k, v, bb, mask, 4321, 0.2, out, dout, lse, h0=3)
+    refs = fa.fused_attention_bwd_plain(q, k, v, bb, mask, 4321, 0.2, out, dout, h0=3)
+    for name, a, r in zip(("dq", "dk", "dv", "dbias"), got, refs):
+        err, tol = (a - r).abs().max().item(), _grad_tol(r, dtype)
+        assert err <= tol, f"{name}: max abs err {err} > {tol}"
+    # at h0 0 the same heads draw other masks
+    other = fa._launch_forward(q, k, v, bb, mask, 4321, 0.2, False)[0]
+    assert (other.float() - ref.float()).abs().max().item() > 10 * tol
+    for a, b in zip(refs[:3], grads[:3]):
+        if dtype == torch.float32:
+            assert torch.allclose(a, b[:, hs], atol=1e-5)
+
+
 @pytest.mark.parametrize("tokens,dtype", [
     (50, torch.bfloat16),   # ViT-B/32: 50 query rows, one 64-key tile with 14 keys masked
     (50, torch.float32),

@@ -41,8 +41,9 @@ def test_padded_lengths(lq, lk, want):
 def test_padded_wrapper_pads_to_padded_lengths(monkeypatch):
     seen = {}
 
-    def fake(q, k, v, bias, key_mask, seed, dropout_rate):
+    def fake(q, k, v, bias, key_mask, seed, dropout_rate, h0):
         seen["shapes"] = (q.shape[2], k.shape[2], tuple(bias.shape[2:]), key_mask.shape[1])
+        seen["h0"] = h0
         return torch.zeros(q.shape)
 
     monkeypatch.setattr(fa, "fused_attention", fake)
@@ -51,6 +52,7 @@ def test_padded_wrapper_pads_to_padded_lengths(monkeypatch):
     out = fa.fused_attention_padded(q, k, k, torch.zeros(1, 2, 300, 200),
                                     torch.ones(1, 200, dtype=torch.int32))
     assert seen["shapes"] == (304, 256, (304, 256), 256) and out.shape[2] == 300
+    assert seen["h0"] == 0
 
 
 def test_aligned_copies_only_a_misaligned_view():

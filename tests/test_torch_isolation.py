@@ -1,8 +1,10 @@
-"""The PyTorch port stands alone: no module of ``vidchapters_tpu_torch`` and
-not ``chip_smoke.py`` imports jax, flax, optax, orbax or the JAX package,
-nor HF's ``transformers``, ``tokenizers``, ``sentencepiece`` or
-``safetensors``, nor ``regex`` (the card's machine has none of them), and
-the package imports in a process where none of these can be imported."""
+"""The PyTorch port stands alone: no module of ``vidchapters_tpu_torch``, not
+``chip_smoke.py`` and not the ranks' workers of the distributed tests
+(``tests/torch_dp_worker.py``, ``tests/torch_tp_worker.py``) imports jax,
+flax, optax, orbax or the JAX package, nor HF's ``transformers``,
+``tokenizers``, ``sentencepiece`` or ``safetensors``, nor ``regex`` (the
+card's machine has none of them), and the package imports in a process
+where none of these can be imported."""
 
 import ast
 import os
@@ -15,7 +17,9 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "vidchapters_tpu"}
 HF_PACKAGES = {"transformers", "tokenizers", "sentencepiece", "safetensors", "regex"}
-SOURCES = sorted((ROOT / "vidchapters_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted((ROOT / "vidchapters_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dp_worker.py",
+    ROOT / "tests" / "torch_tp_worker.py"]
 
 
 def _imports(path: Path):
@@ -77,6 +81,7 @@ def test_package_imports_with_jax_blocked():
         "import vidchapters_tpu_torch.data.whisper_tokenizer, vidchapters_tpu_torch.demo.demo_asr\n"
         "import vidchapters_tpu_torch.parallel.sharding, vidchapters_tpu_torch.runtime.mesh\n"
         "import vidchapters_tpu_torch.runtime.collectives\n"
+        "import vidchapters_tpu_torch.parallel.tensor_parallel\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'vidchapters_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n")

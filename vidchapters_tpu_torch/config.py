@@ -3,9 +3,9 @@
 Field for field the same tree as ``vidchapters_tpu/config.py``, so an
 ``ExperimentConfig`` JSON written by the JAX package loads here unchanged.
 Fields that only steer the JAX package (``scan_layers``, ``fused_qkv``,
-``remat``) are kept for that round trip and ignored by the port. Of the
-mesh the port runs the data axis (``runtime/mesh.py``): a
-``model_parallel_size`` above 1 raises.
+``remat``) are kept for that round trip and ignored by the port. The mesh
+is a ``(data, model)`` grid of ranks (``runtime/mesh.py``); the model axis
+must divide every width it shards (``MeshConfig.check_widths``).
 
 Replaces the reference's three coexisting config systems (flat argparse in
 args.py:4-357, PDVC argparse+chained-YAML in PDVC/opts.py, and the class-based
@@ -382,9 +382,11 @@ class OptimConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """The mesh of ranks: a data axis (one rank a process, gradients summed
-    over the ranks, ``parallel/sharding.py``) and a model axis, which the
-    port does not run yet (``runtime/mesh.create_mesh`` raises above 1)."""
+    """The mesh of ranks: a data axis (gradients summed over it,
+    ``parallel/sharding.py``) and a model axis (Megatron tensor parallelism
+    with the T5 encoder's residual stream sharded over the sequence,
+    ``parallel/tensor_parallel.py``). Rank ``r`` sits at ``(r // mp, r %
+    mp)``."""
 
     data_axis: str = "data"
     model_axis: str = "model"
@@ -392,8 +394,33 @@ class MeshConfig:
 
     def axis_shapes(self, n_devices: int) -> Tuple[int, int]:
         mp = max(1, self.model_parallel_size)
-        assert n_devices % mp == 0, (n_devices, mp)
+        if n_devices % mp:
+            raise ValueError(f"a world of {n_devices} rank(s) does not tile a grid with "
+                             f"model axis {mp}")
         return (n_devices // mp, mp)
+
+    def check_widths(self, model: "Vid2SeqConfig") -> None:
+        """Raise, naming the sizes, when the model axis does not divide a
+        width it shards: GSPMD pads an uneven shard, the port refuses it."""
+        mp = max(1, self.model_parallel_size)
+        bad = {k: v for k, v in model_axis_widths(model).items() if v % mp}
+        if bad:
+            raise ValueError(f"model_parallel_size={mp} does not divide {bad}")
+
+
+def model_axis_widths(model: "Vid2SeqConfig") -> Dict[str, int]:
+    """Every width of Vid2Seq that the model axis splits: the T5 heads,
+    ``d_ff`` and vocabulary (text + time tokens), the ViT heads and
+    ``mlp_dim``, and the block the T5 encoder pads its sequence to (the
+    residual stream is sharded over that length)."""
+    t5, vit = model.t5, model.vit
+    widths = {"t5.num_heads": t5.num_heads, "t5.d_ff": t5.d_ff,
+              "t5.vocab_size": t5.vocab_size,
+              # models/t5.SEQ_PAD_BLOCK: the encoder's padded length is a multiple
+              "t5 encoder length block": 128}
+    if model.use_video:
+        widths.update({"vit.num_heads": vit.num_heads, "vit.mlp_dim": vit.mlp_dim})
+    return widths
 
 
 @dataclass

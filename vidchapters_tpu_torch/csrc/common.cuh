@@ -43,10 +43,14 @@ struct Dropout {
   int on;           // 0: no dropout (keep_scale is never called)
   unsigned thresh;  // min(int(rate * 65536), 65535)
   float inv;        // float32(1 / (1 - rate))
+  int h0;           // the model's index of the launch's head 0 (tensor parallelism)
 };
 
+// The mask of (example b, head h of the launch) is the one of head h0 + h of
+// the whole model, so a rank holding heads [h0, h0 + H) keeps what one
+// process keeps for them.
 __device__ __forceinline__ unsigned dropout_mix(const Dropout& dr, int b, int h) {
-  return dr.seed ^ ((unsigned)b * 0x9E3779B1u) ^ ((unsigned)h * 0x85EBCA6Bu);
+  return dr.seed ^ ((unsigned)b * 0x9E3779B1u) ^ ((unsigned)(h + dr.h0) * 0x85EBCA6Bu);
 }
 
 // The hash of (row, col), col < half = Lk / 2: its low 16 bits decide key

@@ -874,17 +874,19 @@ int dispatch_d(const Args& a, int D, cudaStream_t stream) {
 // [B,H,Lq] float32 as scratch. dbias_part [B,H,Lq,Lk] float32 is the bf16
 // route's scratch for the per-example dS when bias is given and B > 1 (else
 // null). All contiguous and 16-byte aligned, Lk a multiple of 64, D in
-// {32, 64, 128}. Dropout arguments as in fused_attention_fwd.
+// {32, 64, 128}. Dropout arguments (and h0) as in fused_attention_fwd.
 extern "C" int fused_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* bias, const void* key_mask, const void* out,
                                    const void* dout, const void* lse, void* dq, void* dk,
                                    void* dv, void* dbias, void* delta, void* dbias_part, int B,
                                    int H, int Lq, int Lk, int D, int dtype, unsigned seed,
-                                   int use_dropout, int thresh, float inv, void* stream) {
-  if (Lk % BK != 0 || Lq <= 0 || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+                                   int use_dropout, int thresh, float inv, int h0,
+                                   void* stream) {
+  if (Lk % BK != 0 || Lq <= 0 || B <= 0 || H <= 0 || h0 < 0)
+    return (int)cudaErrorInvalidValue;
   if ((bias == nullptr) != (dbias == nullptr)) return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, bias, key_mask, out, dout, lse, dq, dk, dv, dbias, delta, dbias_part,
-               B, H, Lq, Lk, vc::Dropout{seed, use_dropout, (unsigned)thresh, inv}};
+               B, H, Lq, Lk, vc::Dropout{seed, use_dropout, (unsigned)thresh, inv, h0}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == VC_DTYPE_F32) return dispatch_d<float>(a, D, s);
   if (dtype == VC_DTYPE_BF16) return tcbwd::dispatch_d(a, D, s);

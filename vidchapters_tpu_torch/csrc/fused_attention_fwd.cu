@@ -471,15 +471,18 @@ int dispatch_d(const void* q, const void* k, const void* v, const void* bias,
 // q [B,H,Lq,D], k/v [B,H,Lk,D], bias [1,H,Lq,Lk] or null, key_mask [B,Lk] int32,
 // out [B,H,Lq,D], lse [B,H,Lq] float32 or null; all contiguous and 16-byte
 // aligned, Lk a multiple of 64, D in {32, 64, 128}. Dropout when use_dropout:
-// seed, the 16-bit threshold and the float32 scale of a kept probability.
+// seed, the 16-bit threshold and the float32 scale of a kept probability;
+// h0, the model's index of head 0 (a rank's first head under tensor
+// parallelism), which the keep mask hashes.
 extern "C" int fused_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* bias, const void* key_mask, void* out,
                                    void* lse, int B, int H, int Lq, int Lk, int D, int dtype,
                                    unsigned seed, int use_dropout, int thresh, float inv,
-                                   void* stream) {
-  if (Lk % BK != 0 || Lq <= 0 || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+                                   int h0, void* stream) {
+  if (Lk % BK != 0 || Lq <= 0 || B <= 0 || H <= 0 || h0 < 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const vc::Dropout dr{seed, use_dropout, (unsigned)thresh, inv};
+  const vc::Dropout dr{seed, use_dropout, (unsigned)thresh, inv, h0};
   if (dtype == VC_DTYPE_F32)
     return dispatch_d<float>(q, k, v, bias, key_mask, out, lse, B, H, Lq, Lk, D, dr, s);
   if (dtype == VC_DTYPE_BF16)

@@ -32,6 +32,18 @@ Each layer's two attentions go through ``ops/decode_attention``: on CUDA
 tensors its two kernels always run, on CPU tensors their plain versions.
 The JAX package reaches those kernels only under ``USE_FUSED_DECODE``,
 which it keeps off for the TPU's dispatch cost; the port has no such flag.
+
+Tensor parallelism (``parallel/sharding.shard_params`` sets each module's
+``mp`` to the model axis): q / k / v and the FF's ``wi`` hold the rank's
+heads and ``d_ff`` columns, ``o`` and ``wo`` their rows, ``shared`` (and an
+untied ``lm_head``) the rank's vocabulary rows; each block copies its
+input to the model group and sums the row-sharded outputs over it
+(``parallel/tensor_parallel.py``). With ``SEQUENCE_PARALLEL`` the encoder's
+residual stream is sharded over the sequence instead: each block gathers
+the rows into attention and the FF and reduce-scatters what comes out
+(t5.py:653,690 there); the decoder is never sharded so (t5.py:66-75
+there). Every dropout takes its part of the mask of the whole tensor, so a
+rank keeps what one process keeps. Decoding runs on the gathered weights.
 """
 
 from __future__ import annotations
@@ -55,6 +67,8 @@ from vidchapters_tpu_torch.ops.fused_attention import (
     mul32,
     murmur_mix,
 )
+from vidchapters_tpu_torch.parallel import tensor_parallel as tp
+from vidchapters_tpu_torch.runtime import mesh
 from vidchapters_tpu_torch.runtime.rng import StepRng
 
 NEG_INF = -1e9  # large-negative additive mask (safe in bf16)
@@ -75,16 +89,28 @@ DENSE_REMAT_MIN_ELEMS = 256 * 256
 # always takes the standard decode.
 USE_MEGA_DECODE = None
 
+# Megatron sequence parallelism of the encoder's residual stream over the
+# model axis: set by runtime/mesh.enable_sequence_parallelism (the
+# counterpart of SEQUENCE_SHARDING there), read by a tensor-parallel
+# encoder stack at each forward.
+SEQUENCE_PARALLEL = False
 
-def dense_keep_scale(seed: int, shape, rate: float, device=None) -> torch.Tensor:
+
+def dense_keep_scale(seed: int, shape, rate: float, device=None, h0: int = 0,
+                     heads: Optional[int] = None) -> torch.Tensor:
     """``[B, H, Lq, Lk]`` float32 keep mask, ``1/(1-rate)`` or 0: murmur3
-    over ``x = pos + row * (Lq*Lk)`` (row = b*H + h, pos = q*Lk + k, uint32
-    wrap) with a 32-bit threshold, as ``_dense_keep_scale`` (t5.py:123-141
-    there)."""
+    over ``x = pos + row * (Lq*Lk)`` (row = b*heads + h0 + h, pos = q*Lk +
+    k, uint32 wrap) with a 32-bit threshold, as ``_dense_keep_scale``
+    (t5.py:123-141 there). ``heads`` (H by default) is the model's head
+    count and ``h0`` the model's index of head 0: a rank holding heads
+    ``[h0, h0 + H)`` gets its part of the whole mask."""
     b, h, lq, lk = shape
+    heads = h if heads is None else heads
     n = lq * lk
     pos = torch.arange(n, dtype=torch.int64, device=device)[None, :]
-    row = torch.arange(b * h, dtype=torch.int64, device=device)[:, None]
+    row = (torch.arange(b, dtype=torch.int64, device=device)[:, None] * heads
+           + torch.arange(h0, h0 + h, dtype=torch.int64, device=device)[None, :]
+           ).reshape(-1, 1)
     x = (pos + mul32(row, n & 0xFFFFFFFF)) & 0xFFFFFFFF
     x = murmur_mix(x ^ mul32(torch.tensor(seed & 0xFFFFFFFF, device=device), 0x9E3779B1))
     thresh = min(int(rate * 2**32), 2**32 - 1)
@@ -94,12 +120,20 @@ def dense_keep_scale(seed: int, shape, rate: float, device=None) -> torch.Tensor
     return keep.reshape(shape)
 
 
-def _apply_dropout(x: torch.Tensor, rate: float, rng: Optional[StepRng]) -> torch.Tensor:
-    """Element dropout in training (``rng`` given), identity otherwise."""
+def _apply_dropout(x: torch.Tensor, rate: float, rng: Optional[StepRng],
+                   shard: Optional[tuple] = None) -> torch.Tensor:
+    """Element dropout in training (``rng`` given), identity otherwise.
+    ``shard``: ``x`` is a part of a whole tensor (``StepRng.keep_mask``)."""
     if rng is None or rate == 0.0:
         return x
     keep = 1.0 - rate
-    return torch.where(rng.keep_mask(x, keep), x / keep, torch.zeros_like(x))
+    return torch.where(rng.keep_mask(x, keep, shard), x / keep, torch.zeros_like(x))
+
+
+def model_shard(module: nn.Module, dim: int) -> Optional[tuple]:
+    """``(dim, parts, index)`` of a tensor of a tensor-parallel ``module``
+    split over the model axis along ``dim``; None without one."""
+    return (dim, module.mp, mesh.model_rank()) if module.mp > 1 else None
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -110,6 +144,14 @@ def _linear(x: torch.Tensor, lin: nn.Linear, dt: torch.dtype) -> torch.Tensor:
     """``lin(x)`` computed in ``dt`` (input and weights cast)."""
     bias = None if lin.bias is None else lin.bias.to(dt)
     return F.linear(x.to(dt), lin.weight.to(dt), bias)
+
+
+def _row_linear(x: torch.Tensor, lin: nn.Linear, dt: torch.dtype) -> torch.Tensor:
+    """``lin(x)`` of a row-sharded ``lin`` (its weight the rank's input
+    columns, its bias whole): the partial products summed over the model
+    group, then the bias added once."""
+    out = tp.reduce_from_model(F.linear(x.to(dt), lin.weight.to(dt)))
+    return out if lin.bias is None else out + lin.bias.to(dt)
 
 
 class RMSNorm(nn.Module):
@@ -151,6 +193,8 @@ def relative_position_bucket(relative_position: torch.Tensor, bidirectional: boo
 
 
 class RelativePositionBias(nn.Module):
+    mp = 1  # the model axis it is split over (its heads' columns)
+
     def __init__(self, cfg: T5Config, bidirectional: bool):
         super().__init__()
         self.cfg = cfg
@@ -159,9 +203,15 @@ class RelativePositionBias(nn.Module):
             torch.zeros(cfg.relative_attention_num_buckets, cfg.num_heads))
 
     def forward(self, query_length: int, key_length: int) -> torch.Tensor:
-        """[1, heads, q_len, k_len] additive bias in the compute dtype."""
+        """[1, heads, q_len, k_len] additive bias in the compute dtype; under
+        tensor parallelism of the rank's heads (its columns of the table,
+        whose gradient the model group sums)."""
         cfg = self.cfg
         dev = self.rel_embedding.device
+        table = self.rel_embedding
+        if self.mp > 1:
+            n = cfg.num_heads // self.mp
+            table = table[:, mesh.model_rank() * n:(mesh.model_rank() + 1) * n]
         ctx = torch.arange(query_length, device=dev)[:, None]
         mem = torch.arange(key_length, device=dev)[None, :]
         buckets = relative_position_bucket(
@@ -174,12 +224,17 @@ class RelativePositionBias(nn.Module):
         # L=1024 on an H100 80GB at 700 W, chip_smoke.py's training phase)
         onehot = (buckets[..., None] == torch.arange(
             cfg.relative_attention_num_buckets, device=dev)).float()
-        bias = torch.matmul(onehot, self.rel_embedding.float())  # [q, k, h]
+        bias = torch.matmul(onehot, table.float())  # [q, k, h]
         return bias.permute(2, 0, 1)[None].to(_dtype(cfg)).contiguous()
 
 
 class T5Attention(nn.Module):
-    """Multi-head attention, unscaled q k^T, optional additive bias."""
+    """Multi-head attention, unscaled q k^T, optional additive bias. Under
+    tensor parallelism (``mp`` > 1) it holds the rank's heads and returns
+    its partial output projection (the caller sums it over the model
+    group)."""
+
+    mp = 1
 
     def __init__(self, cfg: T5Config):
         super().__init__()
@@ -192,7 +247,7 @@ class T5Attention(nn.Module):
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         b, l, _ = x.shape
-        return x.view(b, l, self.cfg.num_heads, self.cfg.d_kv).transpose(1, 2)
+        return x.view(b, l, -1, self.cfg.d_kv).transpose(1, 2)
 
     def forward(self, hidden: torch.Tensor, kv: torch.Tensor,
                 bias: Optional[torch.Tensor], key_mask: Optional[torch.Tensor],
@@ -207,12 +262,13 @@ class T5Attention(nn.Module):
         lq, lk = q.shape[2], k.shape[2]
         drop = dropout_rate if rng is not None else 0.0
         large = lq > CHUNK and lq * lk > 512 * 512
+        h0 = mesh.model_rank() * q.shape[1] if self.mp > 1 else 0  # the rank's first head
         if (large and key_mask is not None
                 and (bias is None or bias.shape[0] == 1)):
             # one uint32 per call: the kernels rebuild the keep mask from it
             seed = rng.seed32() if drop > 0.0 else 0
             out = fused_attention_padded(q, k, v, bias, key_mask, seed=seed,
-                                         dropout_rate=drop)
+                                         dropout_rate=drop, h0=h0)
         else:
             scores = torch.matmul(q, k.transpose(-1, -2)).float()
             if bias is not None:
@@ -222,10 +278,11 @@ class T5Attention(nn.Module):
                                      torch.full_like(scores, NEG_INF))
             probs = torch.softmax(scores, dim=-1)
             if drop > 0.0 and lq * lk >= DENSE_REMAT_MIN_ELEMS:
-                keep = dense_keep_scale(rng.seed32(), probs.shape, drop, probs.device)
+                keep = dense_keep_scale(rng.seed32(), probs.shape, drop, probs.device,
+                                        h0=h0, heads=self.cfg.num_heads)
                 probs = (probs * keep).to(q.dtype)
             else:
-                probs = _apply_dropout(probs.to(q.dtype), drop, rng)
+                probs = _apply_dropout(probs.to(q.dtype), drop, rng, model_shard(self, 1))
             out = torch.matmul(probs, v)
         return self._merge(out)
 
@@ -264,6 +321,11 @@ class T5Attention(nn.Module):
 
 
 class T5FeedForward(nn.Module):
+    """ReLU or gated-GELU FF; under tensor parallelism the rank's ``d_ff``
+    columns, returning its partial ``wo`` product."""
+
+    mp = 1
+
     def __init__(self, cfg: T5Config):
         super().__init__()
         self.cfg = cfg
@@ -283,10 +345,12 @@ class T5FeedForward(nn.Module):
                  * _linear(x, self.wi_1, dt))
         else:
             h = torch.relu(_linear(x, self.wi, dt))
-        return _linear(_apply_dropout(h, dropout_rate, rng), self.wo, dt)
+        return _linear(_apply_dropout(h, dropout_rate, rng, model_shard(self, 2)), self.wo, dt)
 
 
 class T5Block(nn.Module):
+    mp = 1
+
     def __init__(self, cfg: T5Config, is_decoder: bool):
         super().__init__()
         dt, eps = _dtype(cfg), cfg.layer_norm_epsilon
@@ -300,16 +364,26 @@ class T5Block(nn.Module):
         self.ff = T5FeedForward(cfg)
 
     def forward(self, x, self_bias, enc_out, self_key_mask, cross_key_mask,
-                dropout_rate: float = 0.0, rng: Optional[StepRng] = None):
-        normed = self.self_attn_norm(x)
-        h = self.self_attn(normed, normed, self_bias, self_key_mask, dropout_rate, rng)
-        x = x + _apply_dropout(h, dropout_rate, rng)
+                dropout_rate: float = 0.0, rng: Optional[StepRng] = None,
+                sequence_parallel: bool = False):
+        """Under tensor parallelism ``enc_out`` has been copied to the model
+        group (``T5Stack.forward``); with ``sequence_parallel`` ``x`` is the
+        rank's rows of the residual stream."""
+        sharded = self.mp > 1
+        into, out, shard = _identity, _identity, None
+        if sharded and sequence_parallel:
+            into, out, shard = tp.gather_sequence, tp.scatter_sequence, model_shard(self, 1)
+        elif sharded:
+            into, out = tp.copy_to_model, tp.reduce_from_model
+        normed = into(self.self_attn_norm(x))
+        h = out(self.self_attn(normed, normed, self_bias, self_key_mask, dropout_rate, rng))
+        x = x + _apply_dropout(h, dropout_rate, rng, shard)
         if self.is_decoder and enc_out is not None:
-            h = self.cross_attn(self.cross_attn_norm(x), enc_out, None,
-                                cross_key_mask, dropout_rate, rng)
-            x = x + _apply_dropout(h, dropout_rate, rng)
-        h = self.ff(self.ff_norm(x), dropout_rate, rng)
-        return x + _apply_dropout(h, dropout_rate, rng)
+            h = out(self.cross_attn(into(self.cross_attn_norm(x)), enc_out, None,
+                                    cross_key_mask, dropout_rate, rng))
+            x = x + _apply_dropout(h, dropout_rate, rng, shard)
+        h = out(self.ff(into(self.ff_norm(x)), dropout_rate, rng))
+        return x + _apply_dropout(h, dropout_rate, rng, shard)
 
     def decode(self, x: torch.Tensor, self_bias: torch.Tensor, cache: dict,
                cache_index: int, cross_key_mask: torch.Tensor,
@@ -324,7 +398,13 @@ class T5Block(nn.Module):
         return x, {"self": self_kv, "cross": cache["cross"]}
 
 
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
 class T5Stack(nn.Module):
+    mp = 1
+
     def __init__(self, cfg: T5Config, is_decoder: bool):
         super().__init__()
         self.cfg = cfg
@@ -338,11 +418,20 @@ class T5Stack(nn.Module):
     def dropout_rate(self) -> float:
         return self.cfg.decoder_dropout if self.is_decoder else self.cfg.encoder_dropout
 
+    @property
+    def sequence_parallel(self) -> bool:
+        """Whether this stack shards its residual stream over the model axis:
+        a tensor-parallel encoder under ``SEQUENCE_PARALLEL``."""
+        return SEQUENCE_PARALLEL and self.mp > 1 and not self.is_decoder
+
     def forward(self, inputs_embeds: torch.Tensor, attention_mask: torch.Tensor,
                 enc_out: Optional[torch.Tensor] = None,
                 enc_mask: Optional[torch.Tensor] = None,
                 rng: Optional[StepRng] = None) -> torch.Tensor:
-        """Full-sequence forward; training mode when ``rng`` is given."""
+        """Full-sequence forward; training mode when ``rng`` is given. With
+        ``sequence_parallel``, ``inputs_embeds`` is the rank's part of the
+        vocabulary-sharded lookup (``T5ForConditionalGeneration.encode``),
+        summed onto the rank's rows here; the output is gathered whole."""
         _, l_orig, _ = inputs_embeds.shape
         # the encoder pads its stream once to the kernel's 128-row block;
         # padded positions are masked as keys and sliced off at the end
@@ -351,15 +440,24 @@ class T5Stack(nn.Module):
             inputs_embeds = F.pad(inputs_embeds, (0, 0, 0, l - l_orig))
             attention_mask = F.pad(attention_mask, (0, l - l_orig))
         rate = self.dropout_rate
-        x = _apply_dropout(inputs_embeds.to(_dtype(self.cfg)), rate, rng)
+        sp = self.sequence_parallel
+        shard = model_shard(self, 1) if sp else None
+        x = inputs_embeds.to(_dtype(self.cfg))
+        if sp:  # each rank's part of the lookup, summed onto its rows
+            x = tp.scatter_sequence(x)
+        x = _apply_dropout(x, rate, rng, shard)
+        if self.mp > 1 and enc_out is not None:  # the decoder's cross keys and values
+            enc_out = tp.copy_to_model(enc_out)
         self_bias = self.rel_bias(l, l)
         if self.is_decoder:
             causal = torch.tril(torch.ones(l, l, dtype=torch.bool, device=x.device))
             self_bias = torch.where(causal[None, None], self_bias,
                                     torch.full_like(self_bias, NEG_INF))
         for blk in self.blocks:
-            x = blk(x, self_bias, enc_out, attention_mask, enc_mask, rate, rng)
-        x = _apply_dropout(self.final_norm(x), rate, rng)
+            x = blk(x, self_bias, enc_out, attention_mask, enc_mask, rate, rng, sp)
+        x = _apply_dropout(self.final_norm(x), rate, rng, shard)
+        if sp:
+            x = tp.gather_sequence(x, 1, to_model=False)
         return x[:, :l_orig] if l != l_orig else x
 
     # ----- incremental decoding (t5.py:699-770 there, unrolled layers) -----
@@ -403,7 +501,12 @@ class T5Stack(nn.Module):
 
 
 class T5ForConditionalGeneration(nn.Module):
-    """Encoder-decoder with shared embeddings and (optionally tied) LM head."""
+    """Encoder-decoder with shared embeddings and (optionally tied) LM head.
+    Under tensor parallelism ``shared`` (and ``lm_head``) hold the rank's
+    vocabulary rows and the logits are the rank's columns
+    (``parallel/tensor_parallel.vocab_parallel_cross_entropy`` takes them)."""
+
+    mp = 1
 
     def __init__(self, cfg: T5Config):
         super().__init__()
@@ -414,22 +517,34 @@ class T5ForConditionalGeneration(nn.Module):
         if not cfg.tie_word_embeddings:
             self.lm_head = nn.Linear(cfg.d_model, cfg.vocab_size, bias=False)
 
-    def embed(self, ids: torch.Tensor) -> torch.Tensor:
+    def embed(self, ids: torch.Tensor, reduce: bool = True) -> torch.Tensor:
+        """The embeddings of ``ids``; under tensor parallelism ``reduce=False``
+        gives this rank's part (its vocabulary rows, zeros elsewhere)."""
+        if self.mp > 1:
+            return tp.vocab_parallel_embedding(ids, self.shared.weight,
+                                               reduce).to(_dtype(self.cfg))
         return F.embedding(ids.long(), self.shared.weight).to(_dtype(self.cfg))
 
     def encode(self, input_ids: Optional[torch.Tensor] = None,
                inputs_embeds: Optional[torch.Tensor] = None,
                attention_mask: Optional[torch.Tensor] = None,
                rng: Optional[StepRng] = None) -> torch.Tensor:
+        sp = self.encoder.sequence_parallel
+        if sp and inputs_embeds is not None:
+            raise ValueError("a sequence-parallel encoder embeds its input_ids itself")
         if inputs_embeds is None:
-            inputs_embeds = self.embed(input_ids)
+            inputs_embeds = self.embed(input_ids, reduce=not sp)
         if attention_mask is None:
             attention_mask = torch.ones(inputs_embeds.shape[:2], dtype=torch.int32,
                                         device=inputs_embeds.device)
         return self.encoder(inputs_embeds, attention_mask, rng=rng)
 
     def logits_from_hidden(self, hidden: torch.Tensor) -> torch.Tensor:
+        """float32 logits; under tensor parallelism the rank's vocabulary
+        columns."""
         cfg = self.cfg
+        if self.mp > 1:
+            hidden = tp.copy_to_model(hidden)
         if cfg.tie_word_embeddings:
             hidden = hidden * (cfg.d_model ** -0.5)
             logits = torch.matmul(hidden, self.shared.weight.to(hidden.dtype).t())

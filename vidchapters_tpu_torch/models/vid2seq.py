@@ -5,7 +5,11 @@ model/vid2seq.py:20-167): the visual encoder output goes in front of the
 T5-encoded ASR states, the fused states pad once to a multiple of 128 with
 padded keys masked, and the training forward returns the label-smoothed
 loss over time+text output tokens. Every forward takes ``rng`` (a
-``runtime.rng.StepRng``) for training mode, None for deterministic.
+``runtime.rng.StepRng``) for training mode, None for deterministic. Under
+tensor parallelism (``parallel/sharding.shard_params``) the towers run
+their shards and the loss is the vocabulary-parallel one; ``proj_v2t`` and
+the ViT's position embedding stay whole on every rank (no rule of JAX's
+``_RULES`` matches them).
 """
 
 from __future__ import annotations
@@ -24,10 +28,13 @@ from vidchapters_tpu_torch.models.t5 import (
     shift_right,
 )
 from vidchapters_tpu_torch.models.vit import TemporalViT
+from vidchapters_tpu_torch.parallel.tensor_parallel import vocab_parallel_cross_entropy
 from vidchapters_tpu_torch.runtime.rng import StepRng
 
 
 class Vid2Seq(nn.Module):
+    mp = 1
+
     def __init__(self, cfg: Vid2SeqConfig):
         super().__init__()
         self.cfg = cfg
@@ -86,9 +93,13 @@ class Vid2Seq(nn.Module):
         targets = torch.where(labels == 0, torch.full_like(labels, -100), labels)
         logits = self.t5.decode(shift_right(labels), (labels != 0).to(torch.int32),
                                 enc_out, enc_mask, rng)
-        out = {"loss": label_smoothed_cross_entropy(logits, targets,
-                                                    self.cfg.t5.label_smoothing,
-                                                    denom=loss_denom)}
+        if self.mp > 1:  # the rank's vocabulary columns
+            loss = vocab_parallel_cross_entropy(logits, targets, self.cfg.t5.vocab_size,
+                                                self.cfg.t5.label_smoothing, denom=loss_denom)
+        else:
+            loss = label_smoothed_cross_entropy(logits, targets, self.cfg.t5.label_smoothing,
+                                                denom=loss_denom)
+        out = {"loss": loss}
         if self.cfg.use_video:
             out["video_embeds"] = (video_embeds if video_embeds is not None
                                    else enc_out[:, :video.shape[1]])

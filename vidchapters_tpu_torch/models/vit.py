@@ -9,6 +9,13 @@ Products run in ``cfg.dtype``; LayerNorm statistics in fp32. With ``rng``
 ``drop_rate`` on the position-embedded input, the attention projection, the
 MLP hidden and output, and at ``attn_drop_rate`` on the attention
 probabilities, as the JAX package's ``deterministic=False``.
+
+Tensor parallelism (``mp`` > 1, set by ``parallel/sharding.shard_params``):
+``qkv`` holds the rank's heads of each of q, k and v, ``proj`` the rank's
+input rows, ``fc1`` (weight and bias) the rank's hidden columns and ``fc2``
+their rows; the row-sharded outputs are summed over the model group before
+their bias. The 100 frames take the dense route and are not sharded over
+the sequence, as there.
 """
 
 from __future__ import annotations
@@ -20,7 +27,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from vidchapters_tpu_torch.config import TemporalViTConfig
-from vidchapters_tpu_torch.models.t5 import _apply_dropout, _linear
+from vidchapters_tpu_torch.models.t5 import _apply_dropout, _linear, _row_linear, model_shard
+from vidchapters_tpu_torch.parallel import tensor_parallel as tp
 from vidchapters_tpu_torch.runtime.rng import StepRng
 
 
@@ -30,6 +38,8 @@ def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dt: torch.dtype) -> torch.Ten
 
 
 class ViTAttention(nn.Module):
+    mp = 1
+
     def __init__(self, cfg: TemporalViTConfig):
         super().__init__()
         self.cfg = cfg
@@ -41,15 +51,19 @@ class ViTAttention(nn.Module):
         dt = getattr(torch, cfg.dtype)
         b, n, c = x.shape
         hd = cfg.embed_dim // cfg.num_heads
-        qkv = _linear(x, self.qkv, dt).view(b, n, 3, cfg.num_heads, hd)
+        qkv = _linear(x, self.qkv, dt).view(b, n, 3, cfg.num_heads // self.mp, hd)
         q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # [b, h, n, hd]
         scores = torch.matmul(q, k.transpose(-1, -2)).float() * (hd ** -0.5)
-        probs = _apply_dropout(torch.softmax(scores, dim=-1).to(dt), cfg.attn_drop_rate, rng)
-        out = torch.matmul(probs, v).transpose(1, 2).reshape(b, n, c)
-        return _apply_dropout(_linear(out, self.proj, dt), cfg.drop_rate, rng)
+        probs = _apply_dropout(torch.softmax(scores, dim=-1).to(dt), cfg.attn_drop_rate, rng,
+                               model_shard(self, 1))
+        out = torch.matmul(probs, v).transpose(1, 2).reshape(b, n, -1)
+        proj = _row_linear(out, self.proj, dt) if self.mp > 1 else _linear(out, self.proj, dt)
+        return _apply_dropout(proj, cfg.drop_rate, rng)
 
 
 class ViTBlock(nn.Module):
+    mp = 1
+
     def __init__(self, cfg: TemporalViTConfig):
         super().__init__()
         self.cfg = cfg
@@ -62,9 +76,11 @@ class ViTBlock(nn.Module):
     def forward(self, x: torch.Tensor, rng: Optional[StepRng] = None) -> torch.Tensor:
         dt = getattr(torch, self.cfg.dtype)
         rate = self.cfg.drop_rate
-        x = x + self.attn(_layer_norm(x, self.norm1, dt), rng)
-        h = F.gelu(_linear(_layer_norm(x, self.norm2, dt), self.fc1, dt))
-        h = _linear(_apply_dropout(h, rate, rng), self.fc2, dt)
+        into = tp.copy_to_model if self.mp > 1 else (lambda t: t)
+        x = x + self.attn(into(_layer_norm(x, self.norm1, dt)), rng)
+        h = F.gelu(_linear(into(_layer_norm(x, self.norm2, dt)), self.fc1, dt))
+        h = _apply_dropout(h, rate, rng, model_shard(self, 2))
+        h = _row_linear(h, self.fc2, dt) if self.mp > 1 else _linear(h, self.fc2, dt)
         return x + _apply_dropout(h, rate, rng)
 
 

@@ -57,6 +57,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from vidchapters_tpu_torch.parallel.sharding import full_shape
+
 _BLOCK = re.compile(r"^block_(\d+)$")
 _RENAME = {"kernel": "weight", "scale": "weight", "embedding": "weight"}
 _LAYER = re.compile(r"^layer_(\d+)$")
@@ -103,7 +105,10 @@ def _whisper_port_name(path: tuple) -> str:
 
 def _import(params: Mapping[str, Any], model: nn.Module, name_of: Callable[[tuple], str],
             what: str) -> Dict[str, torch.Tensor]:
-    target = model.state_dict()
+    # whole shapes: a model sharded over the model axis gets the whole state
+    # dict, which parallel/sharding.load_full_state_dict cuts
+    target = {n: torch.empty(full_shape(t), device="meta")
+              for n, t in model.state_dict(keep_vars=True).items()}
     out: Dict[str, torch.Tensor] = {}
     leftover = []
     for path, arr in _flatten(params).items():
@@ -131,7 +136,9 @@ def _import(params: Mapping[str, Any], model: nn.Module, name_of: Callable[[tupl
 
 def from_jax_params(params: Mapping[str, Any], model: nn.Module) -> Dict[str, torch.Tensor]:
     """JAX ``Vid2Seq`` params -> ``model``'s state_dict (float32 tensors on
-    the CPU, shapes checked against ``model``)."""
+    the CPU, shapes checked against ``model``). For a model sharded over the
+    model axis the whole state dict, for
+    ``parallel/sharding.load_full_state_dict``."""
     return _import(params, model, _port_name, "from_jax_params")
 
 

@@ -21,7 +21,10 @@ tensor in device memory. Counterpart of
 
 Dropout is a keep mask hashed from (seed, batch, head, absolute query row,
 key column), ``keep_scale``: the forward and the backward rebuild the same
-mask from one uint32 seed, so no ``O(L^2)`` mask is kept between them.
+mask from one uint32 seed, so no ``O(L^2)`` mask is kept between them. The
+head is the model's: ``h0`` is the model's index of the call's head 0, so a
+rank that holds heads ``[h0, h0 + H)`` under tensor parallelism draws the
+mask one process draws for them.
 """
 
 from __future__ import annotations
@@ -38,10 +41,10 @@ BLOCK_Q = 128
 HEAD_DIMS = (32, 64, 128)  # head widths the kernels are instantiated for
 
 KERNEL = CudaKernel("fused_attention_fwd", {
-    "fused_attention_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, I, U32, I, I, F, P]})
+    "fused_attention_fwd": [P, P, P, P, P, P, P, I, I, I, I, I, I, U32, I, I, F, I, P]})
 BWD_KERNEL = CudaKernel("fused_attention_bwd", {
     "fused_attention_bwd": [P, P, P, P, P, P, P, P, P, P, P, P, P, P,
-                            I, I, I, I, I, I, U32, I, I, F, P]})
+                            I, I, I, I, I, I, U32, I, I, F, I, P]})
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _M32 = 0xFFFFFFFF
@@ -110,10 +113,11 @@ def keep_scale(seed: int, b, h, q0: int, block_q: int, lk: int, rate: float,
 
 
 def _keep_full(seed: int, b: int, h: int, lq: int, lk: int, rate: float,
-               device) -> torch.Tensor:
-    """The keep mask over a whole ``[B, H, Lq, Lk]`` score tensor."""
+               device, h0: int = 0) -> torch.Tensor:
+    """The keep mask over a whole ``[B, H, Lq, Lk]`` score tensor whose head
+    0 is the model's head ``h0``."""
     bi = torch.arange(b, device=device)[:, None, None, None]
-    hi = torch.arange(h, device=device)[None, :, None, None]
+    hi = torch.arange(h0, h0 + h, device=device)[None, :, None, None]
     return keep_scale(seed, bi, hi, 0, lq, lk, rate, device)
 
 
@@ -131,7 +135,8 @@ def _scores(q, k, bias, key_mask) -> torch.Tensor:
 
 def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: Optional[torch.Tensor], key_mask: torch.Tensor,
-                          seed: int = 0, dropout_rate: float = 0.0) -> torch.Tensor:
+                          seed: int = 0, dropout_rate: float = 0.0,
+                          h0: int = 0) -> torch.Tensor:
     """The forward kernel's function in plain PyTorch: fp32 scores and
     softmax, the keep mask on the normalised probabilities, which are
     rounded to v's dtype before the product with v (fused_attention.py:
@@ -139,13 +144,13 @@ def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(_scores(q, k, bias, key_mask), dim=-1)
     if dropout_rate > 0.0:
         b, h, lq, lk = probs.shape
-        probs = probs * _keep_full(seed, b, h, lq, lk, dropout_rate, q.device)
+        probs = probs * _keep_full(seed, b, h, lq, lk, dropout_rate, q.device, h0)
     out = torch.matmul(probs.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
 
 
 def fused_attention_bwd_plain(q, k, v, bias, key_mask, seed: int, dropout_rate: float,
-                              out, dout) -> Tuple[torch.Tensor, ...]:
+                              out, dout, h0: int = 0) -> Tuple[torch.Tensor, ...]:
     """The backward kernel's function in plain PyTorch, step by step as
     ``_bwd_kernel`` (fused_attention.py:196-259 there): recompute the
     softmax, ``delta = rowsum(dout * out)`` with ``out`` as stored, the keep
@@ -161,7 +166,7 @@ def fused_attention_bwd_plain(q, k, v, bias, key_mask, seed: int, dropout_rate: 
     pd = p
     if dropout_rate > 0.0:
         b, h, lq, lk = p.shape
-        keep = _keep_full(seed, b, h, lq, lk, dropout_rate, q.device)
+        keep = _keep_full(seed, b, h, lq, lk, dropout_rate, q.device, h0)
         dp = dp * keep
         pd = p * keep
     ds = p * (dp - delta[..., None])
@@ -198,12 +203,14 @@ def _check(q, k, v, bias, key_mask, name: str) -> None:
                          f"(D={d}, Lk={lk})")
 
 
-def _dropout_args(seed: int, dropout_rate: float):
+def _dropout_args(seed: int, dropout_rate: float, h0: int):
     if not 0.0 <= dropout_rate < 1.0:
         raise ValueError(f"dropout_rate must be in [0, 1), got {dropout_rate}")
+    if h0 < 0:
+        raise ValueError(f"h0 must be >= 0, got {h0}")
     on = dropout_rate > 0.0
     return (seed & _M32, int(on), min(int(dropout_rate * 65536.0), 65535) if on else 0,
-            dropout_scale(dropout_rate) if on else 1.0)
+            dropout_scale(dropout_rate) if on else 1.0, h0)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -214,17 +221,18 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def _forward(q, k, v, bias, key_mask, seed: int, dropout_rate: float,
-             want_lse: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+             want_lse: bool, h0: int = 0) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(out, lse): CPU tensors take the plain version (no lse); CUDA
     tensors the kernel, which writes ``lse = m + log l`` per row
     (``[B, H, Lq]`` float32) when asked."""
     if q.device.type == "cpu":
-        return fused_attention_plain(q, k, v, bias, key_mask, seed, dropout_rate), None
-    return _launch_forward(q, k, v, bias, key_mask, seed, dropout_rate, want_lse)
+        return fused_attention_plain(q, k, v, bias, key_mask, seed, dropout_rate, h0), None
+    return _launch_forward(q, k, v, bias, key_mask, seed, dropout_rate, want_lse, h0)
 
 
 def _launch_forward(q, k, v, bias, key_mask, seed: int, dropout_rate: float,
-                    want_lse: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                    want_lse: bool, h0: int = 0
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     _check(q, k, v, bias, key_mask, "fused_attention")
     b, h, lq, d = q.shape
     lk = k.shape[2]
@@ -238,7 +246,7 @@ def _launch_forward(q, k, v, bias, key_mask, seed: int, dropout_rate: float,
                   0 if bias is None else bias.data_ptr(), mask.data_ptr(),
                   out.data_ptr(), 0 if lse is None else lse.data_ptr(),
                   b, h, lq, lk, d, _DTYPE_CODE[q.dtype],
-                  *_dropout_args(seed, dropout_rate), stream_ptr())
+                  *_dropout_args(seed, dropout_rate, h0), stream_ptr())
     return out, lse
 
 
@@ -254,18 +262,18 @@ def dbias_scratch_shape(b: int, h: int, lq: int, lk: int, dtype: torch.dtype,
 
 
 def fused_attention_bwd(q, k, v, bias, key_mask, seed: int, dropout_rate: float,
-                        out, dout, lse) -> Tuple[torch.Tensor, ...]:
+                        out, dout, lse, h0: int = 0) -> Tuple[torch.Tensor, ...]:
     """float32 ``(dq, dk, dv, dbias)`` of the fused attention. CPU tensors
     take ``fused_attention_bwd_plain`` (``lse`` unused); CUDA tensors the
     kernel, which needs the forward's ``lse``."""
     if q.device.type == "cpu":
         return fused_attention_bwd_plain(q, k, v, bias, key_mask, seed, dropout_rate,
-                                         out, dout)
-    return _launch_backward(q, k, v, bias, key_mask, seed, dropout_rate, out, dout, lse)
+                                         out, dout, h0)
+    return _launch_backward(q, k, v, bias, key_mask, seed, dropout_rate, out, dout, lse, h0)
 
 
 def _launch_backward(q, k, v, bias, key_mask, seed: int, dropout_rate: float,
-                     out, dout, lse) -> Tuple[torch.Tensor, ...]:
+                     out, dout, lse, h0: int = 0) -> Tuple[torch.Tensor, ...]:
     _check(q, k, v, bias, key_mask, "fused_attention_bwd")
     b, h, lq, d = q.shape
     lk = k.shape[2]
@@ -290,7 +298,7 @@ def _launch_backward(q, k, v, bias, key_mask, seed: int, dropout_rate: float,
                       0 if dbias is None else dbias.data_ptr(), delta.data_ptr(),
                       0 if part is None else part.data_ptr(),
                       b, h, lq, lk, d, _DTYPE_CODE[q.dtype],
-                      *_dropout_args(seed, dropout_rate), stream_ptr())
+                      *_dropout_args(seed, dropout_rate, h0), stream_ptr())
     return dq, dk, dv, dbias
 
 
@@ -300,34 +308,35 @@ class _FusedAttention(torch.autograd.Function):
     rebuilds the keep mask from the seed."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, key_mask, seed, dropout_rate):
+    def forward(ctx, q, k, v, bias, key_mask, seed, dropout_rate, h0):
         out, lse = _forward(q, k, v, bias, key_mask, seed, dropout_rate,
-                            want_lse=q.device.type != "cpu")
+                            want_lse=q.device.type != "cpu", h0=h0)
         ctx.save_for_backward(q, k, v, bias, key_mask, out, lse)
-        ctx.seed, ctx.dropout_rate = seed, dropout_rate
+        ctx.seed, ctx.dropout_rate, ctx.h0 = seed, dropout_rate, h0
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, bias, key_mask, out, lse = ctx.saved_tensors
         dq, dk, dv, dbias = fused_attention_bwd(q, k, v, bias, key_mask, ctx.seed,
-                                                ctx.dropout_rate, out, dout, lse)
+                                                ctx.dropout_rate, out, dout, lse, ctx.h0)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
-                None if dbias is None else dbias.to(bias.dtype), None, None, None)
+                None if dbias is None else dbias.to(bias.dtype), None, None, None, None)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bias: Optional[torch.Tensor], key_mask: torch.Tensor,
-                    seed: int = 0, dropout_rate: float = 0.0) -> torch.Tensor:
+                    seed: int = 0, dropout_rate: float = 0.0, h0: int = 0) -> torch.Tensor:
     """q [B,H,Lq,D], k/v [B,H,Lk,D] (Lk a multiple of 64 on the card), bias
     [1,H,Lq,Lk] broadcast over the batch or None, key_mask [B,Lk] (1 =
-    valid), ``seed`` a uint32 (read only when ``dropout_rate > 0``).
-    Differentiable in q, k, v and bias. CPU tensors take the plain versions;
-    CUDA tensors the kernels."""
+    valid), ``seed`` a uint32 (read only when ``dropout_rate > 0``), ``h0``
+    the model's index of head 0 (the keep mask's). Differentiable in q, k,
+    v and bias. CPU tensors take the plain versions; CUDA tensors the
+    kernels."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (q, k, v, bias)):
-        return _FusedAttention.apply(q, k, v, bias, key_mask, seed, dropout_rate)
-    return _forward(q, k, v, bias, key_mask, seed, dropout_rate, want_lse=False)[0]
+        return _FusedAttention.apply(q, k, v, bias, key_mask, seed, dropout_rate, h0)
+    return _forward(q, k, v, bias, key_mask, seed, dropout_rate, want_lse=False, h0=h0)[0]
 
 
 def padded_lengths(lq: int, lk: int) -> Tuple[int, int]:
@@ -339,7 +348,8 @@ def padded_lengths(lq: int, lk: int) -> Tuple[int, int]:
 
 def fused_attention_padded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            bias: Optional[torch.Tensor], key_mask: torch.Tensor,
-                           seed: int = 0, dropout_rate: float = 0.0) -> torch.Tensor:
+                           seed: int = 0, dropout_rate: float = 0.0,
+                           h0: int = 0) -> torch.Tensor:
     """``fused_attention`` at any lengths: Lk pads to a multiple of 128
     (padded keys masked out), Lq to 8 up to 512 and to 128 beyond (padded
     query rows sliced off), as fused_attention.py:395-418 there does. The
@@ -354,4 +364,4 @@ def fused_attention_padded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         key_mask = _pad_to(key_mask, lkp, 1)
     if bias is not None and (lqp != lq or lkp != lk):
         bias = _pad_to(_pad_to(bias, lqp, 2), lkp, 3)
-    return fused_attention(q, k, v, bias, key_mask, seed, dropout_rate)[:, :, :lq]
+    return fused_attention(q, k, v, bias, key_mask, seed, dropout_rate, h0)[:, :, :lq]

@@ -18,6 +18,12 @@ Over several ranks (``runtime/mesh.py``) the JAX package's policy holds
 and ``manager.json`` and prunes the archives, and every rank waits at a
 barrier until it has; every rank restores. The best value is rank 0's, so
 that every rank takes the same ``best`` decision.
+
+A model sharded over the model axis (``parallel/sharding.shard_params``)
+is saved whole: every rank gathers its model group's parameters and Adam
+moments (rank 0 writes them), so the files are those of one process, in
+the port's names, and a restore at any grid cuts them again. A run saved
+at model axis 2 resumes at 1, and the other way.
 """
 
 from __future__ import annotations
@@ -30,14 +36,33 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from vidchapters_tpu_torch.parallel import sharding
 from vidchapters_tpu_torch.runtime.collectives import all_gather_object
 from vidchapters_tpu_torch.runtime.mesh import barrier, is_main_process
 
 
 def state_payload(state, epoch: int) -> Dict[str, Any]:
-    """What a checkpoint holds of a ``train.dvc_train.TrainState``."""
-    return {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
+    """What a checkpoint holds of a ``train.dvc_train.TrainState``: the whole
+    model and moments (gathered over the model group when it is sharded;
+    every rank of the group calls this then)."""
+    model, optim = state.model, state.optimizer.state_dict()
+    if sharding.is_sharded(model):
+        optim = dict(optim, mu=sharding.gather_tensors(model, optim["mu"]),
+                     nu=sharding.gather_tensors(model, optim["nu"]))
+    return {"model": sharding.gather_params(model), "optimizer": optim,
             "step": int(state.step), "epoch": int(epoch)}
+
+
+def load_payload(state, payload: Dict[str, Any]) -> None:
+    """Load a checkpoint's payload into ``state`` (model, optimizer and
+    step), cutting this rank's slices when the model is sharded."""
+    model, optim = state.model, payload["optimizer"]
+    sharding.load_full_state_dict(model, payload["model"])
+    if sharding.is_sharded(model):
+        optim = dict(optim, mu=sharding.cut_tensors(model, optim["mu"]),
+                     nu=sharding.cut_tensors(model, optim["nu"]))
+    state.optimizer.load_state_dict(optim)
+    state.step = int(payload["step"])
 
 
 class CheckpointManager:
@@ -78,8 +103,8 @@ class CheckpointManager:
             (self.dir / (p.name + ".meta.json")).unlink(missing_ok=True)
 
     def save_last(self, state, epoch: int) -> None:
+        payload = state_payload(state, epoch)  # every rank: it may gather
         if is_main_process():
-            payload = state_payload(state, epoch)
             self._save("last", payload, {"epoch": epoch})
             if self.keep_last > 1:
                 self._save(f"last_e{epoch}", payload, {"epoch": epoch})
@@ -97,8 +122,8 @@ class CheckpointManager:
                   or (self.best_mode == "min" and value < self.best_value))
         if better:
             self.best_value = float(value)
+            payload = state_payload(state, epoch)
             if is_main_process():
-                payload = state_payload(state, epoch)
                 meta = {"epoch": epoch, self.best_metric: float(value)}
                 self._save("best", payload, meta)
                 if self.keep_best > 1:
@@ -117,7 +142,4 @@ class CheckpointManager:
         """Load checkpoint ``name`` into ``state`` (model, optimizer and step),
         in place."""
         device = next(state.model.parameters()).device
-        payload = self.load(name, map_location=device)
-        state.model.load_state_dict(payload["model"])
-        state.optimizer.load_state_dict(payload["optimizer"])
-        state.step = int(payload["step"])
+        load_payload(state, self.load(name, map_location=device))

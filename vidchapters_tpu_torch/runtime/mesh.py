@@ -1,6 +1,6 @@
-"""Processes, ranks and each rank's device: data parallelism over processes.
+"""Processes, ranks and each rank's device; the ``(data, model)`` grid.
 
-Counterpart of ``vidchapters_tpu/runtime/mesh.py:23-70``. One process (a
+Counterpart of ``vidchapters_tpu/runtime/mesh.py``. One process (a
 rank) plays one JAX process holding one device; the ranks meet through
 ``torch.distributed``:
 
@@ -17,9 +17,14 @@ JAX package's own variables: ``VIDCHAPTERS_NUM_PROCESSES``,
 Nothing falls back quietly: a missing card or a failed rendezvous raises,
 and NCCL itself refuses two ranks on one card.
 
-Only the data axis is ported. Megatron tensor parallelism and encoder
-sequence parallelism (``runtime/mesh.py:73-110`` and the ``_RULES`` of
-``parallel/sharding.py`` there) are the next slice (ROADMAP.md).
+``create_mesh`` lays the ranks out on a ``(data, model)`` grid, rank ``r``
+at ``(r // mp, r % mp)`` as ``np.asarray(devices).reshape(dp, mp)`` there
+(:46-56), and builds one process group per row (a model group: the ranks of
+one data index) and per column (a data group: the ranks of one model
+index). Gradients are summed over the data group; the model group carries
+the tensor-parallel collectives (``parallel/tensor_parallel.py``).
+``enable_sequence_parallelism`` (:73-110 there) shards the T5 encoder's
+residual stream over the model axis.
 """
 
 from __future__ import annotations
@@ -32,11 +37,25 @@ import torch
 import torch.distributed as dist
 
 from vidchapters_tpu_torch import resolve_device
-from vidchapters_tpu_torch.config import MeshConfig
+from vidchapters_tpu_torch.config import MeshConfig, Vid2SeqConfig
 
 DEFAULT_TIMEOUT_S = 1800.0  # a collective that waits longer raises
 
 _host_group = None  # the gloo group of host values; None: the default group
+
+
+class _Grid:
+    """This rank's place on the ``(data, model)`` grid and its groups (None:
+    every rank, through the default group, or the host group for host
+    values). Before ``create_mesh`` the grid is ``(world, 1)``."""
+
+    def __init__(self, dp: int = 1, mp: int = 1, rank: int = 0):
+        self.dp, self.mp = dp, mp
+        self.data_rank, self.model_rank = divmod(rank, mp)
+        self.data = self.model = self.data_host = None
+
+
+_grid = _Grid()
 
 
 def maybe_initialize_distributed(device: "str | torch.device | None" = None,
@@ -116,20 +135,98 @@ def rank_device(device: "str | torch.device | None" = None) -> torch.device:
     return dev
 
 
-def create_mesh(cfg: MeshConfig = MeshConfig()) -> Tuple[int, int]:
-    """``(data, model)`` axis sizes over the ranks. Only the data axis is
-    ported: a model axis above 1 raises."""
-    if cfg.model_parallel_size > 1:
-        raise NotImplementedError(
-            f"model_parallel_size={cfg.model_parallel_size}: tensor and sequence parallelism "
-            f"are not ported yet (the next slice, ROADMAP.md §1 item 9); the port runs data "
-            f"parallelism only")
-    return cfg.axis_shapes(world_size())
+def create_mesh(cfg: MeshConfig = MeshConfig(), model: "Vid2SeqConfig | None" = None
+                ) -> Tuple[int, int]:
+    """``(data, model)`` axis sizes over the ranks, and this rank's groups.
+    Raises when the world does not tile the grid (a model axis above 1
+    needs as many ranks at least), or when the model axis does not divide a
+    width of ``model`` (``MeshConfig.check_widths``). Every rank calls it,
+    with the same grid: each group is made by every rank, in one order."""
+    global _grid
+    world = world_size()
+    dp, mp = cfg.axis_shapes(world)
+    if model is not None:
+        cfg.check_widths(model)
+    grid = _Grid(dp, mp, rank())
+    if mp > 1:
+        timeout = timedelta(seconds=DEFAULT_TIMEOUT_S)
+        for i in range(dp):  # the model groups: one data index each
+            g = dist.new_group(list(range(i * mp, (i + 1) * mp)), timeout=timeout)
+            if i == grid.data_rank:
+                grid.model = g
+        for j in range(mp):  # the data groups: one model index each
+            ranks = list(range(j, world, mp))
+            g = dist.new_group(ranks, timeout=timeout)
+            h = (dist.new_group(ranks, backend="gloo", timeout=timeout)
+                 if _host_group is not None else g)
+            if j == grid.model_rank:
+                grid.data, grid.data_host = g, h
+    _grid = grid
+    return dp, mp
+
+
+def data_size() -> int:
+    """Ranks on the data axis (the replicas of one model shard)."""
+    return _grid.dp if _grid.mp > 1 else world_size()
+
+
+def model_size() -> int:
+    """Ranks on the model axis (the shards of one replica)."""
+    return _grid.mp
+
+
+def data_rank() -> int:
+    """This rank's index on the data axis: which rows of the global batch."""
+    return _grid.data_rank if _grid.mp > 1 else rank()
+
+
+def model_rank() -> int:
+    """This rank's index on the model axis: which shard of each weight."""
+    return _grid.model_rank
+
+
+def data_group():
+    """The ranks of this rank's model index (gradients sum over them)."""
+    return _grid.data
+
+
+def data_host_group():
+    """The data group for host values (gloo)."""
+    return _grid.data_host if _grid.data_host is not None else _host_group
+
+
+def model_group():
+    """The ranks of this rank's data index (the tensor-parallel collectives)."""
+    return _grid.model
+
+
+def enable_sequence_parallelism(shape: Tuple[int, int]) -> bool:
+    """Shard the T5 encoder's residual stream over the model axis between
+    blocks (Megatron-SP, ``models/t5.SEQUENCE_PARALLEL``): its norms,
+    dropouts and residual adds run on the rank's rows, each block gathers
+    the rows into attention and the feed-forward and reduce-scatters their
+    outputs. ``shape``: ``create_mesh``'s ``(data, model)``. The decoder is
+    never sharded so, as there. False (and nothing set) when the model axis
+    is 1."""
+    if shape[1] <= 1:
+        return False
+    from vidchapters_tpu_torch.models import t5
+
+    t5.SEQUENCE_PARALLEL = True
+    return True
+
+
+def disable_sequence_parallelism() -> None:
+    """Clear ``models/t5.SEQUENCE_PARALLEL``."""
+    from vidchapters_tpu_torch.models import t5
+
+    t5.SEQUENCE_PARALLEL = False
 
 
 def shutdown() -> None:
     """Leave the process group, if this process joined one."""
-    global _host_group
+    global _host_group, _grid
     if distributed():
         dist.destroy_process_group()
     _host_group = None
+    _grid = _Grid()

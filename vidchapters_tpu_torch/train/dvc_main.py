@@ -11,16 +11,22 @@ when there is none).
     python -m vidchapters_tpu_torch.train.dvc_main --config exp.json [--eval]
         [--load CKPT] [--device cuda|cpu] [--dist-backend nccl|gloo]
 
-Data parallel over N processes (ranks), one launched per rank with
+Over N processes (ranks), one launched per rank with
 ``VIDCHAPTERS_NUM_PROCESSES=N``, ``VIDCHAPTERS_PROCESS_ID=r`` and
 ``VIDCHAPTERS_COORDINATOR=host:port`` (``runtime/mesh.py``): NCCL with a
-card a rank by default, gloo on the CPU or for ranks sharing a card.
-``cfg.train.batch_size`` is the rows of one rank, as it is of one JAX
-process: each rank reads its strided shard of the epoch's order, the
-train step is that of the global batch (``train/dvc_train.py``), the val
-eval decodes each rank's shard and gathers, and the final eval runs whole
-on every rank. Rank 0 alone writes ``log.txt``, the predictions and the
-checkpoints; every rank resumes.
+card a rank by default, gloo on the CPU or for ranks sharing a card. The
+ranks form the ``(data, model)`` grid of ``cfg.train.mesh``: at
+``model_parallel_size`` mp > 1 the model is sharded over each group of mp
+ranks (Megatron tensor parallelism, the T5 encoder's residual stream
+sharded over the sequence, ``parallel/sharding.py``), and N / mp data
+ranks each hold a replica. ``cfg.train.batch_size`` is the rows of one
+data rank, as it is of one JAX process: each data rank reads its strided
+shard of the epoch's order (the ranks of a model group read the same
+rows), the train step is that of the global batch (``train/dvc_train.py``),
+the val eval decodes each rank's shard of the videos on the gathered
+weights and gathers, and the final eval runs whole on every rank. Rank 0
+alone writes ``log.txt``, the predictions and the checkpoints (whole, as
+one process's: a run resumes at another grid); every rank resumes.
 
 ``htm`` (HowTo100M pretraining, ``configs/htm_pretrain.json``) has a train
 set only: no eval, no ``best``, ``last`` and ``log.txt`` each epoch, and
@@ -48,7 +54,11 @@ from vidchapters_tpu_torch.data.dvc_dataset import (
 from vidchapters_tpu_torch.data.tokenizer import build_tokenizer
 from vidchapters_tpu_torch.models import torch_import
 from vidchapters_tpu_torch.models.vid2seq import Vid2Seq
-from vidchapters_tpu_torch.parallel.sharding import broadcast_parameters, replicas_agree
+from vidchapters_tpu_torch.parallel.sharding import (
+    broadcast_parameters,
+    replicas_agree,
+    shard_params,
+)
 from vidchapters_tpu_torch.runtime import mesh
 from vidchapters_tpu_torch.runtime.checkpoint import CheckpointManager
 from vidchapters_tpu_torch.runtime.meters import MetricLogger
@@ -56,6 +66,7 @@ from vidchapters_tpu_torch.train.dvc_train import (
     TrainState,
     batch_to_device,
     evaluate,
+    gathered_model,
     make_train_step,
     target_counts,
 )
@@ -108,8 +119,10 @@ def main(cfg: ExperimentConfig, load: str = "", eval_only: bool = False,
     the caller asks for the CPU (a rank's own card when the process group
     has several ranks); raises when CUDA is absent."""
     device = mesh.rank_device(device)
-    mesh.create_mesh(cfg.train.mesh)
-    shards = dict(num_shards=mesh.world_size(), shard_index=mesh.rank())
+    grid = mesh.create_mesh(cfg.train.mesh, cfg.model)
+    mesh.enable_sequence_parallelism(grid)  # at a model axis above 1, as dryrun_multichip
+    shards = dict(num_shards=mesh.data_size(), shard_index=mesh.data_rank())  # training
+    eval_shards = dict(num_shards=mesh.world_size(), shard_index=mesh.rank())
     tok_path = cfg.tokenizer_path
     if not tok_path and cfg.paths.presave_dir:
         cand = Path(cfg.paths.presave_dir) / "t5-base" / "spiece.model"
@@ -124,6 +137,8 @@ def main(cfg: ExperimentConfig, load: str = "", eval_only: bool = False,
         print(f"loading checkpoint {load}")
         _load_weights(model, load)
     print(f"number of params: {sum(p.numel() for p in model.parameters())}")  # dvc.py:339-341
+    shard_params(model)  # this rank's slices at a model axis above 1
+    broadcast_parameters(model)  # every replica starts from data rank 0's weights
 
     steps_per_epoch = sum(len(EpochIterator(ds, cfg.train.batch_size, d, **shards))
                           for _, ds in train_sets)
@@ -140,7 +155,6 @@ def main(cfg: ExperimentConfig, load: str = "", eval_only: bool = False,
     if ckpt.has("last") and not load:  # resume (dvc.py:354-361)
         ckpt.restore("last", state)
         print(f"resumed from epoch {ckpt.meta('last').get('epoch')}")
-    broadcast_parameters(model)  # every rank starts from rank 0's weights
 
     log_path = ckpt.dir / "log.txt"
     start_epoch = int(ckpt.meta("last").get("epoch", -1)) + 1
@@ -190,16 +204,18 @@ def main(cfg: ExperimentConfig, load: str = "", eval_only: bool = False,
 
         epoch_stats = {f"train_{k}": v for k, v in logger.global_averages().items()}
         if (epoch + 1) % cfg.train.eval_every_epochs == 0:
+            whole = gathered_model(model)
             for name, ds, ref_path in val_sets:
                 it = EpochIterator(ds, cfg.train.eval_batch_size, d, shuffle=False,
-                                   drop_last=False, bucket_inputs=True, **shards)
-                preds, metrics = evaluate(model, it, tokenizer, cfg.generation,
+                                   drop_last=False, bucket_inputs=True, **eval_shards)
+                preds, metrics = evaluate(whole, it, tokenizer, cfg.generation,
                                           cfg.model.num_bins, references=[ref_path])
                 epoch_stats.update({f"{name}_{k}": v for k, v in metrics.items()})
                 if mesh.is_main_process():
                     with open(ckpt.dir / f"{name}_val_preds_e{epoch}.json", "w") as f:
                         json.dump({"results": preds}, f)
                 ckpt.maybe_save_best(state, epoch, metrics)
+            del whole
 
         last_every = max(1, cfg.train.checkpoint.save_last_every_epochs)
         if (epoch + 1) % last_every == 0 or epoch == cfg.train.epochs - 1:
@@ -208,9 +224,10 @@ def main(cfg: ExperimentConfig, load: str = "", eval_only: bool = False,
             with open(log_path, "a") as f:
                 f.write(json.dumps({"epoch": epoch, **epoch_stats}) + "\n")
 
-    if mesh.distributed():  # raises unless every rank holds the same weights
+    whole = gathered_model(model)
+    if mesh.distributed():  # raises unless every rank holds the same (gathered) weights
         print(f"rank {mesh.rank()}: parameters identical on {mesh.world_size()} ranks "
-              f"(checksum {replicas_agree(model)})")
+              f"(checksum {replicas_agree(whole)})")
 
     # the final eval with the best weights, on test when configured, else val
     # (dvc.py:447-464), whole on every rank as JAX's; with --load, the loaded
@@ -218,12 +235,14 @@ def main(cfg: ExperimentConfig, load: str = "", eval_only: bool = False,
     final_metrics: Dict[str, float] = {}
     if ckpt.has("best") and not load:
         ckpt.restore("best", state)
+        whole = gathered_model(model)
     for name, ds, ref_path in (test_sets or val_sets):
         it = EpochIterator(ds, cfg.train.eval_batch_size, d, shuffle=False,
                            drop_last=False, bucket_inputs=True)
-        _, metrics = evaluate(model, it, tokenizer, cfg.generation, cfg.model.num_bins,
+        _, metrics = evaluate(whole, it, tokenizer, cfg.generation, cfg.model.num_bins,
                               references=[ref_path])
         final_metrics.update({f"{name}_{k}": v for k, v in metrics.items()})
+    mesh.disable_sequence_parallelism()
     return final_metrics
 
 

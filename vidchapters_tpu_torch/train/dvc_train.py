@@ -7,8 +7,9 @@ Counterpart of ``vidchapters_tpu/train/dvc_train.py``.
   gradient, dvc.py:78-100), the weighted sum, the global-norm clip, AdamW
   with the cosine/warmup schedule, and the time-token embedding renorm
   (dvc.py:118-126). Dropout comes from a generator derived from (seed,
-  step, rank); the long attentions run the fused-attention kernels. Over
-  several ranks the step is the global batch's (``parallel/sharding.py``).
+  step, data rank); the long attentions run the fused-attention kernels.
+  Over a ``(data, model)`` grid of ranks the step is the global batch's
+  (``parallel/sharding.py``), the model sharded over the model axis.
 - ``make_generate_fn``: encode once, then greedy, beam or nucleus decode.
   ``_pick_decode_fns`` chooses the route: greedy and beam search take the
   decode kernel (``ops/decode_megakernel``) unless ``models.t5.
@@ -44,15 +45,20 @@ from vidchapters_tpu_torch.ops.decoding import (
     make_decode_fns,
     nucleus_sample,
 )
+from vidchapters_tpu_torch.parallel import tensor_parallel as tp
 from vidchapters_tpu_torch.parallel.sharding import (
     all_reduce_gradients,
+    gather_params,
     global_counts,
+    is_sharded,
+    reduce_model_gradients,
     sum_shares,
 )
 from vidchapters_tpu_torch.runtime import mesh
 from vidchapters_tpu_torch.runtime.collectives import gather_results
 from vidchapters_tpu_torch.runtime.rng import StepRng
 from vidchapters_tpu_torch.train.schedules import ClipAdamW
+from vidchapters_tpu_torch.utils.hf import meta_build
 
 BATCH_FIELDS = ("video", "input_tokens", "output_tokens", "denoising_input_tokens",
                 "denoising_output_tokens")
@@ -78,14 +84,47 @@ def renorm_time_tokens(model: Vid2Seq, num_bins: int) -> None:
     """Scale the time-token embedding rows (the last ``num_bins``) so their
     mean L2 norm is the text rows' mean norm (dvc.py:118-126), in place.
     The untied ``lm_head`` gets the same: it is ``[vocab, d]`` here
-    (``[d, vocab]`` in JAX), so its norms run over rows."""
+    (``[d, vocab]`` in JAX), so its norms run over rows. Sharded by
+    vocabulary rows, each mean is a sum of row norms over the model group
+    divided by the row count, and each rank scales the time rows it holds."""
     heads = [model.t5.shared.weight]
     if hasattr(model.t5, "lm_head"):
         heads.append(model.t5.lm_head.weight)
+    sharded = is_sharded(model)
     for w in heads:
+        if sharded:
+            _renorm_sharded(w, num_bins, model.cfg.t5.vocab_size)
+            continue
         frozen, trainable = w[:-num_bins], w[-num_bins:]
         ratio = _row_norms_mean(frozen) / torch.clamp(_row_norms_mean(trainable), min=1e-8)
         w[-num_bins:] = trainable * ratio.to(w.dtype)
+
+
+def _renorm_sharded(w: torch.Tensor, num_bins: int, vocab: int) -> None:
+    """``renorm_time_tokens`` of this rank's rows ``w`` of a ``[vocab, d]``
+    table: the time rows are the global rows from ``vocab - num_bins``."""
+    n = w.shape[0]
+    first = vocab - num_bins - mesh.model_rank() * n  # the first time row, locally
+    first = min(max(first, 0), n)
+    wf = w.float()
+    norms = torch.sqrt((wf * wf).sum(dim=1))
+    sums = tp.all_reduce(torch.stack([norms[:first].sum(), norms[first:].sum()]))
+    ratio = (sums[0] / (vocab - num_bins)) / torch.clamp(sums[1] / num_bins, min=1e-8)
+    w[first:] = w[first:] * ratio.to(w.dtype)
+
+
+def gathered_model(model: Vid2Seq) -> Vid2Seq:
+    """The whole model of one sharded over the model axis, on its device
+    (every rank of the model group calls this; its whole parameters are
+    shared, not copied); ``model`` itself when it is not sharded. Generation
+    and evaluation run on it."""
+    if not is_sharded(model):
+        return model
+    state = gather_params(model)
+    with meta_build():
+        whole = Vid2Seq(model.cfg)
+    whole.load_state_dict(state, assign=True)
+    return whole
 
 
 def batch_to_device(batch: Mapping, device) -> Dict[str, torch.Tensor]:
@@ -119,15 +158,20 @@ def make_train_step(model: Vid2Seq, generative: float = 1.0, denoising: float = 
     gradients. After the step every parameter's ``.grad`` still holds that
     step's raw gradient.
 
-    In a process group (``runtime/mesh.py``), ``batch`` is this rank's rows
-    and the step is that of the global batch over the ranks, as JAX's jitted
-    step over a batch sharded on the data axis: each loss term divides its
-    sum by the global count of its target tokens (``counts``, this rank's
-    ``target_counts`` of the host batch, summed over the ranks on the host;
-    required there), the gradients are summed over the ranks before the
-    clip and the update, and the metrics are the global batch's."""
+    In a process group (``runtime/mesh.py``), ``batch`` is this data rank's
+    rows and the step is that of the global batch over the grid, as JAX's
+    jitted step over a batch sharded on the data axis: each loss term
+    divides its sum by the global count of its target tokens (``counts``,
+    this rank's ``target_counts`` of the host batch, summed over the data
+    group on the host; required there), the gradients are summed over the
+    data group before the clip and the update, and the metrics are the
+    global batch's. A model sharded over the model axis
+    (``parallel/sharding.shard_params``) first sums the gradients of its
+    split whole parameters over the model group; its norm and its
+    time-token renorm are the whole model's."""
     num_bins = model.cfg.num_bins
     data_parallel = mesh.distributed()
+    sharded = is_sharded(model)
 
     def loss_fn(batch: Dict[str, torch.Tensor], rng: StepRng, denoms: Tuple
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -156,7 +200,7 @@ def make_train_step(model: Vid2Seq, generative: float = 1.0, denoising: float = 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], seed: int,
                    counts: Optional[Tuple[int, int]] = None) -> Dict[str, torch.Tensor]:
         device = next(state.model.parameters()).device
-        rng = StepRng(seed, state.step, device, rank=mesh.rank())
+        rng = StepRng(seed, state.step, device, rank=mesh.data_rank())
         denoms = (None, None)
         if data_parallel:  # each term divided by its global batch's count
             if counts is None:
@@ -166,6 +210,8 @@ def make_train_step(model: Vid2Seq, generative: float = 1.0, denoising: float = 
         state.model.zero_grad(set_to_none=True)
         total, losses = loss_fn(batch, rng, denoms)
         total.backward()
+        if sharded:
+            reduce_model_gradients(state.model)
         if data_parallel:
             all_reduce_gradients(state.model.parameters())
         grad_norm = state.optimizer.step()
@@ -203,6 +249,8 @@ def make_generate_fn(model: Vid2Seq, gen: GenerationConfig) -> Callable:
     Weights are cast once to ``gen.param_dtype`` (the JAX package casts
     every float32 leaf inside its jitted generate); compute runs in the
     model config's dtype (bfloat16 by default)."""
+    if is_sharded(model):
+        raise ValueError("generate on the gathered weights (parallel/sharding.gather_params)")
     cast_to = getattr(torch, getattr(gen, "param_dtype", "float32"))
     if cast_to != torch.float32:
         model = copy.deepcopy(model).to(cast_to)

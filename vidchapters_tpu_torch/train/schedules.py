@@ -20,6 +20,11 @@ which ``torch.optim.AdamW`` with ``clip_grad_norm_`` does not have:
   the update uses that fp32 moment, and only the stored ``mu`` is cast to
   bf16. ``nu`` stays fp32. This is optax's op-by-op result; a jitted JAX
   step may keep ``b1 * mu`` in fp32 (XLA's excess precision).
+
+Under tensor parallelism the global norm is the whole model's: the squares
+of each sharded parameter's gradient (``parallel/sharding``'s
+``model_cut``) are summed over the model group, each whole one counted
+once.
 """
 
 from __future__ import annotations
@@ -29,8 +34,10 @@ from typing import Callable, Iterable, List
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vidchapters_tpu_torch.config import OptimConfig
+from vidchapters_tpu_torch.runtime import mesh
 
 
 def build_schedule(cfg: OptimConfig, num_training_steps: int) -> Callable[[int], float]:
@@ -74,6 +81,18 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(torch.stack([(t.float() * t.float()).sum() for t in tensors]).sum())
 
 
+def sharded_global_norm(tensors: List[torch.Tensor], sharded: List[bool]) -> torch.Tensor:
+    """``global_norm`` of a model split over the model group: the squares of
+    the ``sharded`` tensors (this rank's slices) summed over the group, the
+    others (whole on every rank) counted once."""
+    squares = [(t.float() * t.float()).sum() for t in tensors]
+    zero = torch.zeros((), device=tensors[0].device)
+    part = torch.stack([q for q, s in zip(squares, sharded) if s] or [zero]).sum()
+    dist.all_reduce(part, group=mesh.model_group())
+    whole = torch.stack([q for q, s in zip(squares, sharded) if not s] or [zero]).sum()
+    return torch.sqrt(part + whole)
+
+
 class ClipAdamW:
     """``optax.chain(clip_by_global_norm(max_norm), adamw(schedule, ...))``
     over a list of parameters, updated in place. ``step()`` reads each
@@ -100,7 +119,8 @@ class ClipAdamW:
     @torch.no_grad()
     def step(self) -> torch.Tensor:
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
-        g_norm = global_norm(grads)
+        sharded = [getattr(p, "model_cut", None) is not None for p in self.params]
+        g_norm = sharded_global_norm(grads, sharded) if any(sharded) else global_norm(grads)
         if self.clip_max_norm > 0:
             trigger = g_norm < self.clip_max_norm
             grads = [torch.where(trigger, g, g / g_norm.to(g.dtype) * self.clip_max_norm)
