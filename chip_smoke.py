@@ -45,11 +45,14 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
 3. Training at full width: Vid2Seq (T5-base + 12-layer ViT, dropout 0.1)
    trained by make_train_step on batches of 8 from the port's EpochIterator
    over a synthetic on-disk dataset (input 1000, output 256, denoising
-   804 / 304 tokens): 1 warm-up step, 5 timed steps (step ms, videos/s,
-   peak memory, the fused-attention launches, 48 of each per step), one
-   profiled step (device time by kernel group and of each fused-attention
-   kernel by name), then an fp32 gradient check: one step at 2+2 layers,
-   dropout 0, kernels on the card against the plain versions on the CPU.
+   804 / 304 tokens), each T5 block rematerialised (the recipes' default):
+   1 warm-up step, 5 timed steps (step ms, videos/s, peak memory, the
+   fused-attention launches exactly fused_per_step's: each forward again in
+   its block's recompute), two steps without remat (ms, peak memory, the
+   launches without the recompute), one profiled step (device time by
+   kernel group and of each fused-attention kernel by name), then an fp32
+   gradient check: one step at 2+2 layers with remat, dropout 0, kernels on
+   the card against the plain versions on the CPU.
 4. Serving end to end at full width: Vid2Seq with seeded
    random weights, beam 4 / max_length 256, behind serve() on 127.0.0.1;
    10 concurrent HTTP requests (8 in the 1000-token bucket, 2 short). The
@@ -62,6 +65,7 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    eval and the final eval at beam 4 / max_length 256 on the standard
    cached decode (the decode-attention kernels, not the decode kernel),
    checkpoints, then an eval_only rerun with nucleus sampling that resumes;
+   each train step's fused-attention launches exactly fused_per_step's;
    every DVC/SODA metric finite; fp32 tokens of the standard decode, card
    against CPU (beam 4, greedy) and against the decode kernel (beam 4).
 6. PDVC trained and evaluated at the full width of
@@ -85,8 +89,9 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    synthetic HowTo100M layout (a csv, .mp4.npy features in 8 shard
    subdirectories, an ASR pickle) tokenized by a synthetic SentencePiece
    model of T5-base's 32,100 text ids through the native encoder (a Python
-   fallback fails the run); batch 64 if a step fits, else the largest power
-   of two that does; one epoch of 1 + 3 steps (ms/step, peak memory), the
+   fallback fails the run); the recipe's own batch 64 on the one card,
+   each T5 block rematerialised; one epoch of 1 + 3 steps (ms/step, peak
+   memory), the
    fused-attention launches exactly the count the model's shapes give;
    log.txt and last; an eval_only rerun that resumes with bf16 moments;
    an fp32 gradient check of one genasr step at 2+2 layers and of the
@@ -220,7 +225,7 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    dataset at full width. (a) An NCCL group of one rank (--dist-backend
    nccl): bf16, dropout 0.1, batch 8, 2 steps and the val eval; step ms
    beside phase 3's, the gradient all-reduce's ms, rows 1-2 launched
-   exactly 48 a step. (b) Two ranks sharing the card over gloo, fp32,
+   exactly fused_per_step's a step. (b) Two ranks sharing the card over gloo, fp32,
    dropout 0, 256 input tokens, batch 4 a rank, against one process at
    batch 8 on the same global batches: losses and grad_norm within 1e-4
    relative, the same parameter checksum on both ranks, the all-reduce's ms
@@ -231,7 +236,8 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    (b)'s one process first, in this process, then freed: fp32, dropout 0.1,
    640 input tokens, batch 4, two train steps on the dataset's batches.
    Then the ranks: (a) bf16, dropout 0.1, the recipe's 1000 tokens (rows
-   1-2 at 6 heads a rank, 48 a step on each), batch 8, 2 steps, the whole
+   1-2 at 6 heads a rank, fused_per_step's a step on each), batch 8, 2
+   steps, the whole
    `last` and the final eval on the gathered weights; each rank's step ms,
    the model group's collectives' ms, peak memory beside phase 3's, one
    checksum of the gathered weights; (b) in the same processes, the steps
@@ -2368,7 +2374,6 @@ def check_probes():
 # ---------------------------------------------------------------------------
 
 TRAIN_STEPS = 5            # timed steps, after one warm-up step
-FUSED_PER_STEP = 48        # 12 layers x (encoder self + decoder cross) x 2 passes
 
 
 def _write_train_dataset(root: Path, n_videos: int, seed: int = 0, n_val: int = 0) -> Path:
@@ -2487,6 +2492,37 @@ def _rel_bias_grad_ms(length: int = 1024):
     return {"gather_ms": gather, "onehot_ms": onehot, "length": length}
 
 
+def _no_remat_steps(step, state, batches, cfg):
+    """Phase 3's step with the T5 blocks not rematerialised
+    (``models/t5.REMAT_BLOCKS`` off for these steps): each step's ms, the
+    peak memory of the last, and the fused-attention launches, exactly
+    ``fused_per_step`` without the recompute's forward."""
+    import torch
+
+    from vidchapters_tpu_torch.models import t5 as t5_mod
+    from vidchapters_tpu_torch.ops import fused_attention as fa
+
+    old = t5_mod.REMAT_BLOCKS
+    t5_mod.REMAT_BLOCKS = False
+    try:
+        want = fused_per_step(cfg.model, cfg.data)
+        ms = []
+        for batch in batches:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            f0, b0 = fa.KERNEL.launches, fa.BWD_KERNEL.launches
+            t0 = time.time()
+            step(state, batch, 0)
+            torch.cuda.synchronize()
+            ms.append((time.time() - t0) * 1e3)
+            got = (fa.KERNEL.launches - f0, fa.BWD_KERNEL.launches - b0)
+            check(got == want, f"no remat: rows 1-2 launched {got} a step, expected {want}")
+    finally:
+        t5_mod.REMAT_BLOCKS = old
+    return {"step_ms": ms, "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "launches_per_step": list(want)}
+
+
 def phase_train(card: str):
     import numpy as np
     import torch
@@ -2498,6 +2534,7 @@ def phase_train(card: str):
         denoise_length_bounds,
     )
     from vidchapters_tpu_torch.data.tokenizer import build_tokenizer
+    from vidchapters_tpu_torch.models import t5 as t5_mod
     from vidchapters_tpu_torch.models.vid2seq import Vid2Seq
     from vidchapters_tpu_torch.ops import fused_attention as fa
     from vidchapters_tpu_torch.train.dvc_train import (
@@ -2571,15 +2608,20 @@ def phase_train(card: str):
     unchanged = [n for n, p in model.named_parameters() if torch.equal(p.detach().cpu(),
                                                                        before[n])]
     check(not unchanged, f"parameters unchanged by {TRAIN_STEPS} steps: {unchanged[:5]}")
+    want = dict(zip(launches, fused_per_step(cfg.model, cfg.data)))
     for name, count in launches.items():
-        check(count == FUSED_PER_STEP * TRAIN_STEPS,
+        check(count == want[name] * TRAIN_STEPS,
               f"{name}: {count} launches in {TRAIN_STEPS} steps, expected "
-              f"{FUSED_PER_STEP} per step")
+              f"{want[name]} per step")
     train = {"steps": TRAIN_STEPS, "batch": bs, "step_ms": wall * 1e3 / TRAIN_STEPS,
              "videos_per_s": bs * TRAIN_STEPS / wall, "wall_s": wall,
-             "peak_memory_bytes": peak, "launches": launches, "losses": losses,
+             "peak_memory_bytes": peak, "launches": launches, "launches_per_step": want,
+             "remat": t5_mod.uses_remat(cfg.model.t5), "losses": losses,
              "collate_ms_per_batch": collate_ms, "card": card}
     say(f"[train] {json.dumps({k: v for k, v in train.items() if k != 'losses'})}")
+    train["no_remat"] = _no_remat_steps(step, state, batches[1:3], cfg)
+    say(f"[train] the same step without remat: {json.dumps(train['no_remat'])} (with remat "
+        f"{train['step_ms']:.2f} ms, peak {peak / 1e9:.2f} GB) on {card}")
     say(f"[train] losses {[round(mm['total_loss'], 4) for mm in losses]}, "
         f"grad_norm {[round(mm['grad_norm'], 3) for mm in losses]}")
     train["profile"] = _profile_step(step, state, batches[-1], train["step_ms"])
@@ -2619,6 +2661,7 @@ def fp32_grad_check(cfg, host_batch):
     mcfg = dataclasses.replace(cfg.model, t5=t5, vit=vit)
     weights = Vid2Seq(mcfg).init_weights(torch.Generator().manual_seed(1)).state_dict()
     sub = {k: host_batch[k][:2] for k in BATCH_FIELDS}
+    want = fused_per_step(mcfg, cfg.data)
     out = {}
     for path, dev in (("kernels", DEVICE), ("plain", "cpu")):
         model = Vid2Seq(mcfg)
@@ -2634,8 +2677,8 @@ def fp32_grad_check(cfg, host_batch):
         say(f"[fp32-grad] {path} on {dev}: {time.time() - t0:.1f} s, total_loss {loss:.6f}")
     loss_k, g_k, fwd_n, bwd_n = out["kernels"]
     loss_p, g_p, _, _ = out["plain"]
-    check(fwd_n == 8 and bwd_n == 8, f"fp32 check launched {fwd_n} / {bwd_n} fused "
-                                     f"fwd / bwd kernels, expected 8 each (2+2 layers)")
+    check((fwd_n, bwd_n) == want, f"fp32 check launched {fwd_n} / {bwd_n} fused fwd / bwd "
+                                  f"kernels, expected {want} (2+2 layers, remat)")
     rel = {n: float((g_k[n] - g_p[n]).norm() / max(float(g_p[n].norm()), 1e-30)) for n in g_p}
     worst = max(rel, key=rel.get)
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
@@ -2645,7 +2688,8 @@ def fp32_grad_check(cfg, host_batch):
     check(rel[worst] <= 1e-3, f"fp32 gradient {worst}: {rel[worst]:.2e} of its norm")
     return {"loss_kernels": loss_k, "loss_plain": loss_p, "loss_rel_diff": loss_rel,
             "n_gradients": len(rel), "worst_gradient": worst, "worst_rel_err": rel[worst],
-            "depth": "T5 2+2 layers, ViT 2, full width, 2 examples"}
+            "fused_per_step": list(want),
+            "depth": "T5 2+2 layers, ViT 2, full width, 2 examples, T5 blocks rematerialised"}
 
 
 # ---------------------------------------------------------------------------
@@ -2934,7 +2978,8 @@ def phase_train_and_evaluate(card: str, fp32_state, fp32_inputs):
 
     The checkpoints (weights and two Adam moments, 3.47 GB each) go to a
     temporary directory that is removed at the end. Each run's kernel counts
-    are zeroed just before it and read just after; both decode-attention
+    are zeroed just before it and read just after; each train step launches
+    rows 1-2 exactly ``fused_per_step``'s; both decode-attention
     kernels must launch a multiple of 12 times (once per layer per step),
     the decode megakernel never. Then fp32 tokens of phase 4's two requests
     at max_length 64: the standard decode with the kernels on the card
@@ -2958,7 +3003,7 @@ def phase_train_and_evaluate(card: str, fp32_state, fp32_inputs):
                "decode_megakernel": decode_megakernel.KERNEL, "topk": decoding.TOPK_KERNEL,
                "fused_attention_fwd": fused_attention.KERNEL,
                "fused_attention_bwd": fused_attention.BWD_KERNEL}
-    evals, steps = [], []
+    evals, steps, step_launches = [], [], []
     real_evaluate, real_make_step = dvc_main.evaluate, dvc_main.make_train_step
 
     def timed_evaluate(*a, **k):
@@ -2973,11 +3018,14 @@ def phase_train_and_evaluate(card: str, fp32_state, fp32_inputs):
         step = real_make_step(*a, **k)
 
         def timed(state, batch, seed, **kw):
+            f0, b0 = fused_attention.KERNEL.launches, fused_attention.BWD_KERNEL.launches
             torch.cuda.synchronize()
             t0 = time.time()
             m = step(state, batch, seed, **kw)
             torch.cuda.synchronize()
             steps.append((time.time() - t0) * 1e3)
+            step_launches.append((fused_attention.KERNEL.launches - f0,
+                                  fused_attention.BWD_KERNEL.launches - b0))
             return m
 
         return timed
@@ -3034,6 +3082,9 @@ def phase_train_and_evaluate(card: str, fp32_state, fp32_inputs):
             check(not runs["beam4"]["resumed"] and runs["nucleus"]["resumed"],
                   "the eval_only run did not resume from `last` (or the first run did)")
             check(len(steps) == 2, f"{len(steps)} train steps, expected 2")
+            want = fused_per_step(cfg.model, cfg.data)
+            check(step_launches == [want] * 2,
+                  f"dvc_main: rows 1-2 launched {step_launches} a step, expected {want}")
             ckpt_bytes = (ckpt / "last").stat().st_size
             # the DVC weights phase 9 strips of their time tokens
             best_weights = torch.load(ckpt / "best", map_location="cpu",
@@ -3048,7 +3099,8 @@ def phase_train_and_evaluate(card: str, fp32_state, fp32_inputs):
     beam_eval, nucleus_eval = runs["beam4"]["evals"][-1], runs["nucleus"]["evals"][-1]
     summary = {"eval_videos_per_s_beam4_standard": beam_eval["videos"] / beam_eval["wall_s"],
                "eval_videos_per_s_nucleus": nucleus_eval["videos"] / nucleus_eval["wall_s"],
-               "train_step_ms": steps, "checkpoint_bytes": ckpt_bytes, "card": card}
+               "train_step_ms": steps, "train_step_launches": step_launches,
+               "checkpoint_bytes": ckpt_bytes, "card": card}
     say(f"[dvc_main] {json.dumps(summary)}")
     torch.cuda.empty_cache()
     summary["decode_step"] = {route: _profile_decode(base, val_batch, route == "megakernel")
@@ -3864,7 +3916,6 @@ def phase_asr(card: str, cfg=None, seconds=ASR_SECONDS):
 
 PRETRAIN_RECIPE = "configs/htm_pretrain.json"
 PRETRAIN_STEPS = 3                  # timed steps of dvc_main's epoch, after one warm-up step
-PRETRAIN_BATCHES = (64, 32, 16, 8)  # the recipe's batch, then the powers of two below it
 SPM_PIECES = 32000                  # T5-base's spiece.model: 32,000 pieces + 100 sentinels
 ASR_WORDS = ("in step of video we whisk eggs and fold flour then knead the dough let it rest "
              "for minutes add salt water butter sugar mix bake slice serve").split()
@@ -3950,13 +4001,13 @@ def _write_htm_dataset(root: Path, n_videos: int, seed: int = 0):
     return root
 
 
-def fused_per_step(mcfg, data, genasr: bool) -> int:
-    """Fused-attention forward launches of one train step (the generative
-    pass, then the denoising pass; each launch has one backward), from the
-    route of ``models/t5.T5Attention``: a key mask and Lq > CHUNK with Lq *
-    Lk > 512^2. The encoder pads its input to SEQ_PAD_BLOCK, and Vid2Seq
-    pads the video + ASR states once more before cross-attention."""
-    from vidchapters_tpu_torch.data.dvc_dataset import denoise_length_bounds
+def fused_per_pass(mcfg, data, lin: int, lout: int = 0) -> int:
+    """Fused-attention forward launches of one forward pass, from the route
+    of ``models/t5.T5Attention`` (a key mask and Lq > CHUNK with Lq * Lk >
+    512^2): the encoder's self-attention over ``lin`` input tokens padded to
+    SEQ_PAD_BLOCK, and, for ``lout`` target tokens, the decoder's self- and
+    cross-attention (Vid2Seq pads the video + ASR states once more before
+    it). A generate call's decoder runs on the decode kernels (``lout`` 0)."""
     from vidchapters_tpu_torch.models.t5 import CHUNK, SEQ_PAD_BLOCK
 
     def pad(n):
@@ -3965,20 +4016,34 @@ def fused_per_step(mcfg, data, genasr: bool) -> int:
     def fused(lq, lk):
         return int(lq > CHUNK and lq * lk > 512 * 512)
 
-    den_in, den_out = denoise_length_bounds(data.max_input_tokens)
-    gen_in = 1 if genasr else data.max_input_tokens  # genasr: the video alone
-    n = 0
-    for lin, lout in ((gen_in, data.max_output_tokens), (den_in, den_out)):
-        n += mcfg.t5.num_layers * fused(pad(lin), pad(lin))
+    n = mcfg.t5.num_layers * fused(pad(lin), pad(lin))
+    if lout:
         n += mcfg.t5.num_decoder_layers * (fused(lout, lout)
                                            + fused(lout, pad(data.max_feats + lin)))
     return n
 
 
-def _pretrain_cfg(root: Path, batch: int, csv_name: str = "htm.csv"):
-    """``configs/htm_pretrain.json`` through the port's ``load_config``, on
-    the synthetic layout under ``root`` (its videos listed in ``csv_name``),
-    one epoch, ``mu_dtype`` bfloat16."""
+def fused_per_step(mcfg, data, genasr: bool = False, passes=None):
+    """(forward, backward) fused-attention launches of one train step: the
+    generative pass, then the denoising pass (``passes``: each pass's
+    (input, target) lengths, VC's one pass), each launch with one backward.
+    With the T5 blocks rematerialised (``models/t5.uses_remat``: the
+    recipes' default) every forward runs again in its block's recompute."""
+    from vidchapters_tpu_torch.data.dvc_dataset import denoise_length_bounds
+    from vidchapters_tpu_torch.models.t5 import uses_remat
+
+    if passes is None:
+        gen_in = 1 if genasr else data.max_input_tokens  # genasr: the video alone
+        passes = ((gen_in, data.max_output_tokens),
+                  denoise_length_bounds(data.max_input_tokens))
+    n = sum(fused_per_pass(mcfg, data, lin, lout) for lin, lout in passes)
+    return (2 * n if uses_remat(mcfg.t5) else n), n
+
+
+def _pretrain_cfg(root: Path):
+    """``configs/htm_pretrain.json`` through the port's ``load_config`` at its
+    own batch, on the synthetic layout under ``root``, one epoch,
+    ``mu_dtype`` bfloat16."""
     from vidchapters_tpu_torch.config import (
         CheckpointConfig,
         DatasetPaths,
@@ -3990,56 +4055,12 @@ def _pretrain_cfg(root: Path, batch: int, csv_name: str = "htm.csv"):
     t = base.train
     return dataclasses.replace(
         base, tokenizer_path=str(root / "spiece.model"),
-        datasets={"htm": DatasetPaths(train_json_path=str(root / csv_name),
+        datasets={"htm": DatasetPaths(train_json_path=str(root / "htm.csv"),
                                       features_path=str(root / "features"),
                                       subtitles_path=str(root / "asr.pkl"))},
-        train=dataclasses.replace(t, epochs=1, batch_size=batch, print_freq=1,
+        train=dataclasses.replace(t, epochs=1, print_freq=1,
                                   optim=dataclasses.replace(t.optim, mu_dtype="bfloat16"),
                                   checkpoint=CheckpointConfig(save_dir=str(root / "ckpt"))))
-
-
-def _largest_batch_that_fits(cfg, ds):
-    """The recipe's batch if one train step of it fits on the card, else the
-    largest power of two below it that does: (batch, {batch: outcome})."""
-    import numpy as np
-    import torch
-
-    from vidchapters_tpu_torch.data.dvc_dataset import collate
-    from vidchapters_tpu_torch.models.vid2seq import Vid2Seq
-    from vidchapters_tpu_torch.train.dvc_train import (
-        TrainState,
-        batch_to_device,
-        make_train_step,
-    )
-    from vidchapters_tpu_torch.train.schedules import build_optimizer
-
-    t, d = cfg.train, cfg.data
-    model = Vid2Seq(cfg.model).init_weights(torch.Generator().manual_seed(0)).to(DEVICE)
-    state = TrainState(model, build_optimizer(t.optim, 100, model.parameters()))
-    step = make_train_step(model, t.generative, t.denoising, t.genasr)
-    tried = {}
-    chosen = None
-    for bs in PRETRAIN_BATCHES:
-        rng = np.random.default_rng(0)
-        batch = collate([ds.__getitem__(i, rng=rng) for i in range(bs)],
-                        d.max_input_tokens, d.max_output_tokens)
-        torch.cuda.reset_peak_memory_stats()
-        try:
-            step(state, batch_to_device(batch, DEVICE), t.seed)
-            torch.cuda.synchronize()
-            tried[bs] = {"fits": True, "peak_memory_bytes": torch.cuda.max_memory_allocated()}
-            chosen = bs
-        except torch.cuda.OutOfMemoryError as e:
-            tried[bs] = {"fits": False, "error": str(e).splitlines()[0][:160]}
-        model.zero_grad(set_to_none=True)
-        torch.cuda.empty_cache()
-        say(f"[pretrain] batch {bs}: {tried[bs]}")
-        if chosen is not None:
-            break
-    del model, state, step
-    torch.cuda.empty_cache()
-    check(chosen is not None, f"no batch of {PRETRAIN_BATCHES} fits: {tried}")
-    return chosen, tried
 
 
 def phase_pretrain(card: str):
@@ -4049,10 +4070,11 @@ def phase_pretrain(card: str):
     denoising pass the span-corrupted ASR) with bf16 Adam moments, over a
     synthetic HowTo100M layout tokenized by a synthetic SentencePiece model
     of T5-base's 32,100 text ids through the native encoder (the Python
-    Viterbi raises here). The recipe's batch 64 if a step fits on the card,
-    else the largest power of two that does; one epoch of 1 warm-up + 3
-    timed steps; the fused-attention launches exactly ``fused_per_step``
-    each; ``log.txt`` and ``last`` and no ``best``; an ``eval_only`` rerun
+    Viterbi raises here). The recipe's own batch 64 on the one card, each T5
+    block rematerialised (an out-of-memory fails the phase); one epoch of 1
+    warm-up + 3 timed steps, peak memory and step ms; the fused-attention
+    launches exactly ``fused_per_step`` each; ``log.txt`` and ``last`` and
+    no ``best``; an ``eval_only`` rerun
     that resumes from ``last`` with the moments restored as bf16. Then an
     fp32 gradient check of one genasr step at 2+2 layers."""
     import contextlib
@@ -4063,12 +4085,13 @@ def phase_pretrain(card: str):
     from vidchapters_tpu_torch.data import native_spm
     from vidchapters_tpu_torch.data.dvc_dataset import EpochIterator, YTPretrainDataset
     from vidchapters_tpu_torch.data.tokenizer import SentencePieceUnigramTokenizer
+    from vidchapters_tpu_torch.models import t5 as t5_mod
     from vidchapters_tpu_torch.ops import fused_attention as fa
     from vidchapters_tpu_torch.runtime.checkpoint import CheckpointManager
     from vidchapters_tpu_torch.train import dvc_main
 
     check(native_spm.is_available(), "the native SentencePiece encoder does not build")
-    steps, restored = [], []
+    steps, rows, restored = [], [], []
     real_make_step, real_restore = dvc_main.make_train_step, CheckpointManager.restore
     real_viterbi = SentencePieceUnigramTokenizer._viterbi
 
@@ -4084,6 +4107,7 @@ def phase_pretrain(card: str):
             m = step(state, batch, seed, **kw)
             torch.cuda.synchronize()
             steps.append((time.time() - t0) * 1e3)
+            rows.append(int(batch["video"].shape[0]))
             return m
 
         return timed
@@ -4097,8 +4121,9 @@ def phase_pretrain(card: str):
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         t0 = time.time()
-        _write_htm_dataset(root, n_videos=PRETRAIN_BATCHES[0] * n_steps)
-        cfg = _pretrain_cfg(root, PRETRAIN_BATCHES[0])
+        cfg = _pretrain_cfg(root)
+        bs = cfg.train.batch_size  # the recipe's: 8 GPUs x 8 there, one card here
+        _write_htm_dataset(root, n_videos=bs * n_steps)
         tok = SentencePieceUnigramTokenizer(cfg.tokenizer_path, num_bins=cfg.model.num_bins,
                                             use_native=True)
         check(len(tok) == cfg.model.t5.vocab_size,
@@ -4113,11 +4138,6 @@ def phase_pretrain(card: str):
             f"{len(tok)} ids, in {time.time() - t0:.1f} s")
         SentencePieceUnigramTokenizer._viterbi = python_viterbi
         try:
-            bs, tried = _largest_batch_that_fits(cfg, ds)
-            # one epoch of n_steps batches: the first bs * n_steps videos
-            rows = (root / "htm.csv").read_text().splitlines()
-            (root / "epoch.csv").write_text("\n".join(rows[:1 + bs * n_steps]) + "\n")
-            cfg = _pretrain_cfg(root, bs, "epoch.csv")
             want = fused_per_step(cfg.model, cfg.data, cfg.train.genasr)
             dvc_main.make_train_step, CheckpointManager.restore = timed_make_step, checked_restore
             torch.cuda.synchronize()
@@ -4152,21 +4172,25 @@ def phase_pretrain(card: str):
               f"save dir holds {sorted(p.name for p in ckpt.iterdir())}")
         check("resumed from epoch 0" in printed and restored == [["torch.bfloat16"]],
               f"the rerun did not resume with bf16 moments: restored {restored}")
-        check(len(steps) == n_steps, f"{len(steps)} train steps, expected {n_steps}")
+        check(len(steps) == n_steps and rows == [bs] * n_steps,
+              f"{len(steps)} train steps of {rows} rows, expected {n_steps} of {bs}")
         check(native_calls >= bs * n_steps * 90,
               f"the native encoder ran {native_calls} times for {bs * n_steps} videos")
-        for name, count in launches.items():
-            check(count == want * n_steps, f"{name}: {count} launches in {n_steps} steps, "
-                                           f"expected {want} per step")
+        check(launches == {"fused_attention_fwd": want[0] * n_steps,
+                           "fused_attention_bwd": want[1] * n_steps},
+              f"launches {launches} in {n_steps} steps, expected {want} (fwd, bwd) per step")
         timed = steps[1:]
         summary.update(
-            batch=bs, batch_trials=tried, steps=n_steps, step_ms=steps,
+            batch=bs, steps=n_steps, step_ms=steps,
             step_ms_mean_timed=sum(timed) / len(timed),
             videos_per_s=bs * len(timed) / (sum(timed) / 1e3), wall_s=wall,
             peak_memory_bytes=peak, fused_per_step=want, launches=launches,
             native_spm_calls=native_calls, checkpoint_bytes=(ckpt / "last").stat().st_size,
-            log=stats)
+            remat=t5_mod.uses_remat(cfg.model.t5), log=stats)
         say(f"[pretrain] {json.dumps(summary)}")
+        say(f"[pretrain] batch {bs} on one card, T5 blocks rematerialised: peak "
+            f"{peak / 1e9:.2f} GB, steps {[round(x, 1) for x in steps]} ms "
+            f"({summary['step_ms_mean_timed']:.1f} timed) on {card}")
         host_batch = next(iter(EpochIterator(ds, 2, cfg.data, seed=cfg.train.seed)))
     torch.cuda.empty_cache()
     summary["fp32_grad_check"] = pretrain_fp32_grad_check(cfg, host_batch)
@@ -4227,8 +4251,8 @@ def pretrain_fp32_grad_check(cfg, host_batch):
         del model, state
     loss_k, g_k, fwd_n, bwd_n = out["kernels"]
     loss_p, g_p, _, _ = out["plain"]
-    check(fwd_n == want and bwd_n == want, f"fp32 genasr check launched {fwd_n} / {bwd_n} "
-                                           f"fused fwd / bwd kernels, expected {want} each")
+    check((fwd_n, bwd_n) == want, f"fp32 genasr check launched {fwd_n} / {bwd_n} fused fwd / "
+                                  f"bwd kernels, expected {want}")
     rel = {n: float((g_k[n] - g_p[n]).norm() / max(float(g_p[n].norm()), 1e-30)) for n in g_p}
     worst = max(rel, key=rel.get)
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
@@ -4497,29 +4521,6 @@ def _write_vc_dataset(root: Path, n_train: int, n_val: int, val_chapters: int,
     return root
 
 
-def vc_fused_per_pass(mcfg, data, out_len: int = 0) -> int:
-    """Fused-attention forward launches of one VC forward pass (route of
-    ``models/t5.T5Attention``, as ``fused_per_step`` counts it): the
-    encoder's self-attention over ``max_input_tokens`` padded to
-    SEQ_PAD_BLOCK, and, for a train step (``out_len`` the batch's title
-    bucket), the decoder's self- and cross-attention. A generate call's
-    decoder runs on the decode kernel (``out_len`` 0)."""
-    from vidchapters_tpu_torch.models.t5 import CHUNK, SEQ_PAD_BLOCK
-
-    def pad(n):
-        return -(-n // SEQ_PAD_BLOCK) * SEQ_PAD_BLOCK
-
-    def fused(lq, lk):
-        return int(lq > CHUNK and lq * lk > 512 * 512)
-
-    lin = pad(data.max_input_tokens)
-    n = mcfg.t5.num_layers * fused(lin, lin)
-    if out_len:
-        n += mcfg.t5.num_decoder_layers * (
-            fused(out_len, out_len) + fused(out_len, pad(data.max_feats + data.max_input_tokens)))
-    return n
-
-
 def vc_fp32_token_check(mcfg, data, ds):
     """Beam-4 tokens at max_length 32 of one generate call of 16 clips (the
     first val video's), fp32 at 2+2 layers (ViT depth 2) with seeded
@@ -4561,8 +4562,8 @@ def phase_vc(card: str, phase5_weights, mcfg=None, n_train: int = VC_TRAIN_VIDEO
     eval (``best``) at beam 4 / max_length 32, 16 clips a generate call
     (64 decode rows). Checks ``best`` / ``last`` / ``log.txt`` and finite
     CIDEr / METEOR / BLEU / ROUGE-L; the launches exactly: the fused
-    attention's forward ``vc_fused_per_pass`` a train step (each with one
-    backward) and 12 a generate call (the encoder), the top-k and the
+    attention's ``fused_per_step`` a train step (the recompute's forward
+    included) and the encoder's a generate call, the top-k and the
     decode kernel once a decode step (the steps counted as the beam search
     runs them: 32 a call unless every beam finishes early). Then fp32
     beam tokens card vs CPU, ``strip_time_tokens`` of phase 5's ``best``
@@ -4669,9 +4670,11 @@ def phase_vc(card: str, phase5_weights, mcfg=None, n_train: int = VC_TRAIN_VIDEO
         check(len(calls) == want_calls and max(calls) == min(16, val_chapters),
               f"{len(calls)} generate calls of {sorted(set(calls))} clips, expected "
               f"{want_calls} of up to 16")
-        train_fwd = sum(vc_fused_per_pass(mcfg, data, s["out_len"]) for s in steps)
-        want = {"fused_attention_fwd": train_fwd + want_calls * vc_fused_per_pass(mcfg, data),
-                "fused_attention_bwd": train_fwd, "topk": len(decode_steps),
+        per_step = [fused_per_step(mcfg, data, passes=((data.max_input_tokens, s["out_len"]),))
+                    for s in steps]
+        per_call = fused_per_pass(mcfg, data, data.max_input_tokens)
+        want = {"fused_attention_fwd": sum(f for f, _ in per_step) + want_calls * per_call,
+                "fused_attention_bwd": sum(b for _, b in per_step), "topk": len(decode_steps),
                 "decode_megakernel": len(decode_steps)}
         check(launches == want, f"VC launches {launches}, expected {want} (decode steps "
                                 f"{len(decode_steps)} in {want_calls} calls)")
@@ -5416,7 +5419,7 @@ def video_demo(card: str, root: Path, vit, video_path: str, frames: int, decode,
             launches = {n: k.launches for n, k in kernels.items()}
             peak = torch.cuda.max_memory_allocated()
         want = {"fused_attention_fwd": vit.layers * _batches(frames)
-                + vc_fused_per_pass(mcfg, data),
+                + fused_per_pass(mcfg, data, data.max_input_tokens),
                 "topk": len(steps), "decode_megakernel": len(steps)}
         check(launches == want, f"demo launches {launches}, expected {want}")
         check(0 < len(steps) <= data.max_output_tokens,
@@ -7194,7 +7197,8 @@ def phase_data_parallel(card: str, train_step_ms: float):
     batch 8, 2 steps, then the val eval of 8 videos at beam 4 / max_length 32
     (the final one: none inside the epoch, so no ``best`` to write);
     step ms beside phase 3's, the all-reduce's ms, rows 1-2 launched exactly
-    48 a step and row 1 12 a generate call after. (b) Two ranks sharing the
+    ``fused_per_step``'s a step and row 1 the encoder's layers a generate
+    call after. (b) Two ranks sharing the
     card over gloo, fp32 with dropout 0 at 256 input tokens, batch 4 a rank,
     2 steps with the denoising loss off (its span corruption draws in shard
     order), against one process at batch 8 on the same global batches, run
@@ -7246,11 +7250,13 @@ def phase_data_parallel(card: str, train_step_ms: float):
         t0 = time.time()
         (a,) = _dp_wait(root, "a", launch(root, "a", root / "a.json", 1, "nccl", _free_port()))
         a_wall = time.time() - t0
-        check([(s["fwd"], s["bwd"]) for s in a["steps"]] == [(FUSED_PER_STEP,) * 2] * DP_STEPS,
+        want = fused_per_step(cfg_a.model, cfg_a.data)
+        check([(s["fwd"], s["bwd"]) for s in a["steps"]] == [want] * DP_STEPS,
               f"15(a): rows 1-2 a step {[(s['fwd'], s['bwd']) for s in a['steps']]}, expected "
-              f"{FUSED_PER_STEP} each")
-        eval_fwd = a["fwd"] - FUSED_PER_STEP * DP_STEPS
-        check(a["bwd"] == FUSED_PER_STEP * DP_STEPS and eval_fwd > 0 and eval_fwd % 12 == 0,
+              f"{want}")
+        eval_fwd = a["fwd"] - want[0] * DP_STEPS
+        per_call = fused_per_pass(cfg_a.model, cfg_a.data, cfg_a.data.max_input_tokens)
+        check(a["bwd"] == want[1] * DP_STEPS and eval_fwd > 0 and eval_fwd % per_call == 0,
               f"15(a): row 1 {a['fwd']}, row 2 {a['bwd']} in the run")
         check(len(a["allreduce_ms"]) == DP_STEPS, "15(a): the gradient all-reduce did not run")
         check(_dp_checksums([a], 1, "15(a)") and (root / "ckpt_a" / "last").exists()
@@ -7482,8 +7488,8 @@ def phase_tensor_parallel(card: str, train: dict):
     (rows 1-2 at 6 heads a rank: the encoder's 1024 rows, the cross form's
     1152 keys), batch 8, 2 steps, a checkpoint (``last``, whole) and the
     final eval of 2 val videos on the gathered weights: each rank's step
-    ms, the model group's collectives' ms, rows 1-2 launched 48 a step on
-    each rank, peak memory per rank beside phase 3's, the ranks' checksum
+    ms, the model group's collectives' ms, rows 1-2 launched
+    ``fused_per_step``'s a step on each rank, peak memory per rank beside phase 3's, the ranks' checksum
     of the gathered weights; then, in the same processes, (b) at grid 1 x 2
     on the same batches (``_tp_b_rank``): losses and ``grad_norm`` within
     ``TP_TOL``, the gathered weights as ``_tp_param_errors``. (c) (b) over
@@ -7556,7 +7562,9 @@ def phase_tensor_parallel(card: str, train: dict):
         torch.save(spec, root / "tp_b_spec.pt")
 
         # (a) grid 1 x 2, bf16, as a user launches it; then (b) in the same ranks
-        save_config(config("a", 2, batch_size=8), root / "tp_a.json")
+        cfg_a = config("a", 2, batch_size=8)
+        save_config(cfg_a, root / "tp_a.json")
+        want = fused_per_step(cfg_a.model, cfg_a.data)
         t0 = time.time()
         ranks = _dp_wait(root, "tp_a", launch(
             root, "tp_a", root / "tp_a.json", 2, "gloo", _free_port(),
@@ -7565,8 +7573,8 @@ def phase_tensor_parallel(card: str, train: dict):
         a_wall = time.time() - t0
         for r, rank in enumerate(ranks):
             got = [(st["fwd"], st["bwd"]) for st in rank["steps"]]
-            check(got == [(FUSED_PER_STEP,) * 2] * TP_STEPS,
-                  f"16(a) rank {r}: rows 1-2 a step {got}, expected {FUSED_PER_STEP} each")
+            check(got == [want] * TP_STEPS,
+                  f"16(a) rank {r}: rows 1-2 a step {got}, expected {want}")
             check(rank["steps"][0]["model_collectives"] > 0,
                   f"16(a) rank {r}: no collective of the model group ran")
             check(rank["steps"][-1]["metrics"] == ranks[0]["steps"][-1]["metrics"],

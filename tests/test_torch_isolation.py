@@ -3,8 +3,9 @@
 (``tests/torch_dp_worker.py``, ``tests/torch_tp_worker.py``) imports jax,
 flax, optax, orbax or the JAX package, nor HF's ``transformers``,
 ``tokenizers``, ``sentencepiece`` or ``safetensors``, nor ``regex`` (the
-card's machine has none of them), and the package imports in a process
-where none of these can be imported."""
+card's machine has none of them), nor ``convert_jax_checkpoint`` (the
+repo root's converter, which runs where JAX does), and the package imports
+in a process where none of these can be imported."""
 
 import ast
 import os
@@ -38,6 +39,12 @@ def test_no_jax_imports(path):
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_converter_imports(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] == "convert_jax_checkpoint"]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_hf_imports(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in HF_PACKAGES]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
@@ -47,7 +54,8 @@ def test_package_imports_with_jax_blocked():
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'vidchapters_tpu',\n"
-        "             'transformers', 'tokenizers', 'sentencepiece', 'safetensors', 'regex'):\n"
+        "             'transformers', 'tokenizers', 'sentencepiece', 'safetensors', 'regex',\n"
+        "             'convert_jax_checkpoint'):\n"
         "    sys.modules[name] = None\n"
         "import vidchapters_tpu_torch.serve, vidchapters_tpu_torch.models.weights\n"
         "import vidchapters_tpu_torch.ops.decoding, vidchapters_tpu_torch.runtime.rng\n"
@@ -80,7 +88,7 @@ def test_package_imports_with_jax_blocked():
         "import vidchapters_tpu_torch.utils.misc, vidchapters_tpu_torch.utils.preproc_answer\n"
         "import vidchapters_tpu_torch.data.whisper_tokenizer, vidchapters_tpu_torch.demo.demo_asr\n"
         "import vidchapters_tpu_torch.parallel.sharding, vidchapters_tpu_torch.runtime.mesh\n"
-        "import vidchapters_tpu_torch.runtime.collectives\n"
+        "import vidchapters_tpu_torch.runtime.collectives, vidchapters_tpu_torch.runtime.jax_checkpoint\n"
         "import vidchapters_tpu_torch.parallel.tensor_parallel\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'vidchapters_tpu.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"

@@ -14,9 +14,11 @@ references:
   1 x 4 against JAX's jitted step on the global batch at dropout 0:
   losses, ``grad_norm`` and every gathered parameter after each of two
   steps (the data-parallel tests' limits);
-- with dropout on (T5 and ViT, 0.1): 1 x 2 at 520 tokens against the
-  port's one-process step at the same seed, and 2 x 2 against 2 x 1, to
-  1e-5 (the fused, dense-hash and element routes all draw masks);
+- with dropout on (T5 and ViT, 0.1): 1 x 2 at 520 tokens, each T5 block
+  rematerialised (the default), with and without sequence parallelism,
+  against the port's one-process step without remat at the same seed, and
+  2 x 2 against 2 x 1, to 1e-5 (the fused, dense-hash and element routes
+  all draw masks; the recompute redraws each rank's slice and head offset);
 - a checkpoint saved at 1 x 2 restored at 1 x 1 and the reverse give the
   same next step;
 - the vocabulary is 256 with 100 time tokens, so at model axis 2 and 4 a
@@ -47,16 +49,17 @@ BIAS_TOL = 2e-3    # zero-initialised parameters: of their update
 METRICS = ("loss", "denoising_loss", "total_loss", "grad_norm")
 
 
-def tp_cfgs(dropout: float = 0.0):
+def tp_cfgs(dropout: float = 0.0, remat=None):
     """(JAX Vid2SeqConfig, port Vid2SeqConfig): vocabulary 256 (156 text +
-    100 time tokens), every width divisible by 4."""
+    100 time tokens), every width divisible by 4; ``remat`` the T5's."""
     from vidchapters_tpu import config as jc
     from vidchapters_tpu_torch import config as tc
 
     def make(m):
         t5 = m.T5Config(vocab_size=256, d_model=64, d_kv=16, d_ff=128, num_layers=2,
                         num_decoder_layers=2, num_heads=4, dropout_rate=dropout,
-                        encoder_dropout=dropout, decoder_dropout=dropout, dtype="float32")
+                        encoder_dropout=dropout, decoder_dropout=dropout, dtype="float32",
+                        remat=remat)
         vit = m.TemporalViTConfig(num_features=8, embed_dim=32, depth=1, num_heads=4,
                                   mlp_dim=128, dtype="float32", drop_rate=dropout,
                                   attn_drop_rate=dropout)
@@ -113,6 +116,7 @@ def setup(tmp_path_factory):
     rng = np.random.default_rng(5)
     jcfg, tcfg = tp_cfgs()
     _, tdrop = tp_cfgs(0.1)
+    _, tplain = tp_cfgs(0.1, remat=False)
     jmodel, params = jax_params(jcfg)
     state = port_model(tcfg, params).state_dict()
     batches = {"short": [_rows(rng, 4, 20, 12) for _ in range(2)],
@@ -126,6 +130,7 @@ def setup(tmp_path_factory):
     cases = {2: [{"name": "functions"},
                  case("jax_long", "base", 2, "long"),
                  case("drop_long", "drop", 2, "long"),
+                 case("drop_long_nosp", "drop", 2, "long", sp=False),
                  case("dp_drop_short", "drop", 1, "short"),
                  case("ckpt_save", "drop", 2, "short", save_after=0),
                  case("ckpt_restore", "drop", 2, "short", restore=str(tmp / "one_ckpt"))],
@@ -152,7 +157,8 @@ def setup(tmp_path_factory):
         return done[world]
 
     inputs = {"dir": outs, "jax": (jcfg, jmodel, params), "state": state, "optim": optim,
-              "cfgs": {"base": tcfg, "drop": tdrop}, "batches": batches, "one_short": one,
+              "cfgs": {"base": tcfg, "drop": tdrop, "plain": tplain}, "batches": batches,
+              "one_short": one,
               "tmp": tmp}
     yield inputs, wait
     for ps in procs.values():
@@ -365,16 +371,21 @@ def test_step_matches_jax_unsharded(setup, name, world, which):
 
 
 @pytest.mark.parametrize("name,world,ref", [("drop_long", 2, "one_long"),
+                                            ("drop_long_nosp", 2, "one_long"),
                                             ("drop_short", 4, "dp_drop_short")])
 def test_dropout_step_matches_the_model_axis_of_one(setup, name, world, ref):
-    """Dropout on: 1 x 2 at 520 tokens against one process, 2 x 2 against 2
-    x 1: the same masks, so losses, ``grad_norm`` and the parameters within
-    1e-5."""
+    """Dropout on, each T5 block rematerialised: 1 x 2 at 520 tokens (with
+    and without sequence parallelism) against one process without remat, 2 x
+    2 against 2 x 1: the same masks, so losses, ``grad_norm`` and the
+    parameters within 1e-5."""
     inputs, wait = setup
     res = _ranks_agree(wait(world), name)
+    assert res["remat"] and res["sequence_parallel"] == (not name.endswith("_nosp"))
     if ref == "one_long":
-        metrics, params = _port_steps(inputs["cfgs"]["drop"], inputs["state"], inputs["optim"],
-                                      inputs["batches"]["long"])
+        if "one_long" not in inputs:
+            inputs["one_long"] = _port_steps(inputs["cfgs"]["plain"], inputs["state"],
+                                             inputs["optim"], inputs["batches"]["long"])
+        metrics, params = inputs["one_long"]
     else:
         other = _ranks_agree(wait(2), ref)
         assert other["grid"] == [2, 1] and not other["sequence_parallel"]
@@ -386,7 +397,8 @@ def test_dropout_step_matches_the_model_axis_of_one(setup, name, world, ref):
         _params_close(_gathered(inputs, world, name, i), params[i], inputs["state"], SELF_RTOL,
                       VID2SEQ_OPTIM["lr"])
     # the masks drop something: dropout 0 on the same rows gives another loss
-    no_drop = _ranks_agree(wait(world), name.replace("drop", "jax"))["steps"][0]["loss"]
+    no_drop = _ranks_agree(wait(world), name.replace("drop", "jax").removesuffix("_nosp")
+                           )["steps"][0]["loss"]
     assert abs(res["steps"][0]["loss"] - no_drop) > 1e-3 * no_drop
 
 

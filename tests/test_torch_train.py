@@ -78,7 +78,8 @@ def test_loss_and_every_gradient_match_jax_on_the_fused_route(monkeypatch):
     t = [torch.from_numpy(a) for a in (video, tokens, mask, labels)]
     loss = model(*t, rng=StepRng(0, 0, "cpu"))["loss"]
     loss.backward()
-    assert sorted(calls) == [420, 420, 640, 640]  # 2 encoder + 2 cross layers
+    # 2 encoder + 2 cross layers, each again in its block's recompute (remat)
+    assert sorted(calls) == [420] * 4 + [640] * 4
     np.testing.assert_allclose(float(loss.detach()), float(ref_loss), rtol=1e-5)
     ref = _grads_as_state_dict(ref_grads, model)
     named = dict(model.named_parameters())
@@ -94,8 +95,10 @@ def _optim_cfgs(jc, tc, **kw):
     return jc.OptimConfig(**kw), tc.OptimConfig(**kw)
 
 
-def test_three_train_steps_match_jax():
-    """Clip at 0.1 (active: the raw norm is far above it), cosine schedule
+@pytest.mark.parametrize("remat", [True, False])
+def test_three_train_steps_match_jax(remat):
+    """The port's step with each T5 block checkpointed (``remat`` True) and
+    without, against JAX's default, which checkpoints them. Clip at 0.1 (active: the raw norm is far above it), cosine schedule
     with 2 warmup updates of 10 (lr 0, then lr/2, then lr), weight decay,
     generative + denoising losses, time-token renorm after each update.
 
@@ -115,6 +118,7 @@ def test_three_train_steps_match_jax():
     from vidchapters_tpu_torch.train.schedules import build_optimizer
 
     jcfg, tcfg = small_cfgs()
+    tcfg = dataclasses.replace(tcfg, t5=dataclasses.replace(tcfg.t5, remat=remat))
     jmodel, params = jax_params(jcfg)
     model = port_model(tcfg, params)
     kw = dict(lr=1e-3, weight_decay=0.1, clip_max_norm=0.1, fraction_warmup_steps=0.2,

@@ -14,7 +14,8 @@ Joins the gloo process group on the CPU and runs, in turn, the cases that
 - ``raises`` (N = 4): ``create_mesh`` at widths the model axis does not
   divide;
 - train cases: ``create_mesh`` at the case's grid, sequence parallelism on
-  when the model axis is above 1, the Vid2Seq weights cut by
+  when the model axis is above 1 (unless the case has ``sp`` False), T5
+  blocks rematerialised as the case's config says, the Vid2Seq weights cut by
   ``shard_params``, then ``make_train_step`` over the case's global
   batches (each data rank its contiguous rows), optionally restoring a
   checkpoint first or saving one after a step. Each step's metrics and the
@@ -165,6 +166,7 @@ def raises(p) -> dict:
 
 def train(case: dict, p, out_dir: Path) -> dict:
     """The case's steps at its grid (see the module's docstring)."""
+    from vidchapters_tpu_torch.models.t5 import uses_remat
     from vidchapters_tpu_torch.models.vid2seq import Vid2Seq
     from vidchapters_tpu_torch.parallel.sharding import (
         gather_params,
@@ -183,7 +185,7 @@ def train(case: dict, p, out_dir: Path) -> dict:
 
     cfg = p["cfgs"][case["cfg"]]
     grid = mesh.create_mesh(MeshConfig(model_parallel_size=case["mp"]), cfg)
-    sp = mesh.enable_sequence_parallelism(grid)
+    sp = mesh.enable_sequence_parallelism(grid) if case.get("sp", True) else False
     model = Vid2Seq(cfg)
     model.load_state_dict(p["states"][case["cfg"]])
     shard_params(model)
@@ -206,7 +208,8 @@ def train(case: dict, p, out_dir: Path) -> dict:
         if case.get("save_after") == i:
             CheckpointManager(out_dir / f"{case['name']}_ckpt").save_last(state, 0)
     mesh.disable_sequence_parallelism()
-    return {"steps": steps, "checksums": sums, "grid": list(grid), "sequence_parallel": sp}
+    return {"steps": steps, "checksums": sums, "grid": list(grid), "sequence_parallel": sp,
+            "remat": uses_remat(cfg.t5)}
 
 
 def main(inp: Path, out_dir: Path) -> None:

@@ -4,22 +4,29 @@ Entry points:
 
 - ``serve``: Vid2Seq chapter generation behind an HTTP server (beam or
   greedy decoding through the T5 decode kernel), from seeded weights, a
-  checkpoint of ``train/dvc_main`` or a reference ``.pth``
-  (``models/torch_import``);
+  checkpoint of ``train/dvc_main``, a reference ``.pth``
+  (``models/torch_import``) or the JAX package's checkpoint
+  (``runtime/jax_checkpoint``: its npz form, which the repo root's
+  ``convert_jax_checkpoint.py`` writes from orbax where JAX runs);
 - ``train/dvc_main``: Vid2Seq fine-tuning and evaluation (beam, greedy or
   nucleus on the standard cached decode, DVC / SODA metrics), and
   HowTo100M pretraining (``htm``: ``data/dvc_dataset.YTPretrainDataset``,
-  bf16 Adam moments);
+  bf16 Adam moments), each T5 block rematerialised in training as the JAX
+  package does (``models/t5.REMAT_BLOCKS``); on N ranks over a ``(data,
+  model)`` grid (``runtime/mesh``: data parallelism, Megatron tensor and
+  encoder sequence parallelism); ``--load`` also takes a JAX checkpoint;
 - ``train/vc_main``: chapter titles from ground-truth boundaries (VC):
   Vid2Seq trained on clips and evaluated per clip (beam search on the
   decode kernel, the COCO captioning metrics), and the ``random``
   zero-shot evaluator;
 - ``train/grounding_main``: chapter grounding with Moment-DETR and its
   frozen CLIP text tower (``configs/chapters_momentdetr.json``), with the
-  optional BERT speech tower;
-- ``train/pdvc_main``: the PDVC baseline;
+  optional BERT speech tower, on one rank or N data-parallel ranks;
+- ``train/pdvc_main``: the PDVC baseline (``eval_main`` also scores the
+  JAX package's checkpoints);
 - ``factory/asr``: the Whisper ASR factory, with word alignment
-  (``factory/align``);
+  (``factory/align``); ``demo/demo_asr``: one audio or video file to a
+  transcript pickle from an HF Whisper directory;
 - ``factory/features``: CLIP ViT-L/14 frame features (the datasets'
   features); ``factory/chapters`` and ``factory/preproc``: chapters mined
   from descriptions and the DVC / VMR annotations;

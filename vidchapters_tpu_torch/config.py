@@ -2,8 +2,9 @@
 
 Field for field the same tree as ``vidchapters_tpu/config.py``, so an
 ``ExperimentConfig`` JSON written by the JAX package loads here unchanged.
-Fields that only steer the JAX package (``scan_layers``, ``fused_qkv``,
-``remat``) are kept for that round trip and ignored by the port. The mesh
+Fields that only steer the JAX package (``scan_layers``, ``fused_qkv``)
+are kept for that round trip and ignored by the port; ``remat`` checkpoints
+each T5 block in training, as there (``models/t5.REMAT_BLOCKS``). The mesh
 is a ``(data, model)`` grid of ranks (``runtime/mesh.py``); the model axis
 must divide every width it shards (``MeshConfig.check_widths``).
 
@@ -138,10 +139,9 @@ class T5Config:
     tie_word_embeddings: bool = True
     label_smoothing: float = 0.1
     dtype: str = "bfloat16"  # compute dtype; params kept in float32
-    # per-block rematerialisation in training: None follows the module
-    # default (on); False trades HBM for ~5% throughput — fits the reference
-    # recipe (bs8 / seq 1000) on 16 GB v5e thanks to the fused attention
-    # kernel's O(L*d) residuals
+    # per-block rematerialisation in training: None follows
+    # models/t5.REMAT_BLOCKS (on); False keeps every block's activations
+    # (more memory, no recomputed forward)
     remat: Optional[bool] = None
     # store a stack's blocks as ONE scanned block with layer-stacked
     # [L, ...] params (flax nn.scan). Same math; collapses the optimizer /

@@ -11,8 +11,11 @@ None (deterministic). With one, dropout runs where the JAX package's
 ``deterministic=False`` runs it: the embeddings, each sublayer's output,
 the FF hidden, the final norm, and the attention probabilities by route
 (the fused kernel's hash mask, the dense route's hash mask, or an element
-mask). Block rematerialisation is not ported: it changes no result, and
-the card holds the activations of the reference recipe.
+mask). Each block is rematerialised in training (``REMAT_BLOCKS``,
+``T5Config.remat``; t5.py:667-688 there): the backward pass runs the block
+again from its inputs, row 1 and the hashed masks included, and the
+recompute replays the dropout of the first pass (``runtime/rng.StepRng``'s
+``replay``), so a step's result is that of a step without it, bit for bit.
 
 Parameters are held in their stored dtype (float32 by default) and every
 product runs in ``cfg.dtype`` (bfloat16 by default), as the JAX package's
@@ -48,12 +51,14 @@ rank keeps what one process keeps. Decoding runs on the gathered weights.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vidchapters_tpu_torch.config import T5Config
 from vidchapters_tpu_torch.ops.decode_attention import (
@@ -83,6 +88,11 @@ CHUNK = 128
 # drop their probabilities with the hashed mask ``dense_keep_scale``
 # (t5.py:440-467 there), below it with an element mask.
 DENSE_REMAT_MIN_ELEMS = 256 * 256
+
+# gradient checkpointing of each T5 block in training (t5.py:48 there); a
+# config's ``remat`` overrides it. The policy is JAX's None: the whole block
+# is recomputed in the backward pass.
+REMAT_BLOCKS = True
 
 # the decode megakernel for greedy and beam search: True / None (the
 # default: take it) or False (the standard cached decode). Nucleus sampling
@@ -118,6 +128,12 @@ def dense_keep_scale(seed: int, shape, rate: float, device=None, h0: int = 0,
                        torch.tensor(dropout_scale(rate), device=device),
                        torch.zeros((), device=device))
     return keep.reshape(shape)
+
+
+def uses_remat(cfg: T5Config) -> bool:
+    """Whether a training forward checkpoints each block: ``cfg.remat``, or
+    ``REMAT_BLOCKS`` when it is None."""
+    return REMAT_BLOCKS if cfg.remat is None else bool(cfg.remat)
 
 
 def _apply_dropout(x: torch.Tensor, rate: float, rng: Optional[StepRng],
@@ -402,6 +418,16 @@ def _identity(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+def _checkpointed(blk: T5Block, rng: StepRng, *args) -> torch.Tensor:
+    """``blk(*args)`` keeping only its inputs for the backward pass, which
+    runs the block again (the model group's collectives too). The recompute
+    draws from ``rng``'s state before the first pass, so it drops what that
+    pass dropped, and leaves the live stream where it found it."""
+    replay = rng.replay(rng.get_state())
+    return checkpoint(blk, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), replay))
+
+
 class T5Stack(nn.Module):
     mp = 1
 
@@ -453,8 +479,11 @@ class T5Stack(nn.Module):
             causal = torch.tril(torch.ones(l, l, dtype=torch.bool, device=x.device))
             self_bias = torch.where(causal[None, None], self_bias,
                                     torch.full_like(self_bias, NEG_INF))
+        # JAX's ``not deterministic and remat``: training, with autograd on
+        remat = rng is not None and torch.is_grad_enabled() and uses_remat(self.cfg)
         for blk in self.blocks:
-            x = blk(x, self_bias, enc_out, attention_mask, enc_mask, rate, rng, sp)
+            args = (x, self_bias, enc_out, attention_mask, enc_mask, rate, rng, sp)
+            x = _checkpointed(blk, rng, *args) if remat else blk(*args)
         x = _apply_dropout(self.final_norm(x), rate, rng, shard)
         if sp:
             x = tp.gather_sequence(x, 1, to_model=False)

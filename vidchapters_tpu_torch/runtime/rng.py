@@ -20,6 +20,10 @@ elements one process keeps.
 - Hash-mask dropout (the fused attention kernel, the dense attention route)
   takes one uint32 per call from ``seed32``, drawn on the host so that
   passing it to a kernel needs no device sync.
+
+A block rematerialised in training (``models/t5.py``) draws its masks
+twice: ``get_state`` before the first pass, and ``replay`` of that state
+around the recompute, which puts both parts of the live stream back after.
 """
 
 from __future__ import annotations
@@ -39,6 +43,19 @@ class StepRng:
         self.generator.manual_seed(int(torch_seed))
         self._host = np.random.default_rng(int(host_seed))
 
+    def get_state(self) -> tuple:
+        """Both parts' state: the generator's and the host stream's."""
+        return self.generator.get_state(), self._host.bit_generator.state
+
+    def set_state(self, state: tuple) -> None:
+        self.generator.set_state(state[0])
+        self._host.bit_generator.state = state[1]
+
+    def replay(self, state: tuple) -> "_Replay":
+        """A context (re-entrant) that draws from ``state`` inside and puts
+        the live state back on the way out."""
+        return _Replay(self, state)
+
     def seed32(self) -> int:
         """A fresh uint32 seed for one hash-mask dropout call."""
         return int(self._host.integers(0, 2**32, dtype=np.uint64))
@@ -57,3 +74,15 @@ class StepRng:
         shape[dim] = n * parts
         whole = torch.rand(shape, generator=self.generator, device=x.device) < keep
         return whole.narrow(dim, index * n, n)
+
+
+class _Replay:
+    def __init__(self, rng: StepRng, state: tuple):
+        self.rng, self.state, self.live = rng, state, None
+
+    def __enter__(self) -> None:
+        self.live = self.rng.get_state()
+        self.rng.set_state(self.state)
+
+    def __exit__(self, *exc) -> None:
+        self.rng.set_state(self.live)

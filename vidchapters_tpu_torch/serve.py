@@ -21,7 +21,8 @@ encode, beam decode, ``<time=k>`` parse, answered as JSON over HTTP:
 
 Usage:
     python -m vidchapters_tpu_torch.serve --config exp.json \
-        [--ckpt SAVE_DIR | CKPT_FILE | state_dict.pt | reference.pth] [--device cuda] \
+        [--ckpt SAVE_DIR | CKPT_FILE | state_dict.pt | reference.pth | jax.npz] \
+        [--device cuda] \
         --port 8976
 (--ckpt omitted = seeded random weights: smoke/benchmark mode.)
 """
@@ -49,6 +50,8 @@ from vidchapters_tpu_torch.data.time_tokens import (
     decode_chapter_sequence,
 )
 from vidchapters_tpu_torch.models import torch_import
+from vidchapters_tpu_torch.models.weights import from_jax_params
+from vidchapters_tpu_torch.runtime import jax_checkpoint
 from vidchapters_tpu_torch.runtime.checkpoint import CheckpointManager
 
 
@@ -439,8 +442,10 @@ def load_serving_params(model, ckpt: Optional[str], seed: int = 0):
 
     - a save directory of ``train/dvc_main``: its ``best`` checkpoint if
       there is one, else ``last`` (as vidchapters_tpu/serve.py:459-465
-      restores one);
+      restores one); a save directory of the JAX package in its npz form
+      (``best.npz`` / ``last.npz``, ``runtime/jax_checkpoint``) the same way;
     - a checkpoint file of that module (a payload with a ``"model"`` key);
+    - one npz checkpoint of the JAX package;
     - a ``torch.save``d bare state_dict of the port's Vid2Seq;
     - a reference ``.pth`` (``{"model", "optimizer", "epoch", "args"}`` or a
       bare state_dict under the reference's names), through
@@ -454,13 +459,18 @@ def load_serving_params(model, ckpt: Optional[str], seed: int = 0):
         return model
     path = Path(ckpt)
     if path.is_dir():
-        mgr = CheckpointManager(str(path))
-        name = "best" if mgr.has("best") else "last"
-        if not mgr.has(name):
-            raise FileNotFoundError(f"{ckpt} holds neither a 'best' nor a 'last' "
-                                    f"checkpoint of train/dvc_main")
-        model.load_state_dict(mgr.load(name, map_location="cpu")["model"])
-        print(f"restored '{name}' from {ckpt}")
+        name, npz = jax_checkpoint.find(path, ("best", "last"))
+        if npz is not None:
+            model.load_state_dict(from_jax_params(jax_checkpoint.read_params(npz), model))
+            print(f"restored the JAX package's '{name}' from {ckpt}")
+        else:
+            model.load_state_dict(CheckpointManager(str(path)).load(
+                name, map_location="cpu")["model"])
+            print(f"restored '{name}' from {ckpt}")
+        return model
+    if jax_checkpoint.is_jax_npz(path):
+        model.load_state_dict(from_jax_params(jax_checkpoint.read_params(path), model))
+        print(f"imported JAX checkpoint {ckpt}")
         return model
     payload = torch_import.load_payload(path)
     if torch_import.load_reference_weights(payload, model):
@@ -491,8 +501,10 @@ def main(args=None) -> None:
     p.add_argument("--ckpt", default=None,
                    help="a train/dvc_main save directory (best, else last), "
                         "one of its checkpoint files, a torch.save'd "
-                        "state_dict of the port's Vid2Seq, or a reference "
-                        ".pth; omit for seeded random weights")
+                        "state_dict of the port's Vid2Seq, a reference "
+                        ".pth, or the JAX package's checkpoint in npz form "
+                        "(a directory or one .npz; convert_jax_checkpoint.py "
+                        "writes it); omit for seeded random weights")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights when --ckpt is omitted")
     p.add_argument("--device", default="cuda",

@@ -30,8 +30,10 @@ one process's: a run resumes at another grid); every rank resumes.
 
 ``htm`` (HowTo100M pretraining, ``configs/htm_pretrain.json``) has a train
 set only: no eval, no ``best``, ``last`` and ``log.txt`` each epoch, and
-``main`` returns ``{}``. ``--load`` takes a checkpoint of this module or a
-reference ``.pth`` (``models/torch_import.py``). ``profile_dir`` writes a
+``main`` returns ``{}``. ``--load`` takes a checkpoint of this module, a
+reference ``.pth`` (``models/torch_import.py``) or the JAX package's
+checkpoint in npz form (``runtime/jax_checkpoint.py``; its params only, as
+the JAX package's ``--load`` restores them). ``profile_dir`` writes a
 ``torch.profiler`` trace of the same steps the JAX package profiles.
 """
 
@@ -54,12 +56,13 @@ from vidchapters_tpu_torch.data.dvc_dataset import (
 from vidchapters_tpu_torch.data.tokenizer import build_tokenizer
 from vidchapters_tpu_torch.models import torch_import
 from vidchapters_tpu_torch.models.vid2seq import Vid2Seq
+from vidchapters_tpu_torch.models.weights import from_jax_params
 from vidchapters_tpu_torch.parallel.sharding import (
     broadcast_parameters,
     replicas_agree,
     shard_params,
 )
-from vidchapters_tpu_torch.runtime import mesh
+from vidchapters_tpu_torch.runtime import jax_checkpoint, mesh
 from vidchapters_tpu_torch.runtime.checkpoint import CheckpointManager
 from vidchapters_tpu_torch.runtime.meters import MetricLogger
 from vidchapters_tpu_torch.train.dvc_train import (
@@ -98,8 +101,13 @@ def build_datasets(cfg: ExperimentConfig, tokenizer):
 
 
 def _load_weights(model: Vid2Seq, load: str) -> None:
-    """``--load``: the model weights of a checkpoint this module wrote, or of
-    a reference ``.pth`` (through ``models/torch_import``)."""
+    """``--load``: the model weights of a checkpoint this module wrote, of a
+    reference ``.pth`` (through ``models/torch_import``), or of the JAX
+    package's npz checkpoint: its params, not its moments or step."""
+    if jax_checkpoint.is_jax_npz(load):
+        model.load_state_dict(from_jax_params(jax_checkpoint.read_params(load), model))
+        print(f"imported the params of JAX checkpoint {load}")
+        return
     payload = torch_import.load_payload(load)
     if torch_import.load_reference_weights(payload, model):
         print(f"imported reference checkpoint {load}")
@@ -107,7 +115,7 @@ def _load_weights(model: Vid2Seq, load: str) -> None:
         model.load_state_dict(payload["model"])
     else:
         raise ValueError(f"{load} is neither a checkpoint of train/dvc_main nor a "
-                         f"reference Vid2Seq .pth")
+                         f"reference Vid2Seq .pth nor a JAX npz checkpoint")
 
 
 def main(cfg: ExperimentConfig, load: str = "", eval_only: bool = False,
@@ -254,8 +262,9 @@ if __name__ == "__main__":
     p = argparse.ArgumentParser()
     p.add_argument("--config", required=True, help="experiment json")
     p.add_argument("--load", default="",
-                   help="start from the weights of a checkpoint written by this module "
-                        "or of a reference .pth")
+                   help="start from the weights of a checkpoint written by this module, "
+                        "of a reference .pth, or of the JAX package's npz checkpoint "
+                        "(its params)")
     p.add_argument("--eval", action="store_true",
                    help="skip training; evaluate the loaded or best weights on the test "
                         "(or val) split")

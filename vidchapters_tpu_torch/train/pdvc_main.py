@@ -5,7 +5,9 @@ loop of the PDVC recipe (AdamW, StepLR every ``lr_drop_epochs``), a val
 eval every epoch, ``best`` on METEOR + SODA (train.py:286-289), ``last``
 and ``info.json`` (options and metric histories) for resume, the caption
 vocab in ``translator.json``; ``eval_main`` scores a saved checkpoint
-standalone, or runs inference on unlabeled videos (test mode).
+standalone (the port's own, or the JAX package's in npz form:
+``runtime/jax_checkpoint.py``), or runs inference on unlabeled videos (test
+mode).
 
     python -m vidchapters_tpu_torch.train.pdvc_main --recipe configs/chapters_pdvc.json \\
         --save-dir DIR [--eval --load DIR [--test-meta-csv CSV]] [--device cuda|cpu]
@@ -31,6 +33,8 @@ from vidchapters_tpu_torch import resolve_device
 from vidchapters_tpu_torch.config import PDVCConfig, to_dict
 from vidchapters_tpu_torch.data.pdvc_dataset import PDVCDataset, Translator, pdvc_collate
 from vidchapters_tpu_torch.models.pdvc import PDVC
+from vidchapters_tpu_torch.models.weights import pdvc_from_jax_params
+from vidchapters_tpu_torch.runtime import jax_checkpoint
 from vidchapters_tpu_torch.runtime.checkpoint import CheckpointManager
 from vidchapters_tpu_torch.runtime.meters import MetricLogger
 from vidchapters_tpu_torch.train.pdvc_train import (
@@ -170,11 +174,13 @@ def eval_main(load_dir: str, eval_json: str, features_path, cfg: PDVCConfig,
               alpha: float = 0.3, which: str = "best",
               device: "str | torch.device | None" = None) -> Dict[str, float]:
     """Standalone checkpoint evaluation (PDVC/eval.py:37-117): the weights of
-    ``which`` (else ``last``) in ``load_dir``, inference and reranking over
+    ``which`` (else ``last``) in ``load_dir``, the port's checkpoint or the
+    JAX package's ``{which}.npz`` (its params), inference and reranking over
     ``eval_json``, the submission json written, and its scores, unless
     ``test_mode`` (unlabeled videos against a fake one-event ground truth)."""
     device = resolve_device(device)
     load_path = Path(load_dir)
+    name, npz = jax_checkpoint.find(load_path, (which, "last"))
     if translator is None:
         tpath = load_path / "translator.json"
         if not tpath.exists():
@@ -185,10 +191,10 @@ def eval_main(load_dir: str, eval_json: str, features_path, cfg: PDVCConfig,
 
     model = PDVC(cfg).to(device)
     ckpt = CheckpointManager(str(load_path))
-    name = which if ckpt.has(which) else "last"
-    if not ckpt.has(name):
-        raise FileNotFoundError(f"no '{which}' or 'last' checkpoint in {load_dir}")
-    model.load_state_dict(ckpt.load(name, map_location=device)["model"])
+    if npz is not None:
+        model.load_state_dict(pdvc_from_jax_params(jax_checkpoint.read_params(npz), model))
+    else:
+        model.load_state_dict(ckpt.load(name, map_location=device)["model"])
     epoch = int(ckpt.meta(name).get("epoch", -1))
     print(f"loaded PDVC '{name}' checkpoint (epoch {epoch}) from {load_dir}")
 
