@@ -66,6 +66,17 @@
    rows 5 and 6): wall ms by CUDA events and one profiled step's device
    busy ms by kernel group.
 
+    python3 chip_kernel_parts.py --learning-sweep
+
+9. chip_smoke's phase 17 model (T5-base widths at 2 + 2 T5 and 2 ViT
+   layers, bf16, train/overfit.py's 8 synthetic videos) trained at the
+   settings of ``LEARNING_SWEEP`` (tokenizer: the byte-level fallback or
+   the phase's synthetic spiece.model; T5 and ViT layers, dropout, peak
+   lr, schedule, the denoising loss's weight, steps), with a beam-4 and a
+   greedy call on the decode kernel's route every ``every`` steps: the
+   generative loss, the videos whose chapters equal their targets, the
+   decode steps and the train seconds at each.
+
 Prints one JSON object; needs the card (exits 1 without one).
 """
 
@@ -304,6 +315,103 @@ def ab(other: str, what: str) -> dict:
     return {"other": str(other), "runs": runs}
 
 
+# (name, tokenizer, (T5 layers, ViT layers), dropout, lr, schedule, denoising, steps, every)
+LEARNING_SWEEP = (
+    ("bytes_drop0.1_lr1e-3_cos", "bytes", (2, 2), 0.1, 1e-3, "cosine_with_warmup", 1.0, 400, 50),
+    ("bytes_drop0_lr1e-3_cos", "bytes", (2, 2), 0.0, 1e-3, "cosine_with_warmup", 1.0, 300, 50),
+    ("bytes_drop0_gen_lr1e-3_cos", "bytes", (2, 2), 0.0, 1e-3, "cosine_with_warmup", 0.0, 600,
+     50),
+    ("bytes_4l_drop0_gen_lr1e-3_cos", "bytes", (4, 2), 0.0, 1e-3, "cosine_with_warmup", 0.0,
+     400, 50),
+    ("bytes_drop0_gen_lr1e-3_const", "bytes", (2, 2), 0.0, 1e-3, "", 0.0, 1000, 100),
+    ("bytes_drop0.1_gen_lr1e-3_const", "bytes", (2, 2), 0.1, 1e-3, "", 0.0, 1000, 100),
+    ("spm_drop0.1_lr1e-3_cos", "spm", (2, 2), 0.1, 1e-3, "cosine_with_warmup", 1.0, 400, 50),
+)
+
+
+def learning_sweep(settings=LEARNING_SWEEP, device: str = "cuda") -> dict:
+    """Item 9: each of ``settings`` trained from the same seed on ``device``."""
+    import dataclasses
+    import tempfile
+    import time
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from vidchapters_tpu_torch.data.dvc_dataset import DenseVideoCaptioningDataset, EpochIterator
+    from vidchapters_tpu_torch.data.tokenizer import build_tokenizer
+    from vidchapters_tpu_torch.models import t5 as t5_mod
+    from vidchapters_tpu_torch.models.vid2seq import Vid2Seq
+    from vidchapters_tpu_torch.train import overfit
+    from vidchapters_tpu_torch.train.dvc_train import (TrainState, batch_to_device,
+                                                       make_generate_fn, make_train_step)
+    from vidchapters_tpu_torch.train.schedules import build_optimizer
+
+    out = {}
+    for name, tokens, depth, drop, lr, schedule, denoising, steps, every in settings:
+        with tempfile.TemporaryDirectory() as tmp:
+            if tokens == "spm":
+                cfg, _ = cs._learning_cfg(Path(tmp), steps, depth)
+            else:
+                paths = overfit.build_dataset(Path(tmp), 8, np.random.default_rng(0))
+                cfg = cs.cut_depth(overfit.experiment_config(Path(tmp), *paths, steps, 8, lr,
+                                                             smoke=False), *depth)
+            t5 = dataclasses.replace(cfg.model.t5, dropout_rate=drop, encoder_dropout=drop,
+                                     decoder_dropout=drop)
+            cfg = dataclasses.replace(
+                cfg, model=dataclasses.replace(cfg.model, t5=t5),
+                train=dataclasses.replace(cfg.train, denoising=denoising, optim=dataclasses.replace(
+                    cfg.train.optim, lr=lr, schedule=schedule)))
+            paths = cfg.datasets["chapters"]
+            tok = build_tokenizer(cfg.tokenizer_path, num_bins=cfg.model.num_bins)
+            ds = DenseVideoCaptioningDataset(paths.train_json_path, paths.features_path, tok,
+                                             cfg.data, subtitles_path=paths.subtitles_path)
+            it = EpochIterator(ds, 8, cfg.data, seed=cfg.train.seed)
+            host = []
+            for epoch in range(cs.LEARN_BATCHES):
+                it.set_epoch(epoch)
+                host.extend(it)
+            val = next(iter(EpochIterator(ds, 8, cfg.data, shuffle=False, drop_last=False)))
+        batches = [batch_to_device(b, device) for b in host]
+        model = Vid2Seq(cfg.model).init_weights(torch.Generator().manual_seed(0)).to(device)
+        state = TrainState(model, build_optimizer(cfg.train.optim, steps, model.parameters()))
+        step = make_train_step(model, 1.0, denoising)
+        targets = cs._chapters(tok, val["output_tokens"], 90.0, cfg.model.num_bins)
+        video = torch.as_tensor(val["video"], dtype=torch.float32, device=device)
+        inputs = torch.as_tensor(val["input_tokens"], device=device)
+        rows, train_s, old = [], 0.0, t5_mod.USE_MEGA_DECODE
+        try:
+            t5_mod.USE_MEGA_DECODE = True
+            for i in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                m = step(state, batches[i % len(batches)], cfg.train.seed)
+                torch.cuda.synchronize()
+                train_s += time.time() - t0
+                if (i + 1) % every:
+                    continue
+                row = {"step": i + 1, "loss": float(m["loss"]), "train_s": train_s}
+                for beams in (4, 1):
+                    generate = make_generate_fn(model, dataclasses.replace(cfg.generation,
+                                                                           num_beams=beams))
+                    chapters = cs._chapters(tok, generate(video, inputs).cpu().numpy(), 90.0,
+                                            cfg.model.num_bins)
+                    row[f"beams{beams}"] = {
+                        "videos_equal_targets": sum(c == t for c, t in zip(chapters, targets)),
+                        "decode_steps": generate.decode_steps,
+                        "first_sentence": chapters[0][0]["sentence"] if chapters[0] else None}
+                rows.append(row)
+                print(json.dumps({name: row}), flush=True)
+        finally:
+            t5_mod.USE_MEGA_DECODE = old
+        out[name] = rows
+        del model, state, step, batches
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -318,6 +426,13 @@ def main() -> int:
         return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
+    if sys.argv[1:] == ["--learning-sweep"]:
+        import chip_smoke as cs
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cs.phase_device_and_build()
+        print(json.dumps({"card": card, "learning_sweep": learning_sweep()}), flush=True)
+        return 0
     if sys.argv[1:] == ["--zeroshot-steps"]:
         torch.backends.cuda.matmul.allow_tf32 = False
         print(json.dumps({"card": card, **zeroshot_steps()}, indent=1), flush=True)

@@ -244,11 +244,26 @@ Phases, each printed as it ends; any failure exits non-zero with no result:
    of the one process at grid 1 x 2: losses and grad_norm within 1e-4, the
    gathered weights within 1e-4 of their norm (zero-initialised biases
    2e-3 of their update). (c) (b) over NCCL with a card a rank when
-   device_count() >= 2, else reported as skipped.
+   device_count() >= 2, else reported as skipped. Phases 15 and 16 run
+   T5-base's and the ViT's widths at 6 of their 12 layers.
+17. The learning proof: Vid2Seq at the recipe's widths (T5-base, the ViT
+   768 x 12 heads, 100 frames, 1000 / 256 tokens, bf16, dropout 0.1, the T5
+   blocks rematerialised, generative + denoising), the depth cut to 2 + 2
+   T5 and 2 ViT layers, trained by make_train_step on train/overfit.py's 8
+   synthetic videos (tokenized by a synthetic T5-layout spiece.model that
+   holds the set's words) until memorised: a beam-4 call every 50 steps,
+   stopping when all 8 videos' chapters equal their targets (at most 400
+   steps; rows 1-2 exactly fused_per_step's a step). Then one beam-4 / 256
+   call of the 8 videos on the decode kernel's route, one on the standard
+   route and a greedy one on the kernel's route: each ends at EOS before
+   256 steps, rows 3-6 launched exactly the steps it ran times their
+   per-step count, the chapters equal the targets on at least 7 of 8
+   videos and alike on both routes; the weights in fp32 give identical
+   tokens on both routes on the card and on the CPU.
 
 Each phase's wall seconds are printed as it ends ([phase] lines) and kept
 in the record. The kernels' launch counts are zeroed just before each main path (phases
-3, 4, 6, 7, 8, 11, 13a, each BLIP-2 call of 12, each run of 5 and 14; a rank of 15
+3, 4, 6, 7, 8, 11, 13a, 17, each BLIP-2 call of 12, each run of 5 and 14; a rank of 15
 starts at 0, a process of its own) and read just after it; the kernel line
 reports each kernel's count from its own path (training for the fused
 attention, serving for top-k and the decode kernel, phase 5's first run for
@@ -262,7 +277,8 @@ attention, phase 7's sweep for the Whisper kernel); rows 1-2 also carry
 ``launches_gpt2`` from phase 13(a)'s pdvc_main run, row 8
 ``launches_demo_asr`` from phase 14's two demo_asr runs, rows 1-2
 ``launches_dp`` from phase 15(a)'s dvc_main rank and
-``launches_tp_per_rank`` from phase 16(a)'s rank 0 (rank 1's equal). The
+``launches_tp_per_rank`` from phase 16(a)'s rank 0 (rank 1's equal), rows
+1-6 ``launches_learning`` from phase 17's training and two decode calls. The
 probes lie on no path: their count is phase 2's.
 
 The last lines are the kernel table as one JSON object, the nvidia-smi
@@ -3939,9 +3955,9 @@ def _spm_piece(text: str, score: float, ptype: int = 1) -> bytes:
     return b"\x0a" + varint(len(body)) + body
 
 
-def _write_spm_model(path: Path) -> None:
+def _write_spm_model(path: Path, words=ASR_WORDS) -> None:
     """A unigram ``spiece.model`` with T5-base's layout: pad / eos / unk at
-    ids 0-2, then 31,997 pieces (the ASR's words with and without the ``▁``
+    ids 0-2, then 31,997 pieces (``words`` with and without the ``▁``
     prefix, every printable ASCII character, the digits' pairs, and letter
     bigrams and trigrams as filler), scored so that whole words win."""
     import itertools
@@ -3955,7 +3971,7 @@ def _write_spm_model(path: Path) -> None:
             seen.add(text)
             pieces.append((text, score, 1))
 
-    for w in ASR_WORDS:
+    for w in words:
         add("▁" + w, -3.0 - 0.01 * len(pieces))
         add(w, -6.0)
     for c in string.printable.strip():
@@ -4038,6 +4054,15 @@ def fused_per_step(mcfg, data, genasr: bool = False, passes=None):
                   denoise_length_bounds(data.max_input_tokens))
     n = sum(fused_per_pass(mcfg, data, lin, lout) for lin, lout in passes)
     return (2 * n if uses_remat(mcfg.t5) else n), n
+
+
+def cut_depth(cfg, t5_layers: int, vit_layers: int):
+    """``cfg`` (an ``ExperimentConfig``) with ``t5_layers`` in each T5 stack
+    and ``vit_layers`` in the ViT; every width kept."""
+    m = cfg.model
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        m, t5=dataclasses.replace(m.t5, num_layers=t5_layers, num_decoder_layers=t5_layers),
+        vit=dataclasses.replace(m.vit, depth=vit_layers)))
 
 
 def _pretrain_cfg(root: Path):
@@ -6987,6 +7012,7 @@ def phase_demo_asr(card: str, cfg=None, seconds: float = ASR_SECONDS[0]):
 # ---------------------------------------------------------------------------
 
 DP_STEPS = 2                # train steps of each dvc_main run in phase 15
+MULTI_RANK_DEPTH = (6, 6)   # T5 layers a stack and ViT layers in phases 15-16, cut from 12
 DP_TOL = 1e-4               # (b): two ranks against one process, relative
 
 
@@ -7190,7 +7216,8 @@ def phase_data_parallel(card: str, train_step_ms: float):
     """Phase 15: ``python -m vidchapters_tpu_torch.train.dvc_main`` on N ranks
     as a user launches it (one process a rank, the ``VIDCHAPTERS_*``
     variables, one ``PYTHONHASHSEED``) over phase 5's synthetic dataset at
-    full width (T5-base + ViT 12 x 768), each rank recorded by ``_dp_rank``.
+    full width (T5-base + ViT x 768), the depth cut to ``MULTI_RANK_DEPTH``
+    (6 + 6 T5 and 6 ViT layers), each rank recorded by ``_dp_rank``.
 
     (a) NCCL at world size 1 (``--dist-backend nccl``: the data-parallel
     path whole, its collectives over one rank): bf16 with dropout 0.1,
@@ -7217,7 +7244,7 @@ def phase_data_parallel(card: str, train_step_ms: float):
     )
 
     t_phase = time.time()
-    base = ExperimentConfig()
+    base = cut_depth(ExperimentConfig(), *MULTI_RANK_DEPTH)
     out = {"card": card}
     started = []  # every rank this phase starts, stopped on the way out
 
@@ -7477,7 +7504,8 @@ def phase_tensor_parallel(card: str, train: dict):
     """Phase 16: ``python -m vidchapters_tpu_torch.train.dvc_main`` at
     ``model_parallel_size`` 2 as a user launches it (one process a rank,
     the ``VIDCHAPTERS_*`` variables), over phase 5's synthetic dataset at
-    full width (T5-base + ViT 12 x 768), each rank recorded by ``_dp_rank``.
+    full width (T5-base + ViT x 768), the depth cut to ``MULTI_RANK_DEPTH``
+    (6 + 6 T5 and 6 ViT layers), each rank recorded by ``_dp_rank``.
     Two ranks share the one card over gloo (NCCL puts no two ranks on one
     card).
 
@@ -7511,7 +7539,7 @@ def phase_tensor_parallel(card: str, train: dict):
     from vidchapters_tpu_torch.data.tokenizer import build_tokenizer
 
     t_phase = time.time()
-    base = ExperimentConfig()
+    base = cut_depth(ExperimentConfig(), *MULTI_RANK_DEPTH)
     out = {"card": card}
     started = []
 
@@ -7656,6 +7684,225 @@ def _tp_split(rank) -> dict:
             "after_steps_s": rank["t_a_done"] - last}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the learning proof (overfit.py's synthetic set memorised)
+# ---------------------------------------------------------------------------
+
+LEARN_DEPTH = (2, 2)      # T5 layers a stack and ViT layers, cut from 12 each
+LEARN_MAX_STEPS = 400     # train steps at batch 8 (all 8 videos a step), at most
+LEARN_CHECK_EVERY = 50    # steps between beam-4 decodes that test the memory
+LEARN_LR = 1e-3           # peak lr (5% warmup, cosine); the 12-layer recipe runs 3e-4
+LEARN_DENOISING = 1.0     # the denoising loss's weight (the recipe's)
+LEARN_BATCHES = 4         # epochs collated before the steps (their denoising spans), cycled
+LEARN_MIN_GOOD = 7        # of the 8 videos' chapters equal to their targets
+LEARN_DECODE = (("megakernel", 4), ("standard", 4), ("megakernel", 1))  # (route, beams)
+
+
+def _learning_cfg(root: Path, steps: int, depth=LEARN_DEPTH):
+    """``overfit.py``'s recipe config over its set under ``root``, the depth
+    cut to ``depth``, tokenized by a synthetic T5-layout ``spiece.model``
+    whose whole-word pieces are the set's words (lower case and as
+    ``normalize_caption`` capitalises them). ``overfit.py`` uses the
+    byte-level fallback, whose doubled letters ("prepping") and repeated
+    syllables ("pasta") a 2 + 2 T5 does not learn to copy in a smoke's
+    steps (``chip_kernel_parts.py --learning-sweep``): T5 has no absolute
+    positions."""
+    import numpy as np
+
+    from vidchapters_tpu_torch.train import overfit
+
+    ann, asr, feats = overfit.build_dataset(root, 8, np.random.default_rng(0))
+    texts = [s for a in json.loads(ann.read_text()).values() for s in a["sentences"]]
+    texts += [f"today we are {v} a {n}" for v, n in zip(overfit.VERBS, overfit.NOUNS)]
+    words = sorted({w for t in texts for w in t.split()})
+    _write_spm_model(root / "spiece.model", words + [w.capitalize() for w in words])
+    cfg = overfit.experiment_config(root, ann, asr, feats, steps, 8, LEARN_LR, smoke=False)
+    cfg = dataclasses.replace(cfg, tokenizer_path=str(root / "spiece.model"),
+                              train=dataclasses.replace(cfg.train, denoising=LEARN_DENOISING))
+    return cut_depth(cfg, *depth), ann
+
+
+def _chapters(tokenizer, seqs, duration: float, num_bins: int):
+    from vidchapters_tpu_torch.data.time_tokens import decode_chapter_sequence
+
+    return [decode_chapter_sequence(t, duration, num_bins)
+            for t in tokenizer.batch_decode(seqs, skip_special_tokens=True)]
+
+
+def phase_learning(card: str, max_steps: int = LEARN_MAX_STEPS, depth=LEARN_DEPTH):
+    """Vid2Seq at the recipe's widths (T5-base, the ViT 768 x 12 heads, 100
+    frames, 1000 / 256 tokens, bf16, dropout 0.1, each T5 block
+    rematerialised), the depth cut to 2 + 2 T5 and 2 ViT layers, trained by
+    ``make_train_step`` (generative + denoising) on ``overfit.py``'s 8
+    synthetic videos until memorised: every ``LEARN_CHECK_EVERY`` steps a
+    beam-4 call on the decode kernel's route, the training stopping when
+    all 8 videos' chapters equal their targets (at most ``max_steps``).
+    Then beam 4 / 256 on the kernel's route and on the standard route, one
+    call of the 8 videos each, and greedy on the kernel's route. Rows 1-2
+    launched exactly ``fused_per_step``'s a step (and row 1 the encoder's a
+    call); every call ends at EOS before 256 steps; rows 3 (beam search)
+    and 4 (kernel route) or 3, 5 and 6 (standard route) launched exactly
+    the steps the call ran times their per-step count (1, and 1 a decoder
+    layer for rows 5-6), none of the other route's; the chapters equal the
+    targets' on at least 7 of 8 videos, and the two beam-4 calls' are
+    equal. Then the weights in fp32 decode alike at beam 4 on both routes
+    on the card and on the CPU. The set is tokenized as ``_learning_cfg``
+    says."""
+    import numpy as np
+    import torch
+
+    from vidchapters_tpu_torch.data.dvc_dataset import DenseVideoCaptioningDataset, EpochIterator
+    from vidchapters_tpu_torch.data.tokenizer import build_tokenizer
+    from vidchapters_tpu_torch.models import t5 as t5_mod
+    from vidchapters_tpu_torch.models.vid2seq import Vid2Seq
+    from vidchapters_tpu_torch.ops import decode_attention, decode_megakernel, decoding
+    from vidchapters_tpu_torch.ops import fused_attention as fa
+    from vidchapters_tpu_torch.train.dvc_train import (TrainState, batch_to_device,
+                                                       make_generate_fn, make_train_step)
+    from vidchapters_tpu_torch.train.schedules import build_optimizer
+
+    t_phase = time.time()
+    kernels = {"fused_attention_fwd": fa.KERNEL, "fused_attention_bwd": fa.BWD_KERNEL,
+               "topk": decoding.TOPK_KERNEL, "decode_megakernel": decode_megakernel.KERNEL,
+               "decode_self_attention": decode_attention.SELF_KERNEL,
+               "decode_cross_attention": decode_attention.CROSS_KERNEL}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, _ = _learning_cfg(Path(tmp), max_steps, depth)
+        paths = cfg.datasets["chapters"]
+        tok = build_tokenizer(cfg.tokenizer_path, num_bins=cfg.model.num_bins)
+        ds = DenseVideoCaptioningDataset(paths.train_json_path, paths.features_path, tok,
+                                         cfg.data, subtitles_path=paths.subtitles_path)
+        it = EpochIterator(ds, 8, cfg.data, seed=cfg.train.seed)
+        host = []
+        for epoch in range(LEARN_BATCHES):
+            it.set_epoch(epoch)
+            host.extend(it)
+        val = next(iter(EpochIterator(ds, 8, cfg.data, shuffle=False, drop_last=False)))
+    check(len(host) == LEARN_BATCHES and val["video"].shape == (8, 100, 768)
+          and val["input_tokens"].shape == (8, 1000) and val["output_tokens"].shape == (8, 256),
+          f"learning batches: {len(host)}, val {val['video'].shape} {val['input_tokens'].shape}")
+    batches = [batch_to_device(b, DEVICE) for b in host]
+    mcfg, data, gen = cfg.model, cfg.data, cfg.generation
+    targets = _chapters(tok, val["output_tokens"], 90.0, mcfg.num_bins)
+    check(all(len(t) == 3 for t in targets), f"targets decode to {targets}")
+    target_tokens = [int((row != 0).sum()) for row in val["output_tokens"]]
+    video = torch.as_tensor(val["video"], dtype=torch.float32, device=DEVICE)
+    inputs = torch.as_tensor(val["input_tokens"], device=DEVICE)
+
+    def decode(route: str, beams: int):
+        """One call of the 8 videos: (tokens, decode steps, launches, s)."""
+        t5_mod.USE_MEGA_DECODE = route == "megakernel"
+        generate = make_generate_fn(model, dataclasses.replace(gen, num_beams=beams))
+        before = {n: k.launches for n, k in kernels.items()}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        seqs = generate(video, inputs).cpu().numpy()
+        wall = time.time() - t0
+        return (seqs, generate.decode_steps,
+                {k: kernels[k].launches - before[k] for k in kernels}, wall)
+
+    model = Vid2Seq(mcfg).init_weights(torch.Generator().manual_seed(0)).to(DEVICE)
+    opt = build_optimizer(cfg.train.optim, max_steps, model.parameters())
+    state = TrainState(model, opt)
+    step = make_train_step(model, cfg.train.generative, cfg.train.denoising)
+    per_step = fused_per_step(mcfg, data) if cfg.train.denoising else fused_per_step(
+        mcfg, data, passes=((data.max_input_tokens, data.max_output_tokens),))
+    for kern in kernels.values():
+        kern.launches = 0
+    losses, bad_steps, checks, train_s = [], [], [], 0.0
+    old_route = t5_mod.USE_MEGA_DECODE
+    try:
+        for i in range(max_steps):
+            f0, b0 = fa.KERNEL.launches, fa.BWD_KERNEL.launches
+            torch.cuda.synchronize()
+            t0 = time.time()
+            m = step(state, batches[i % len(batches)], cfg.train.seed)
+            torch.cuda.synchronize()
+            train_s += time.time() - t0
+            if (fa.KERNEL.launches - f0, fa.BWD_KERNEL.launches - b0) != per_step:
+                bad_steps.append((i, fa.KERNEL.launches - f0, fa.BWD_KERNEL.launches - b0))
+            if (i + 1) % LEARN_CHECK_EVERY and i + 1 < max_steps:
+                continue
+            losses.append({"step": i + 1, **{k: float(v) for k, v in m.items()}})
+            seqs, n, _, _ = decode("megakernel", 4)
+            good = sum(c == t for c, t in zip(_chapters(tok, seqs, 90.0, mcfg.num_bins),
+                                              targets))
+            checks.append({"step": i + 1, "videos_equal_targets": good, "decode_steps": n})
+            say(f"[learning] step {i + 1}: loss {losses[-1]['loss']:.4f}, {good} of 8 videos "
+                f"equal their targets at beam 4 ({n} decode steps)")
+            if good == 8:
+                break
+    finally:
+        t5_mod.USE_MEGA_DECODE = old_route
+    steps = i + 1
+    check(not bad_steps, f"learning: rows 1-2 launched {bad_steps[:3]} (step, fwd, bwd), "
+                         f"expected {per_step} a step")
+    check(all(np.isfinite(v) for row in losses for v in row.values()), f"losses {losses}")
+    say(f"[learning] {steps} steps in {train_s:.1f} s ({train_s * 1e3 / steps:.1f} ms a step)")
+
+    per_call = fused_per_pass(mcfg, data, data.max_input_tokens)
+    decodes = {}
+    try:
+        for route, beams in LEARN_DECODE:
+            label = route if beams > 1 else f"{route} greedy"
+            seqs, n, got, wall = decode(route, beams)
+            want = {"fused_attention_fwd": per_call, "fused_attention_bwd": 0,
+                    "topk": n if beams > 1 else 0,
+                    "decode_megakernel": n if route == "megakernel" else 0,
+                    "decode_self_attention": 0 if route == "megakernel"
+                    else n * mcfg.t5.num_decoder_layers}
+            want["decode_cross_attention"] = want["decode_self_attention"]
+            check(got == want, f"learning {label}: launches {got}, expected {want} "
+                               f"({n} decode steps)")
+            ended = [bool((row == 1).any()) for row in seqs]
+            check(n < gen.max_length and all(ended),
+                  f"learning {label}: {n} decode steps of {gen.max_length}, rows ended at "
+                  f"EOS {ended}")
+            chapters = _chapters(tok, seqs, 90.0, mcfg.num_bins)
+            good = sum(c == t for c, t in zip(chapters, targets))
+            check(good >= LEARN_MIN_GOOD, f"learning {label}: {good} of 8 videos' chapters "
+                                          f"equal their targets: {chapters}")
+            decodes[label] = {"beams": beams, "decode_steps": n, "wall_s": wall,
+                              "launches": got, "videos_equal_targets": good,
+                              "chapters": chapters,
+                              "eos_at": [int(np.argmax(row == 1)) for row in seqs]}
+            say(f"[learning] {label}: {n} decode steps, {good} of 8 videos equal their "
+                f"targets, {wall:.2f} s, launches {got}")
+    finally:
+        t5_mod.USE_MEGA_DECODE = old_route
+    launches = {n: k.launches for n, k in kernels.items()}
+    check(decodes["megakernel"]["chapters"] == decodes["standard"]["chapters"],
+          "learning: the two routes' beam-4 chapters differ")
+
+    # fp32: the trained weights on both routes on the card and on the CPU
+    weights = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    del model, state, opt, step, batches
+    torch.cuda.empty_cache()
+    videos, tokens = np.asarray(val["video"], np.float32), np.asarray(val["input_tokens"])
+    fp32 = {}
+    try:
+        for route, where, dev in (("megakernel", "card", DEVICE), ("standard", "card", DEVICE),
+                                  ("standard", "cpu", "cpu")):
+            t5_mod.USE_MEGA_DECODE = route == "megakernel"
+            fp32[f"{route}_{where}"] = _fp32_tokens(cfg, weights, gen, dev, videos, tokens,
+                                                    f"learning {route}")
+    finally:
+        t5_mod.USE_MEGA_DECODE = old_route
+    ref = fp32["standard_cpu"]
+    for name, seqs in fp32.items():
+        _same_tokens(seqs, ref, f"learning fp32 {name} vs the CPU", cfg, weights, videos,
+                     tokens)
+    check(all((row == 1).any() for row in ref), "learning fp32: a row without EOS")
+    summary = {"steps": steps, "max_steps": max_steps, "depth": list(depth), "lr": LEARN_LR,
+               "denoising": cfg.train.denoising, "train_s": train_s,
+               "step_ms": train_s * 1e3 / steps, "losses": losses, "checks": checks,
+               "target_tokens": target_tokens, "decode": decodes, "launches": launches,
+               "fused_per_step": list(per_step),
+               "fp32_tokens": f"identical on {sorted(fp32)} over {list(ref.shape)}",
+               "wall_s": time.time() - t_phase, "card": card}
+    say(f"[learning] {json.dumps({k: v for k, v in summary.items() if k != 'decode'})}")
+    return summary, launches
+
 def main() -> int:
     try:
         import torch
@@ -7751,6 +7998,9 @@ def main() -> int:
         done("15")
         tp, tp_launches = phase_tensor_parallel(card, train)
         done("16")
+        learning, learning_launches = phase_learning(card)
+        torch.cuda.empty_cache()
+        done("17")
     except SmokeFailure as e:
         print(f"FAIL: {e}", flush=True)
         return 1
@@ -7787,6 +8037,9 @@ def main() -> int:
         row["launches_dp"] = dp_launches[row["name"]]
     for row in table[:2]:  # rows 1-2 on each rank of a model axis of 2 (phase 16a)
         row["launches_tp_per_rank"] = tp_launches[row["name"]]
+    for row in table:  # rows 1-6 in the learning proof's training and decodes (phase 17)
+        if row["name"] in learning_launches:
+            row["launches_learning"] = learning_launches[row["name"]]
     for row in table:  # row 8 at one row in demo_asr's two runs (phase 14)
         if row["name"] == "whisper_megakernel":
             row["launches_demo_asr"] = demo_asr_launches
@@ -7821,13 +8074,17 @@ def main() -> int:
         f"{[round(x, 1) for x in dp['a']['step_ms']]} ms/step at 1 NCCL rank, (b) 2 gloo "
         f"ranks within {dp['b']['max_rel_diff']:.2e} of one process; tensor parallel (a) "
         f"{[round(x, 1) for x in tp['a']['ranks'][0]['step_ms']]} ms/step at 1 x 2, (b) within "
-        f"{tp['b']['max_rel_diff_metrics']:.2e} of one process; phases "
+        f"{tp['b']['max_rel_diff_metrics']:.2e} of one process; learning "
+        f"{learning['steps']} steps at {learning['step_ms']:.1f} ms, loss "
+        f"{learning['losses'][-1]['loss']:.4f}, decode steps "
+        f"{ {k: v['decode_steps'] for k, v in learning['decode'].items()} }; phases "
         f"{ {k: round(v, 1) for k, v in seconds.items()} } s")
     record = {"kernels": table, "train": train, "end_to_end": e2e, "fp32_tokens": fp32,
               "evaluation": evaluation, "pdvc": pdvc, "asr": asr_run, "pretrain": pretrain,
               "reference_checkpoint": reference, "vc": vc, "grounding": grounding, "video": video,
               "zeroshot": zeroshot, "last_modules": last, "demo_asr": demo_asr,
-              "data_parallel": dp, "tensor_parallel": tp, "phase_seconds": seconds,
+              "data_parallel": dp, "tensor_parallel": tp, "learning": learning,
+              "phase_seconds": seconds,
               "card": card}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -88,6 +88,7 @@ def test_package_imports_with_jax_blocked():
         "import vidchapters_tpu_torch.utils.misc, vidchapters_tpu_torch.utils.preproc_answer\n"
         "import vidchapters_tpu_torch.data.whisper_tokenizer, vidchapters_tpu_torch.demo.demo_asr\n"
         "import vidchapters_tpu_torch.parallel.sharding, vidchapters_tpu_torch.runtime.mesh\n"
+        "import vidchapters_tpu_torch.train.overfit\n"
         "import vidchapters_tpu_torch.runtime.collectives, vidchapters_tpu_torch.runtime.jax_checkpoint\n"
         "import vidchapters_tpu_torch.parallel.tensor_parallel\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'vidchapters_tpu.'))\n"

@@ -13,10 +13,18 @@
   read directly;
 - PDVC's ``eval_main`` loads a JAX-saved PDVC checkpoint to
   ``pdvc_from_jax_params``'s state dict;
-- an unparseable key, a leaf with no place in the model, both forms of a
-  name in one directory and an unconverted orbax directory raise.
+- every parameter layout the JAX package saves (``scan_layers`` True,
+  "encoder" or "decoder", the ViT's ``scan_layers``, ``fused_qkv``, and
+  scan with ``fused_qkv``), saved with orbax and converted, and as the npz
+  fallback, loads through ``serve`` and ``dvc_main --load`` to the state
+  dict of the JAX package's own migration (``utils/migrate_ckpt``) bit for
+  bit, with logits within TOL of the JAX model in its own layout;
+- an unparseable key, a leaf with no place in the model, a packed kernel
+  of the wrong form, both forms of a name in one directory and an
+  unconverted orbax directory raise.
 """
 
+import dataclasses
 import json
 
 import numpy as np
@@ -239,6 +247,99 @@ def test_unparseable_key_raises_naming_it(tmp_path):
     np.savez(tmp_path / "attr.npz", **{"[0]/.w": np.zeros(2)})
     with pytest.raises(ValueError, match="not a params leaf"):
         read_params(tmp_path / "attr.npz")
+
+
+LAYOUTS = {  # (T5Config.scan_layers, T5Config.fused_qkv, TemporalViTConfig.scan_layers)
+    "scan_both": (True, False, False),
+    "scan_encoder": ("encoder", False, False),
+    "scan_decoder": ("decoder", False, False),
+    "scan_vit": (False, False, True),
+    "fused_qkv": (False, True, False),
+    "scan_fused": (True, True, False),
+}
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_every_saved_layout_imports(layout, tmp_path, monkeypatch):
+    """A JAX Vid2Seq initialised in ``layout`` and saved by
+    ``CheckpointManager`` (orbax, then ``convert_jax_checkpoint.py``; and the
+    npz fallback): ``serve.load_serving_params`` and ``dvc_main --load`` give
+    ``from_jax_params`` of JAX's own ``migrate_params(..., "unrolled",
+    fuse="unfuse")`` bit for bit, and the logits of the JAX model in
+    ``layout`` within TOL."""
+    from convert_jax_checkpoint import convert
+    from vidchapters_tpu.runtime import checkpoint
+    from vidchapters_tpu.utils.migrate_ckpt import migrate_params
+    from vidchapters_tpu_torch.models.vid2seq import Vid2Seq
+    from vidchapters_tpu_torch.models.weights import from_jax_params
+    from vidchapters_tpu_torch.serve import load_serving_params
+    from vidchapters_tpu_torch.train import dvc_main
+
+    scan, fused, vit_scan = LAYOUTS[layout]
+    jcfg, tcfg = small_cfgs()
+    jcfg = dataclasses.replace(
+        jcfg, t5=dataclasses.replace(jcfg.t5, scan_layers=scan, fused_qkv=fused),
+        vit=dataclasses.replace(jcfg.vit, scan_layers=vit_scan))
+    jmodel, params = jax_params(jcfg, seed=3)
+    stacks = [p for p, s in (("t5/encoder", scan in (True, "encoder")),
+                             ("t5/decoder", scan in (True, "decoder")),
+                             ("visual_encoder", vit_scan)) if s]
+    for path in stacks:  # the layout is the one asked for
+        node = params
+        for k in path.split("/"):
+            node = node[k]
+        assert "blocks" in node and "block_0" not in node, path
+    assert ("qkv" in params["t5"]["decoder"]["blocks" if scan in (True, "decoder")
+                                             else "block_0"]["self_attn"]) == fused
+    want = from_jax_params(migrate_params(params, "unrolled", fuse="unfuse"),
+                           Vid2Seq(tcfg))
+
+    checkpoint.CheckpointManager(str(tmp_path / "orbax")).save_last(
+        _jax_state(jcfg, params), 0)
+    convert(tmp_path / "orbax", tmp_path / "converted")
+    monkeypatch.setattr(checkpoint, "_HAS_ORBAX", False)
+    checkpoint.CheckpointManager(str(tmp_path / "fallback")).save_last(
+        _jax_state(jcfg, params), 0)
+    for save in ("converted", "fallback"):
+        npz = tmp_path / save / "last.npz"
+        served = load_serving_params(Vid2Seq(tcfg), str(tmp_path / save))
+        _assert_state_dicts_equal(served.state_dict(), want)
+        loaded = Vid2Seq(tcfg)
+        dvc_main._load_weights(loaded, str(npz))
+        _assert_state_dicts_equal(loaded.state_dict(), want)
+
+    rng = np.random.default_rng(0)
+    video = rng.normal(size=(2, jcfg.vit.num_features, jcfg.vit.embed_dim)).astype(np.float32)
+    tokens = rng.integers(3, 32200, size=(2, 20)).astype(np.int32)
+    tokens[0, 15:] = 0
+    dec = rng.integers(3, 32200, size=(2, 12)).astype(np.int32)
+    args = [video, tokens, (tokens != 0).astype(np.int32), dec]
+    ref = jmodel.apply({"params": params}, *map(jnp.asarray, args),
+                       method=lambda m, v, t, a, d: m.t5.decode(d, jnp.ones_like(d),
+                                                                *m.encode(v, t, a)))
+    with torch.no_grad():
+        d = torch.from_numpy(dec)
+        got = served.eval().t5.decode(d, torch.ones_like(d),
+                                      *served.encode(*map(torch.from_numpy, args[:3])))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=TOL, rtol=TOL)
+
+
+def test_a_packed_kernel_of_the_wrong_form_raises():
+    from vidchapters_tpu_torch.models.vid2seq import Vid2Seq
+    from vidchapters_tpu_torch.models.weights import from_jax_params, unfuse_attention
+
+    jcfg, tcfg = small_cfgs()
+    jcfg = dataclasses.replace(jcfg, t5=dataclasses.replace(jcfg.t5, fused_qkv=True))
+    _, params = jax_params(jcfg)
+    attn = params["t5"]["encoder"]["block_0"]["self_attn"]
+    with pytest.raises(ValueError, match="does not hold 3 projections"):
+        unfuse_attention({"qkv": {"kernel": attn["qkv"]["kernel"][..., :2, :]}})
+    with pytest.raises(ValueError, match="expected one kernel"):
+        unfuse_attention({"kv": {"kernel": np.zeros((128, 256), np.float32)}})
+    params["t5"]["encoder"]["block_0"]["self_attn"]["qkv"]["kernel"] = \
+        attn["qkv"]["kernel"][:, :2]  # 2 of 4 heads: no port parameter fits it
+    with pytest.raises(ValueError, match="does not fit"):
+        from_jax_params(params, Vid2Seq(tcfg))
 
 
 def test_a_leaf_with_no_place_raises(converted, tmp_path):

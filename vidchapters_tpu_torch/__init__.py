@@ -14,7 +14,11 @@ Entry points:
   bf16 Adam moments), each T5 block rematerialised in training as the JAX
   package does (``models/t5.REMAT_BLOCKS``); on N ranks over a ``(data,
   model)`` grid (``runtime/mesh``: data parallelism, Megatron tensor and
-  encoder sequence parallelism); ``--load`` also takes a JAX checkpoint;
+  encoder sequence parallelism); ``--load`` also takes a JAX checkpoint,
+  in any parameter layout that package saves;
+- ``train/overfit``: the learning proof (the JAX package's
+  ``tpu_overfit.py``): the full recipe memorises 8 synthetic videos through
+  ``dvc_main``, is scored, and its ``best`` is served;
 - ``train/vc_main``: chapter titles from ground-truth boundaries (VC):
   Vid2Seq trained on clips and evaluated per clip (beam search on the
   decode kernel, the COCO captioning metrics), and the ``random``

@@ -2,9 +2,11 @@
 
 Field for field the same tree as ``vidchapters_tpu/config.py``, so an
 ``ExperimentConfig`` JSON written by the JAX package loads here unchanged.
-Fields that only steer the JAX package (``scan_layers``, ``fused_qkv``)
-are kept for that round trip and ignored by the port; ``remat`` checkpoints
-each T5 block in training, as there (``models/t5.REMAT_BLOCKS``). The mesh
+Fields that only steer the JAX package's parameter layout
+(``scan_layers``, ``fused_qkv``) are kept for that round trip and do not
+change the port's modules: a JAX checkpoint saved in those layouts imports
+into them (``models/weights.from_jax_params``); ``remat`` checkpoints each
+T5 block in training, as there (``models/t5.REMAT_BLOCKS``). The mesh
 is a ``(data, model)`` grid of ranks (``runtime/mesh.py``); the model axis
 must divide every width it shards (``MeshConfig.check_widths``).
 

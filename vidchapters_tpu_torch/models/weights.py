@@ -8,10 +8,16 @@ weights ``[out, in, k]`` and ``[kh, kw, in, out]`` become ``Conv2d`` weights
 ``[out, in, kh, kw]``, and norm ``scale`` leaves become ``weight``. A leaf
 the port has no place for, or a port parameter that no leaf fills, raises.
 
-- ``from_jax_params``: Vid2Seq in its default unscanned layout
-  (``block_{i}``, separate q/k/v); ``nn.Embed``'s ``embedding`` becomes
-  ``weight``. The scanned (``blocks``) and packed (``fused_qkv``) layouts
-  raise.
+- ``from_jax_params``: Vid2Seq in every layout the JAX package saves:
+  ``block_{i}`` -> ``blocks.{i}``, ``nn.Embed``'s ``embedding`` becomes
+  ``weight``. A scanned stack (``T5Config.scan_layers`` True, "encoder" or
+  "decoder", ``TemporalViTConfig.scan_layers``: one ``blocks`` subtree
+  whose leaves carry a leading layer axis) is unstacked first, and the
+  packed projections of ``T5Config.fused_qkv`` (self-attention ``qkv``
+  ``[..., d, heads, 3, d_kv]``, cross-attention ``kv`` ``[..., d, heads, 2,
+  d_kv]``) are split into q / k / v: the migration of the JAX package's
+  ``utils/migrate_ckpt.py`` to its unrolled, unfused layout, done here in
+  numpy (``unrolled_vid2seq_params``).
 - ``pdvc_from_jax_params``: PDVC; the lists ``enc_{i}``, ``dec_{i}``,
   ``proj_{l}``, ``class_head_{i}``, ``count_head_{i}`` and ``bbox_head_{i}``
   map to ``enc_layers.{i}``, ``dec_layers.{i}``, ``proj.{l}``,
@@ -134,12 +140,88 @@ def _import(params: Mapping[str, Any], model: nn.Module, name_of: Callable[[tupl
     return out
 
 
+def _unstack_trees(tree) -> list:
+    if isinstance(tree, Mapping):
+        per_key = {k: _unstack_trees(v) for k, v in tree.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    arr = np.asarray(tree)
+    return [arr[i] for i in range(arr.shape[0])]
+
+
+def unscan_stacked_layers(stack: Mapping[str, Any]) -> Dict[str, Any]:
+    """A scanned stack's ``blocks`` subtree (leading [n_layers] axis) ->
+    ``block_{i}`` children; the JAX package's
+    ``models/torch_import.unscan_stacked_layers``."""
+    out = {k: v for k, v in stack.items() if k != "blocks"}
+    for i, blk in enumerate(_unstack_trees(stack["blocks"])):
+        out[f"block_{i}"] = blk
+    return out
+
+
+def unfuse_attention(attn: Mapping[str, Any]) -> Dict[str, Any]:
+    """A packed ``qkv`` (self) or ``kv`` (cross) kernel ``[..., d, heads, P,
+    d_kv]`` -> separate ``q`` / ``k`` / ``v`` kernels ``[..., d, heads *
+    d_kv]``; the JAX package's ``models/torch_import._unfuse_attn``. An
+    attention without a packed kernel comes back as it is."""
+    key = "qkv" if "qkv" in attn else ("kv" if "kv" in attn else None)
+    if key is None:
+        return dict(attn)
+    packed = attn[key]
+    if set(packed) != {"kernel"} or np.ndim(packed["kernel"]) < 4:
+        raise ValueError(f"a packed '{key}' holds {sorted(packed)} "
+                         f"{[np.shape(v) for v in packed.values()]}: expected one kernel "
+                         f"[..., d, heads, {3 if key == 'qkv' else 2}, d_kv]")
+    fused = np.asarray(packed["kernel"])
+    names = ("q", "k", "v") if key == "qkv" else ("k", "v")
+    if fused.shape[-2] != len(names):
+        raise ValueError(f"a packed '{key}' kernel {fused.shape} does not hold "
+                         f"{len(names)} projections on its axis -2")
+    flat = fused.shape[:-3] + (fused.shape[-3] * fused.shape[-1],)
+    out = {k: v for k, v in attn.items() if k != key}
+    for i, name in enumerate(names):
+        out[name] = {"kernel": np.ascontiguousarray(fused[..., i, :]).reshape(flat)}
+    return out
+
+
+def _unfuse_stack(stack: Mapping[str, Any]) -> Dict[str, Any]:
+    out = dict(stack)
+    for key, blk in stack.items():
+        if key.startswith("block_") and isinstance(blk, Mapping):
+            out[key] = {k: (unfuse_attention(v) if k in ("self_attn", "cross_attn") else v)
+                        for k, v in blk.items()}
+    return out
+
+
+def unrolled_vid2seq_params(params: Mapping[str, Any]) -> Dict[str, Any]:
+    """A JAX ``Vid2Seq`` param tree in any layout the JAX package saves ->
+    its default layout (``block_{i}``, separate q / k / v): each T5 stack and
+    the ViT unstacked where they hold ``blocks``, then every T5 attention's
+    packed kernel split. What ``utils/migrate_ckpt.migrate_params(tree,
+    "unrolled", fuse="unfuse")`` gives there."""
+    out = dict(params)
+    if isinstance(params.get("t5"), Mapping):
+        t5 = dict(params["t5"])
+        for name in ("encoder", "decoder"):
+            stack = t5.get(name)
+            if isinstance(stack, Mapping):
+                if "blocks" in stack:
+                    stack = unscan_stacked_layers(stack)
+                t5[name] = _unfuse_stack(stack)
+        out["t5"] = t5
+    vit = params.get("visual_encoder")
+    if isinstance(vit, Mapping) and "blocks" in vit:
+        out["visual_encoder"] = unscan_stacked_layers(vit)
+    return out
+
+
 def from_jax_params(params: Mapping[str, Any], model: nn.Module) -> Dict[str, torch.Tensor]:
-    """JAX ``Vid2Seq`` params -> ``model``'s state_dict (float32 tensors on
-    the CPU, shapes checked against ``model``). For a model sharded over the
-    model axis the whole state dict, for
-    ``parallel/sharding.load_full_state_dict``."""
-    return _import(params, model, _port_name, "from_jax_params")
+    """JAX ``Vid2Seq`` params, in any layout the JAX package saves (scanned
+    stacks, packed projections: ``unrolled_vid2seq_params``) -> ``model``'s
+    state_dict (float32 tensors on the CPU, shapes checked against
+    ``model``). For a model sharded over the model axis the whole state
+    dict, for ``parallel/sharding.load_full_state_dict``."""
+    return _import(unrolled_vid2seq_params(params), model, _port_name, "from_jax_params")
 
 
 def pdvc_from_jax_params(params: Mapping[str, Any], model: nn.Module

@@ -33,8 +33,9 @@ import json
 import queue as queue_mod
 import threading
 import time
+from collections import deque
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Deque, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -97,6 +98,8 @@ class ChapterGenerator:
         self._max_batch = self.batch_buckets[-1]
         self._max_wait = max_wait_ms / 1000.0
         self.device_calls = 0  # observability: batched calls made
+        # observability: the decode steps of each device call, newest last
+        self.decode_steps: Deque[int] = deque(maxlen=4096)
         self._queue: queue_mod.Queue = queue_mod.Queue()
         self._dispatcher: Optional[threading.Thread] = None
         self._dispatcher_lock = threading.Lock()
@@ -227,6 +230,7 @@ class ChapterGenerator:
                 torch.from_numpy(np.ascontiguousarray(videos)).to(self.device),
                 torch.from_numpy(np.ascontiguousarray(tokens)).to(self.device))
             self.device_calls += 1
+            self.decode_steps.append(self._generate.decode_steps)
         return seqs
 
     def _device_generate(self, videos: np.ndarray, tokens: np.ndarray

@@ -248,7 +248,9 @@ def make_generate_fn(model: Vid2Seq, gen: GenerationConfig) -> Callable:
 
     Weights are cast once to ``gen.param_dtype`` (the JAX package casts
     every float32 leaf inside its jitted generate); compute runs in the
-    model config's dtype (bfloat16 by default)."""
+    model config's dtype (bfloat16 by default). ``generate.decode_steps``
+    is the number of decode steps its last call ran (each step's stop test
+    is read on the host, so the count is final when the call returns)."""
     if is_sharded(model):
         raise ValueError("generate on the gathered weights (parallel/sharding.gather_params)")
     cast_to = getattr(torch, getattr(gen, "param_dtype", "float32"))
@@ -256,10 +258,18 @@ def make_generate_fn(model: Vid2Seq, gen: GenerationConfig) -> Callable:
         model = copy.deepcopy(model).to(cast_to)
     model.eval()
     fns = _pick_decode_fns(model, gen)
+    step = fns.step
+
+    def counted_step(*args, **kwargs):
+        generate.decode_steps += 1
+        return step(*args, **kwargs)
+
+    fns = fns._replace(step=counted_step)
 
     @torch.inference_mode()
     def generate(video: torch.Tensor, input_tokens: torch.Tensor,
                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        generate.decode_steps = 0
         attn = (input_tokens != 0).to(torch.int32)
         enc_out, enc_mask = model.encode_for_generation(video, input_tokens, attn)
         if _is_nucleus(gen):
@@ -278,6 +288,7 @@ def make_generate_fn(model: Vid2Seq, gen: GenerationConfig) -> Callable:
                            min_length=gen.min_length,
                            repetition_penalty=gen.repetition_penalty)
 
+    generate.decode_steps = 0
     return generate
 
 
